@@ -1,0 +1,54 @@
+"""The fixed-ratio chunk math as plain PyTorch (single shard, float32).
+
+The counterpart of ``art_tpu/parallel/pipeline.py``'s ``_window_and_hist``,
+``_mask_outputs`` and ``_resample_block`` with the contraction of
+``residue_window_dots``.  On the TPU the residue split exists to avoid a
+gather: here ``Tensor.unfold(1, qn*M, M)`` is exactly the overlapping
+``[ch, nb, qn*M]`` window view, so one matmul does the contraction.  This is
+the plain version kernel K1 (``ops/fixed_step.py``) is held against, and the
+step a CPU tensor takes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def window_and_hist(x, hist, start: int, xlen: int, hist_len: int):
+    """History concat -> window of ``xlen`` samples at ``start`` (reads past
+    the end are zero) and the advanced history (the last ``hist_len``
+    columns of history + input).
+
+    ``jax.lax.dynamic_slice`` clamps an out-of-range start; here it raises
+    instead, since the accounting never produces one."""
+    buf = torch.cat([hist, x], dim=1)
+    W = buf.shape[1]
+    if not 0 <= start <= W:
+        raise ValueError(f"window start {start} outside [0, {W}]")
+    win = buf[:, start:start + xlen]
+    if win.shape[1] < xlen:
+        win = torch.nn.functional.pad(win, (0, xlen - win.shape[1]))
+    return win, buf[:, W - hist_len:].contiguous()
+
+
+def mask_outputs(out, K: int, nb: int, L: int):
+    """Flatten [S, nb, L] output blocks and zero the entries at and beyond
+    K."""
+    out = out.reshape(out.shape[0], nb * L)
+    valid = torch.arange(nb * L, device=out.device) < K
+    return out * valid.to(out.dtype)
+
+
+def resample_block(x, hist, P, start: int, K: int, *, M: int, L: int,
+                   nb: int, qn: int, hist_len: int, fracv=None):
+    """One chunk's contraction: output block i is
+    ``win[i*M : i*M + qn*M] @ P``; with ``fracv`` P stacks two phase banks
+    [qn*M, 2L] whose dots are lerped per phase.  Returns
+    (out [S, nb*L] zeroed beyond K, new_hist)."""
+    KQ = qn * M
+    win, new_hist = window_and_hist(x, hist, start, (nb - 1) * M + KQ,
+                                    hist_len)
+    d = win.unfold(1, KQ, M) @ P                        # [S, nb, L or 2L]
+    if fracv is not None:
+        d = d[:, :, :L] * (1.0 - fracv) + d[:, :, L:] * fracv
+    return mask_outputs(d, K, nb, L), new_hist

@@ -1,0 +1,120 @@
+"""K1's plain version (art_tpu_torch.ops.fixed_step) held against the JAX
+chunk step: the XLA body (streams._chunk_step / _chunk_step_interp) and the
+Pallas kernel fixed_step_pallas in interpret mode, on the same numpy inputs.
+
+Tolerances: samples within 1e-5 abs on std-0.5 noise (the three float32
+contractions sum in different orders; their measured spread is 1.3-1.7e-6),
+the new history bitwise (it is a copy), the power accumulator within rel
+1e-5, and the tail past K exactly zero."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from art_tpu.core.flags import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
+                                SUBSAMPLE_INTERPOLATE)
+from art_tpu.ops.fixed_pallas import fixed_step_pallas
+from art_tpu.parallel import streams as jstreams
+from art_tpu_torch.ops import fixed_step as k1
+from art_tpu_torch.parallel import pipeline
+
+IB = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
+CONFIGS = {
+    "fwd": (44100, 48000, 380, 380),     # main path: M=147, L=160, qn=4
+    "inv": (48000, 44100, 380, 380),     # inverse leg: M=160, L=147, qn=4
+    "interp": (44100, 48000, 48, 48),    # 48 filters cannot reduce: fracv
+}
+
+
+def _chunk_inputs(config, n, kmode, seed):
+    """(hist, x, P, fracv, start, K, nb, kw) for one chunk of n inputs on
+    a JAX engine's first plan; kmode 'full', 'mid' (K inside a block) or
+    'zero'."""
+    src, dst, taps, filters = CONFIGS[config]
+    eng = jstreams.DeviceStreamResampler(2, taps, filters, src, dst, 0, IB)
+    eng.advance_position(taps // 2)
+    K, start, j0, pos0, _ = eng._plan_compute(n)
+    if config == "interp":
+        P, fracv = (np.asarray(a) for a in eng._interp_matrix(pos0)[:2])
+    else:
+        P, fracv = np.asarray(eng._matrix(j0)), None
+    K = {"full": K, "mid": K - eng.L - eng.L // 3, "zero": 0}[kmode]
+    nb = -(-K // eng.L) if K else 1
+    rng = np.random.default_rng(seed)
+    hist = rng.normal(0, 0.5, (2, eng.num_samples)).astype(np.float32)
+    x = rng.normal(0, 0.5, (2, n)).astype(np.float32)
+    kw = dict(M=eng.M, L=eng.L, nb=nb, qn=eng.qn, hist_len=eng.num_samples)
+    return hist, x, P, fracv, start, K, nb, kw
+
+
+def _torch_step(hist, x, P, fracv, start, K, kw):
+    t = torch.tensor
+    h, o, a = k1.fixed_step(t(hist), t(x), t(P), start, K,
+                            torch.zeros((), dtype=torch.float32),
+                            fracv=None if fracv is None else t(fracv), **kw)
+    return h.numpy(), o.numpy(), float(a)
+
+
+def _jax_steps(hist, x, P, fracv, start, K, kw):
+    args = (jnp.asarray(hist), jnp.asarray(x), jnp.asarray(P))
+    acc, s, k = jnp.zeros((), jnp.float32), jnp.int32(start), jnp.int32(K)
+    if fracv is None:
+        xla = jstreams._chunk_step(*args, s, k, acc, **kw)
+    else:
+        xla = jstreams._chunk_step_interp(*args, jnp.asarray(fracv), s, k,
+                                          acc, **kw)
+    pallas = fixed_step_pallas(*args, s, k, acc, jb=8, interpret=True,
+                               fracv=None if fracv is None
+                               else jnp.asarray(fracv), **kw)
+    return {name: (np.asarray(h), np.asarray(o), float(a))
+            for name, (h, o, a) in (("xla", xla), ("pallas", pallas))}
+
+
+@pytest.mark.parametrize("kmode", ["full", "mid", "zero"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_fixed_step_matches_jax(config, kmode):
+    hist, x, P, fracv, start, K, nb, kw = _chunk_inputs(config, 4096, kmode,
+                                                        seed=11)
+    h, o, a = _torch_step(hist, x, P, fracv, start, K, kw)
+    assert o.shape == (2, nb * kw["L"])
+    assert not o[:, K:].any()
+    for name, (hj, oj, aj) in _jax_steps(hist, x, P, fracv, start, K,
+                                         kw).items():
+        assert oj.shape == o.shape, name
+        np.testing.assert_array_equal(h, hj, err_msg=name)
+        assert np.abs(o - oj).max() <= 1e-5, name
+        assert a == pytest.approx(aj, rel=1e-5, abs=1e-12), name
+
+
+@pytest.mark.parametrize("n", [1, 1000, 40 * 147])
+def test_fixed_step_short_and_long_chunks(n):
+    """n_in < hist_len (the new history spans old history and x) and a
+    longer chunk, against the XLA body."""
+    hist, x, P, fracv, start, K, nb, kw = _chunk_inputs("fwd", n, "full",
+                                                        seed=n)
+    h, o, a = _torch_step(hist, x, P, fracv, start, K, kw)
+    hj, oj, aj = _jax_steps(hist, x, P, fracv, start, K, kw)["xla"]
+    np.testing.assert_array_equal(h, hj)
+    assert np.abs(o - oj).max() <= 1e-5
+    assert a == pytest.approx(aj, rel=1e-5, abs=1e-12)
+
+
+def test_window_start_out_of_range_raises():
+    """jax.lax.dynamic_slice would clamp; the port refuses."""
+    hist = torch.zeros((2, 10))
+    x = torch.zeros((2, 5))
+    with pytest.raises(ValueError, match="window start"):
+        pipeline.window_and_hist(x, hist, 16, 4, 10)
+    with pytest.raises(ValueError, match="window start"):
+        pipeline.window_and_hist(x, hist, -1, 4, 10)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The CUDA launch never runs the plain version in its place."""
+    launches = k1.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.fixed_step_kernel(torch.zeros((2, 700)), torch.zeros((588, 160)),
+                             0, 0, M=147, L=160, nb=1, qn=4)
+    assert k1.launches == launches
