@@ -1,23 +1,27 @@
 """ART-TPU on PyTorch and CUDA: the port of ``art_tpu``'s device layer.
 
 ``art_tpu`` (JAX/XLA/Pallas) stays the reference.  This package rewrites
-only its device layer in PyTorch, with every Pallas kernel on the path
-replaced by a kernel written by hand for NVIDIA Hopper (``csrc/``).  The
-numpy host layer -- flags, filter design, the float64 consume/emit
-accounting, the phase-anchor matrices and the test signals -- is imported
-from ``art_tpu`` as it is, so counts and positions come from the very same
-code and match exactly.  Importing this package never imports jax.
+its device layer in PyTorch, with every Pallas kernel on the path replaced
+by a kernel written by hand for NVIDIA Hopper (``csrc/``).  The numpy host
+layer it needs -- flags, filter design, the float64 consume/emit accounting,
+the phase-anchor matrices and the test signals -- is a copy of
+``art_tpu``'s (``core/``, ``ops/polyphase.py``, ``utils/``), so counts and
+positions match the JAX engines exactly.  Importing this package imports
+neither jax nor ``art_tpu``.
 
 Ported so far: the reduced float32 fixed-ratio streaming resampler
-(``DeviceStreamResampler``) with its chunk step on kernel K1
-(``ops/fixed_step.py``).  See ROADMAP.md for what is still to come.
+(``DeviceStreamResampler``, chunk step on kernel K1, ``ops/fixed_step.py``)
+and the batched drifting-ratio ASRC (``BatchedASRC`` and its artest
+adapter ``ASRCStreamResampler``, on the ASRC kernels of
+``ops/asrc_step.py``).  See ROADMAP.md for what is still to come.
 """
 
 from __future__ import annotations
 
-from art_tpu.core.flags import *  # noqa: F401,F403
+from .core.flags import *  # noqa: F401,F403
 
 from ._device import pin_ieee_fp32, resolve_device  # noqa: F401
+from .parallel.asrc import ASRCStreamResampler, BatchedASRC  # noqa: F401
 from .parallel.streams import DeviceStreamResampler  # noqa: F401
 
 pin_ieee_fp32()

@@ -13,12 +13,13 @@
 // (reference subsample_interpolate, dot-then-lerp as in the JAX body).
 //
 // What bounds it.  Per 2^22-frame stereo chunk at the main path's shapes
-// (44.1k->48k, M=147, L=160, qn=4): 2 x 4.57M outputs x 588 FMAs ~ 10.7
-// GFLOP against ~70 MB of input and output, ~150 FLOP/byte, so it is bound by
-// the float32 FMA rate (67 TFLOP/s on an H100 SXM at 700 W: a floor of about
-// 0.16 ms).  That is arithmetic from shapes and the data sheet, not a
-// measurement.  208 of each P column's 588 rows are structural zeros (a
-// phase's filter covers 380 of them); a later kernel may skip them.
+// (44.1k->48k, M=147, L=160, qn=4) the function needs 2 x 4.57M outputs x
+// 380 FMAs (a phase's filter covers 380 of each P column's 588 rows; the
+// other 208 are structural zeros) ~ 6.9 GFLOP against ~70 MB of input and
+// output, ~100 FLOP/byte, so it is bound by the float32 FMA rate (67
+// TFLOP/s on an H100 SXM at 700 W: a floor of about 0.10 ms).  That is
+// arithmetic from shapes and the data sheet, not a measurement.  This kernel
+// multiplies all 588 rows; a later kernel may skip the zeros.
 //
 // Design.  IEEE float32 FMAs on the CUDA cores: no TF32, no tensor cores
 // (Hopper's tensor cores have no IEEE float32 mode).  The TPU kernel's

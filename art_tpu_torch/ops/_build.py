@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The library lands in ``build/art_tpu_torch/`` at the
-root of the checkout, named by a hash of the sources and flags, so editing a
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into ONE shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  The library lands in ``build/art_tpu_torch/`` at the root
+of the checkout, named by a hash of the sources and flags, so editing a
 source rebuilds it and an unchanged tree reuses it.  Nothing is built at
 import: the first launch builds.
 """
@@ -21,16 +22,25 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "art_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""      # nvcc's output of the build this process made, if any
 
 _vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ASRC_STEP = [_vp, _ll, _vp, _ll, _ll, _vp, _i, _i, _vp, _vp, _vp, _ll, _ll,
+              _vp, _vp]
 _SIGNATURES = {
     # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, stream
     "art_fixed_step": [_vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _vp, _i, _i, _i,
                        _ll, _vp, _vp],
+    # hist, H, x, n, S, bank, taps, F, offsets, ratios, Ks, shift, k_max,
+    # out, stream
+    "art_asrc_step_f32": _ASRC_STEP,
+    "art_asrc_step_f64": _ASRC_STEP,
+    # buf, S, B, bank, taps, F, base, fi, frac, K, out, stream
+    "art_asrc_apply_f32": [_vp, _ll, _ll, _vp, _i, _i, _vp, _vp, _vp, _ll,
+                           _vp, _vp],
 }
 
 
@@ -43,6 +53,40 @@ def nvcc() -> str:
         raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): the "
                            "CUDA kernels cannot be built")
     return path
+
+
+def _compile(sources: list[Path], so: Path) -> str:
+    """One nvcc per source, run in parallel, then one link into ``so``.
+    Returns nvcc's output; raises if a step fails."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    log, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
+                               + "".join(log))
+        tmp = so.with_suffix(f".{tag}")
+        link = subprocess.run([nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               + "".join(log))
+        os.replace(tmp, so)     # atomic: a concurrent process sees all or none
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(log)
 
 
 def library() -> ctypes.CDLL:
@@ -58,15 +102,7 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libart_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, so)     # atomic: a concurrent process sees all or none
+        build_log = _compile(sources, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

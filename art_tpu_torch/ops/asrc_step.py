@@ -1,0 +1,232 @@
+"""K2-K5: the batched drifting-ratio ASRC step, on CUDA kernels.
+
+The counterpart of ``art_tpu/parallel/asrc.py::_asrc_step`` (the function
+that the Pallas kernels ``asrc_step_hankel``, ``asrc_step_dense`` and
+``asrc_step_hankel_ds`` of ``art_tpu/ops/pallas_kernels.py`` compute) and of
+``pallas_kernels.asrc_apply_pallas`` with its prologue
+``asrc.py::_pallas_prologue``.  The kernels live in ``csrc/asrc_step.cu``
+(see its header for what they compute, what bounds them and how they are
+laid out):
+
+- ``asrc_step``: positions, phases and the masked two-phase windowed dot in
+  one launch; float32 (K2, K3) and float64 (K4) instances;
+- ``asrc_apply``: the unmasked two-phase dot from precomputed base/fi/frac
+  (K5, float32); its prologue ``apply_prologue`` is plain PyTorch on the
+  device, as ``_pallas_prologue`` is XLA code outside the ``pallas_call``.
+
+A CPU tensor takes the plain version (``asrc_step_reference``,
+``asrc_apply_reference``); a CUDA tensor launches the kernel or raises.
+``launches`` counts kernel launches per kernel name.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+launches = {"asrc_step": 0, "asrc_step_f64": 0, "asrc_apply": 0}
+
+TILE = 128      # outputs per gather tile of the plain versions
+
+
+def decompose_positions(offsets, ratios, k_max: int, *, num_taps: int,
+                        num_filters: int, shift: int, dtype):
+    """[S, k_max] window bases (int64), phase indices (int64) and lerp
+    fractions (``dtype``) of the emissions pos = offsets + k / ratios, in
+    float64 with the JAX step's operations (division, not a reciprocal
+    product)."""
+    k = torch.arange(k_max, dtype=torch.float64, device=offsets.device)
+    pos = offsets[:, None] + k[None, :] / ratios[:, None]
+    ipos = torch.floor(pos)
+    ff = (pos - ipos) * num_filters
+    fi = torch.clamp(torch.floor(ff), max=num_filters - 1).to(torch.int64)
+    frac = (ff - fi).to(dtype)
+    base = ipos.to(torch.int64) - num_taps // 2 + 1 + shift
+    return base, fi, frac
+
+
+def _gather_windows(buf, base, num_taps: int):
+    """[S, t, T] windows buf[s, base[s, k] + tap], indices clamped to the
+    buffer (as JAX's take_along_axis clip)."""
+    S, t = base.shape
+    idx = base[:, :, None] + torch.arange(num_taps, device=buf.device)
+    idx = idx.clamp_(0, buf.shape[1] - 1).reshape(S, t * num_taps)
+    return torch.gather(buf, 1, idx).reshape(S, t, num_taps)
+
+
+def asrc_step_reference(hist, x, bank, offsets, ratios, Ks, shift: int, *,
+                        num_taps: int, num_filters: int, k_max: int,
+                        hist_len: int):
+    """The plain PyTorch ASRC step, tiled over outputs so that the
+    [S, tile, T] gather stays bounded.  hist [S, H], x [S, n], bank
+    [F + 1, T] (float32 or float64, one type); offsets, ratios float64 [S];
+    Ks int [S].  Returns (new_hist = (hist ++ x)[:, -hist_len:],
+    out [S, k_max] with k >= Ks zeroed)."""
+    buf = torch.cat([hist, x], dim=1)
+    base, fi, frac = decompose_positions(
+        offsets, ratios, k_max, num_taps=num_taps, num_filters=num_filters,
+        shift=shift, dtype=bank.dtype)
+    out = torch.empty((x.shape[0], k_max), dtype=buf.dtype,
+                      device=buf.device)
+    for k0 in range(0, k_max, TILE):
+        sl = slice(k0, min(k0 + TILE, k_max))
+        win = _gather_windows(buf, base[:, sl], num_taps)
+        fr = frac[:, sl, None]
+        w = bank[fi[:, sl]] * (1.0 - fr) + bank[fi[:, sl] + 1] * fr
+        out[:, sl] = torch.sum(win * w, dim=2)
+    valid = torch.arange(k_max, device=buf.device)[None, :] < Ks[:, None]
+    return (buf[:, buf.shape[1] - hist_len:].contiguous(),
+            out * valid.to(out.dtype))
+
+
+def asrc_apply_reference(buf, bank, base, fi, frac):
+    """The plain two-phase windowed dot (the K5 body): out[s, k] =
+    (1 - frac) * <win, bank[fi]> + frac * <win, bank[fi + 1]>, with win =
+    buf[s, base : base + T], unmasked."""
+    num_taps = bank.shape[1]
+    out = torch.empty(base.shape, dtype=buf.dtype, device=buf.device)
+    for k0 in range(0, base.shape[1], TILE):
+        sl = slice(k0, k0 + TILE)
+        win = _gather_windows(buf, base[:, sl].long(), num_taps)
+        f = fi[:, sl].long()
+        d1 = torch.sum(win * bank[f], dim=2)
+        d2 = torch.sum(win * bank[f + 1], dim=2)
+        out[:, sl] = d1 * (1.0 - frac[:, sl]) + d2 * frac[:, sl]
+    return out
+
+
+def apply_prologue(hist, x, offsets, ratios, shift: int, *, num_taps: int,
+                   num_filters: int, k_max: int, hist_len: int):
+    """The positions of ``asrc_apply``, decomposed on the device (the
+    counterpart of ``_pallas_prologue`` without the TPU's lane padding).
+    Returns (buf, base, fi int32 [S, k_max], frac [S, k_max], new_hist);
+    bases are clamped so every window, the masked ones too, lies in buf."""
+    buf = torch.cat([hist, x], dim=1)
+    base, fi, frac = decompose_positions(
+        offsets, ratios, k_max, num_taps=num_taps, num_filters=num_filters,
+        shift=shift, dtype=buf.dtype)
+    base = base.clamp_(0, buf.shape[1] - num_taps)
+    return (buf, base.to(torch.int32), fi.to(torch.int32), frac,
+            buf[:, buf.shape[1] - hist_len:].contiguous())
+
+
+def _check(name, t, dev, dtype, shape):
+    if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous {dtype} tensor on "
+                         f"{dev}, got a {'' if t.is_contiguous() else 'non-'}"
+                         f"contiguous {t.dtype} on {t.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_bank(bank, num_taps: int):
+    # the kernels read bank rows in 16-byte loads
+    if num_taps % 4 or bank.data_ptr() % 16:
+        raise ValueError(f"bank: needs taps % 4 == 0 and a 16-byte aligned "
+                         f"start, got {num_taps} taps at "
+                         f"{bank.data_ptr():#x}")
+
+
+def asrc_step_kernel(hist, x, bank, offsets, ratios, Ks, shift: int, *,
+                     num_taps: int, num_filters: int, k_max: int):
+    """Launch the ASRC step kernel (float32 or float64 by ``hist``'s type)
+    over buf = hist ++ x, read in place.  Returns out [S, k_max] with
+    k >= Ks zeroed."""
+    dev = hist.device
+    if dev.type != "cuda":
+        raise ValueError(f"the ASRC step kernel runs on CUDA tensors, got "
+                         f"{dev}")
+    if hist.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the ASRC step kernel takes float32 or float64, "
+                         f"got {hist.dtype}")
+    S, H = hist.shape
+    n = x.shape[1]
+    _check("hist", hist, dev, hist.dtype, (S, H))
+    _check("x", x, dev, hist.dtype, (S, n))
+    _check("bank", bank, dev, hist.dtype, (num_filters + 1, num_taps))
+    _check_bank(bank, num_taps)
+    _check("offsets", offsets, dev, torch.float64, (S,))
+    _check("ratios", ratios, dev, torch.float64, (S,))
+    _check("Ks", Ks, dev, torch.int32, (S,))
+    if k_max <= 0 or H + n < 1:
+        raise ValueError(f"bad step: k_max={k_max}, H={H}, n={n}")
+    f64 = hist.dtype == torch.float64
+    name = "asrc_step_f64" if f64 else "asrc_step"
+    lib = _build.library()
+    fn = lib.art_asrc_step_f64 if f64 else lib.art_asrc_step_f32
+    out = torch.empty((S, k_max), dtype=hist.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(hist.data_ptr(), H, x.data_ptr(), n, S, bank.data_ptr(),
+                num_taps, num_filters, offsets.data_ptr(), ratios.data_ptr(),
+                Ks.data_ptr(), int(shift), int(k_max), out.data_ptr(),
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"art_{name} launch failed: cudaError {rc}")
+    launches[name] += 1
+    return out
+
+
+def asrc_step(hist, x, bank, offsets, ratios, Ks, shift: int, *,
+              num_taps: int, num_filters: int, k_max: int, hist_len: int):
+    """One batched ASRC chunk: (new_hist, out [S, k_max] with k >= Ks
+    zeroed).  CPU tensors take asrc_step_reference; CUDA tensors launch
+    the kernel."""
+    if hist.device.type == "cpu":
+        return asrc_step_reference(hist, x, bank, offsets, ratios, Ks, shift,
+                                   num_taps=num_taps,
+                                   num_filters=num_filters, k_max=k_max,
+                                   hist_len=hist_len)
+    out = asrc_step_kernel(hist, x, bank, offsets, ratios, Ks, shift,
+                           num_taps=num_taps, num_filters=num_filters,
+                           k_max=k_max)
+    n = x.shape[1]
+    if n >= hist_len:
+        new_hist = x[:, n - hist_len:].contiguous()
+    else:
+        new_hist = torch.cat([hist[:, n:], x], dim=1)
+    return new_hist, out
+
+
+def asrc_apply_kernel(buf, bank, base, fi, frac):
+    """Launch the two-phase apply kernel (float32): out [S, K], unmasked."""
+    dev = buf.device
+    if dev.type != "cuda":
+        raise ValueError(f"the ASRC apply kernel runs on CUDA tensors, got "
+                         f"{dev}")
+    S, B = buf.shape
+    K = base.shape[1]
+    num_taps = bank.shape[1]
+    _check("buf", buf, dev, torch.float32, (S, B))
+    _check("bank", bank, dev, torch.float32, (bank.shape[0], num_taps))
+    _check_bank(bank, num_taps)
+    _check("base", base, dev, torch.int32, (S, K))
+    _check("fi", fi, dev, torch.int32, (S, K))
+    _check("frac", frac, dev, torch.float32, (S, K))
+    if K <= 0 or B < num_taps or bank.shape[0] < 2:
+        raise ValueError(f"bad apply: K={K}, B={B}, bank "
+                         f"{tuple(bank.shape)}")
+    lib = _build.library()
+    out = torch.empty((S, K), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.art_asrc_apply_f32(
+            buf.data_ptr(), S, B, bank.data_ptr(), num_taps,
+            bank.shape[0] - 1, base.data_ptr(), fi.data_ptr(),
+            frac.data_ptr(), K, out.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"art_asrc_apply_f32 launch failed: cudaError "
+                           f"{rc}")
+    launches["asrc_apply"] += 1
+    return out
+
+
+def asrc_apply(buf, bank, base, fi, frac):
+    """The two-phase windowed dot from precomputed indices (unmasked).  CPU
+    tensors take asrc_apply_reference; CUDA tensors launch the kernel."""
+    if buf.device.type == "cpu":
+        return asrc_apply_reference(buf, bank, base, fi, frac)
+    return asrc_apply_kernel(buf, bank, base, fi, frac)

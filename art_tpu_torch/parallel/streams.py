@@ -3,7 +3,7 @@
 The counterpart of ``art_tpu/parallel/streams.py::DeviceStreamResampler`` in
 its reduced float32 mode.  Audio and history stay on the engine's device;
 the host does only the scalar consume/emit accounting per chunk, with the
-very same float64 code as the JAX engine (``art_tpu.core.accounting``), so
+port's copy of the JAX engine's float64 code (``core/accounting.py``), so
 counts and positions match it exactly.  Each chunk is one call of
 ``ops.fixed_step.fixed_step``: kernel K1 on a CUDA device, its plain version
 on the CPU.
@@ -21,15 +21,13 @@ import math
 import numpy as np
 import torch
 
-from art_tpu.core import accounting
-from art_tpu.core.filters import (make_filter_bank, plan_fixed_ratio,
-                                  resolve_lowpass)
-from art_tpu.core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
-                                INCLUDE_LOWPASS, SUBSAMPLE_INTERPOLATE)
-from art_tpu.ops.polyphase import PolyphaseMatrix
-
 from .._device import resolve_device
+from ..core import accounting
+from ..core.filters import make_filter_bank, plan_fixed_ratio, resolve_lowpass
+from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
+                          INCLUDE_LOWPASS, SUBSAMPLE_INTERPOLATE)
 from ..ops.fixed_step import fixed_step
+from ..ops.polyphase import PolyphaseMatrix
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:

@@ -15,10 +15,9 @@ import math
 import numpy as np
 import torch
 
-from art_tpu.core.flags import BLACKMAN_HARRIS, SUBSAMPLE_INTERPOLATE
-from art_tpu.utils.testsig import NoiseLCG, fade_in, fade_out
-
+from .core.flags import BLACKMAN_HARRIS, SUBSAMPLE_INTERPOLATE
 from .parallel.streams import DeviceStreamResampler
+from .utils.testsig import NoiseLCG, fade_in, fade_out
 
 # no lowpass: `artest -i -e` runs without -l, and the inverse leg's
 # auto-lowpass would strip the source's top band and dominate the diff

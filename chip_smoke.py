@@ -3,26 +3,46 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the reduced float32 fixed-ratio streaming
-resampler, preset -3 (2 channels, 380 taps, 44.1k<->48k) -- on the card, in
-phases; any failure raises and exits non-zero:
+Drives the port's two paths on the card -- the reduced float32 fixed-ratio
+streaming resampler, preset -3 (2 channels, 380 taps, 44.1k<->48k), and the
+batched drifting-ratio ASRC at BASELINE config 5 (256 streams, 380 taps,
+380 filters, 32768-frame chunks, ratios 1 + 0.01 sin(0.1 s + 0.031 t)) --
+in phases; any failure raises and exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi's name and power limit;
-2. build: kernel K1 (art_tpu_torch/csrc/fixed_step.cu) from the checkout;
+2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
+   per source, in parallel), with ptxas's register and spill lines;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes (~2^22-frame stereo chunks) and its edge cases: max abs error vs
    the float64 plain version <= 1e-5, a zero tail past K, the new history
    bitwise equal;
-4. the main path: a 60 s artest round trip (forward then inverse) through
-   DeviceStreamResampler.process()/flush() on the card, <= -130 dB and
-   no more than 3 dB above the same stream on the CPU (plain path); K1's
-   launch count equals the number of process()/flush() calls;
-5. throughput: three windows of 8 chunks of ~2^22 frames through
-   process(x, n, acc), the host's planning time per chunk, and K1's step
-   against the plain step in ms per chunk, timed in turns with CUDA events.
+4. the ASRC kernels against their plain versions at config 5's shapes:
+   near-1 drifting ratios, ratios 0.5, 0.2 and 2.0, a mid-tile Ks, Ks = 0
+   rows, the flush call and S = 3; float32 within 1e-5 and float64 within
+   1e-12 of the float64 plain version, new history bitwise, the apply
+   kernel within 1e-5;
+5. the fixed-ratio path: a 60 s artest round trip (forward then inverse)
+   through DeviceStreamResampler.process()/flush() on the card, <= -130 dB
+   and no more than 3 dB above the same stream on the CPU (plain path);
+   K1's launch count equals the number of process()/flush() calls;
+6. the ASRC paths: BatchedASRC.process() over 256 streams and 32768-frame
+   chunks with the drifting ratios, then staggered flush(mask) calls, in
+   float32 (kernel "auto", 30 calls), float64 (8 calls) and with the apply
+   kernel (kernel "pallas", 6 calls); 8 of the streams replayed through a
+   CPU engine of the port: counts and positions exactly equal, samples
+   within 1e-5 (float32) and 1e-12 (float64); each kernel's launch count
+   equals the number of dispatching calls;
+7. throughput: three windows of 8 chunks of ~2^22 frames through
+   process(x, n, acc), the host's planning time per chunk, K1's step
+   against the plain step and against one conv1d call (the library
+   yardstick); config 5's bench.py loop (3 calls per window, three windows)
+   in M outputs/s, its host planning time, and the ASRC step (kernel only,
+   kernel step, plain step) and apply in ms per call, in float32 and
+   float64; all kernel times with CUDA events, taken in turns.
 
-Prints a {"kernels": [...]} line, then, last, the {"ok": true, "device":
-...} line.  Without a usable CUDA device it exits 2 and prints no result.
+Prints a {"kernels": [...]} line with each kernel's launches, error, times
+and bound, then, last, the {"ok": true, "device": ...} line.  Without a
+usable CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -36,13 +56,22 @@ import numpy as np
 import torch
 
 from art_tpu_torch import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
-                           SUBSAMPLE_INTERPOLATE, DeviceStreamResampler,
-                           roundtrip)
+                           SUBSAMPLE_INTERPOLATE, BatchedASRC,
+                           DeviceStreamResampler, roundtrip)
+from art_tpu_torch.core.filters import make_filter_bank
 from art_tpu_torch.ops import _build
+from art_tpu_torch.ops import asrc_step as kasrc
 from art_tpu_torch.ops import fixed_step as k1
+from art_tpu_torch.parallel.pipeline import window_and_hist
 
 # bench.py's headline configuration (preset -3); the planner reduces it
 FLAGS = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
+# BASELINE config 5 as bench.py measures it (bench.py:353-365)
+ASRC_S, ASRC_TAPS, ASRC_N = 256, 380, 32768
+# H100 SXM data sheet peaks at 700 W (NVIDIA): HBM3, float32 outside the
+# tensor cores (TF32 is not IEEE float32), and float64 on the FP64 tensor
+# cores (DMMA is IEEE double; the CUDA cores alone give 34 TFLOP/s)
+PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 67e12
 
 
 def _require(cond: bool, what: str) -> None:
@@ -81,9 +110,10 @@ def phase_device():
 def phase_build():
     t0 = time.perf_counter()
     _build.library()
-    print(f"build: K1 built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {', '.join(p.name for p in sorted(_build.CSRC.glob('*.cu')))}"
+          f" built and loaded in {time.perf_counter() - t0:.2f} s")
     for line in _build.build_log.splitlines():
-        if "ptxas" in line or "spill" in line:
+        if line.startswith("==") or "ptxas" in line or "spill" in line:
             print(f"  {line.strip()}")
 
 
@@ -162,8 +192,8 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
 
 
 def phase_roundtrip(dev, seconds=60):
-    """The main path.  Returns K1's launch count during it."""
-    k1.launches = 0
+    """The fixed-ratio path.  Returns K1's launch count during it."""
+    _reset_launches()
     t0 = time.perf_counter()
     rt = roundtrip.roundtrip_diff_db(seconds, dev)
     secs = time.perf_counter() - t0
@@ -239,6 +269,21 @@ def phase_throughput(dev, tag, n_target=1 << 22, nchunks=8, windows=3,
     P, hist = eng._matrix(j0), eng.hist
     buf = torch.cat([hist, x], dim=1)
     zero = torch.zeros((), device=dev)
+    # the library yardstick: one conv1d over the window, weight P.T, stride
+    # M, computes every block's dots (K1's function before the mask)
+    KQ = kw["qn"] * kw["M"]
+    win = window_and_hist(x, hist, start, (kw["nb"] - 1) * kw["M"] + KQ,
+                          kw["hist_len"])[0][:, None, :].contiguous()
+    weight = P.T[:, None, :].contiguous()
+
+    def conv():
+        return torch.nn.functional.conv1d(win, weight, stride=kw["M"])
+
+    ref = k1.fixed_step_reference(hist, x, P, start, K, zero, **kw)[1]
+    conv_out = conv().transpose(1, 2).reshape(ref.shape)[:, :K]
+    conv_err = float((conv_out - ref[:, :K]).abs().max())
+    print(f"  conv1d yardstick vs plain step: max abs diff {conv_err:.3e}")
+    _require(conv_err <= 1e-5, "conv1d yardstick computes another function")
     variants = {
         "K1 step": lambda: k1.fixed_step(hist, x, P, start, K, zero, **kw),
         "plain step": lambda: k1.fixed_step_reference(hist, x, P, start, K,
@@ -246,12 +291,27 @@ def phase_throughput(dev, tag, n_target=1 << 22, nchunks=8, windows=3,
         "K1 kernel only": lambda: k1.fixed_step_kernel(
             buf, P, start, K, M=kw["M"], L=kw["L"], nb=kw["nb"],
             qn=kw["qn"]),
+        "conv1d library": conv,
     }
-    order = ["plain step", "K1 step", "K1 kernel only", "K1 kernel only",
-             "K1 step", "plain step"]
-    if dev.type != "cuda":          # CPU rehearsal: the kernel cannot run
-        del variants["K1 kernel only"]
-        order = [name for name in order if name in variants]
+    order = ["plain step", "K1 step", "K1 kernel only", "conv1d library",
+             "conv1d library", "K1 kernel only", "K1 step", "plain step"]
+    med = _time_in_turns(dev, variants, order, reps, f"per {n}-frame chunk",
+                         tag)
+    ch, H = hist.shape
+    # each output needs the num_taps taps of its phase's filter; the other
+    # rows of its P column are structural zeros
+    med["bound"] = _bound_ms(
+        4 * (2 * ch * H + ch * n + P.numel() + ch * kw["nb"] * kw["L"]),
+        2 * ch * K * eng.num_taps, PEAK_F32)
+    return med
+
+
+def _time_in_turns(dev, variants, order, reps, unit, tag):
+    """Median ms per call of each variant, timed in ``order`` twice."""
+    if dev.type != "cuda":          # CPU rehearsal: the kernels cannot run
+        order = [name for name in order
+                 if "kernel" not in name and "library" not in name]
+        variants = {name: variants[name] for name in order}
     for fn in variants.values():
         fn()
     times = {name: [] for name in variants}
@@ -260,9 +320,300 @@ def phase_throughput(dev, tag, n_target=1 << 22, nchunks=8, windows=3,
             times[name].append(_time_ms(dev, variants[name], reps))
     med = {name: sorted(t)[len(t) // 2] for name, t in times.items()}
     for name, t in times.items():
-        print(f"  {name}: {med[name]:.4f} ms per {n}-frame chunk "
+        print(f"  {name}: {med[name]:.4f} ms {unit} "
               f"(runs {', '.join(f'{v:.4f}' for v in t)}) {tag}")
     return med
+
+
+def _bound_ms(nbytes: int, flops: int, peak_flops: float):
+    """(the least time the card could take in ms, what bounds it): the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate of their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------------ ASRC
+def _asrc_engine(dev, S=ASRC_S, dtype=np.float32, kernel="auto"):
+    eng = BatchedASRC(S, ASRC_TAPS, ASRC_TAPS, dtype=dtype, kernel=kernel,
+                      hankel_kb=256, device=dev)
+    eng.advance_position(ASRC_TAPS // 2)
+    return eng
+
+
+def _drift(S, t):
+    """bench.py's per-call ratios (bench.py:363-364)."""
+    return 1.0 + 0.01 * np.sin(np.arange(S) * 0.1 + 0.031 * t)
+
+
+def _asrc_cases(dev, n):
+    """(label, engine, ratios, Ks, k_max, flush) at config 5's shapes, from
+    engines whose ring was filled by one process() call."""
+    engines = {}
+    for S in (ASRC_S, 3):
+        eng = _asrc_engine(dev, S)
+        eng.process(torch.zeros((S, n), device=dev), _drift(S, 0))
+        engines[S] = eng
+    eng = engines[ASRC_S]
+    cases = []
+    for label, ratios in (("near-1 drift", _drift(ASRC_S, 1)),
+                          ("ratios 0.5", np.full(ASRC_S, 0.5)),
+                          ("ratios 0.2", np.full(ASRC_S, 0.2)),
+                          ("ratios 2.0", np.full(ASRC_S, 2.0))):
+        _, Ks, k_max, _ = eng._plan(n, ratios, None)
+        cases.append((label, eng, ratios, Ks, k_max, False))
+    label, _, ratios, Ks, k_max, _ = cases[0]
+    mid = np.minimum(Ks, 20000 + 77 + np.arange(ASRC_S)).astype(np.int32)
+    cases.append(("mid-tile Ks", eng, ratios, mid, k_max, False))
+    zero = Ks.copy()
+    zero[::3] = 0
+    cases.append(("Ks = 0 rows", eng, ratios, zero, k_max, False))
+    fr, _, Ks, k_max, _, _ = eng._plan_flush(_drift(ASRC_S, 2), None, None)
+    cases.append(("flush", eng, fr, Ks, k_max, True))
+    _, Ks, k_max, _ = engines[3]._plan(n, _drift(3, 1), None)
+    cases.append(("S = 3", engines[3], _drift(3, 1), Ks, k_max, False))
+    return cases
+
+
+def _step_args(eng, hist, x, bank, ratios, Ks):
+    dev = hist.device
+    return (hist, x, bank, torch.from_numpy(eng.offsets).to(dev),
+            torch.from_numpy(np.asarray(ratios, np.float64)).to(dev),
+            torch.from_numpy(np.asarray(Ks, np.int32)).to(dev),
+            eng.num_samples - eng.input_index)
+
+
+def phase_asrc_kernels_vs_plain(dev, n=ASRC_N):
+    """Returns the largest error of each ASRC kernel against the float64
+    plain version over the cases."""
+    rng = np.random.default_rng(2026)
+    bank32 = torch.from_numpy(make_filter_bank(
+        ASRC_TAPS, ASRC_TAPS, 1.0, True, np.float32)).to(dev)
+    bank64 = torch.from_numpy(make_filter_bank(
+        ASRC_TAPS, ASRC_TAPS, 1.0, True, np.float64)).to(dev)
+    worst = {"asrc_step": 0.0, "asrc_step_f64": 0.0, "asrc_apply": 0.0}
+    for label, eng, ratios, Ks, k_max, flush in _asrc_cases(dev, n):
+        S, H = eng.S, eng.num_samples
+        x64 = torch.zeros((S, eng.num_taps // 2), dtype=torch.float64,
+                          device=dev) if flush else torch.from_numpy(
+            rng.normal(0, 0.5, (S, n))).to(dev)
+        h64 = torch.from_numpy(rng.normal(0, 0.5, (S, H))).to(dev)
+        h32, x32 = h64.float(), x64.float()
+        geom = dict(num_taps=eng.num_taps, num_filters=eng.num_filters,
+                    k_max=k_max, hist_len=H)
+        line = [f"  {label}: out [{S}, {k_max}], valid {int(Ks.sum())}"]
+        ok = True
+        for dt, hist, x, bank in (("f32", h32, x32, bank32),
+                                  ("f64", h64, x64, bank64)):
+            args = _step_args(eng, hist, x, bank, ratios, Ks)
+            nh, out = kasrc.asrc_step(*args, **geom)
+            nh_p, out_p = kasrc.asrc_step_reference(*args, **geom)
+            up = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+                  else a for a in args]
+            _, ref = kasrc.asrc_step_reference(*up, **geom)
+            err = float((out.double() - ref).abs().max())
+            err_p = float((out_p.double() - ref).abs().max())
+            tail0 = all(not bool(out[s, int(Ks[s]):].any()) for s in (
+                0, S // 2, S - 1))
+            hist_eq = bool(torch.equal(nh, nh_p))
+            tol = 1e-5 if dt == "f32" else 1e-12
+            name = "asrc_step" if dt == "f32" else "asrc_step_f64"
+            worst[name] = max(worst[name], err)
+            ok &= (bool(torch.isfinite(out).all()) and err <= tol and tail0
+                   and hist_eq)
+            line.append(f"{dt} max|kernel - f64 plain| {err:.3e} (plain "
+                        f"{dt}: {err_p:.3e}), tail zero {tail0}, new_hist "
+                        f"bitwise {hist_eq}")
+        if label not in ("mid-tile Ks", "Ks = 0 rows"):
+            buf, base, fi, frac, _ = kasrc.apply_prologue(
+                h32, x32, *_step_args(eng, h32, x32, bank32, ratios,
+                                      Ks)[3:5], eng.num_samples -
+                eng.input_index, **geom)
+            out = kasrc.asrc_apply(buf, bank32, base, fi, frac)
+            ref = kasrc.asrc_apply_reference(buf.double(), bank32.double(),
+                                             base, fi, frac.double())
+            err = float((out.double() - ref).abs().max())
+            worst["asrc_apply"] = max(worst["asrc_apply"], err)
+            ok &= bool(torch.isfinite(out).all()) and err <= 1e-5
+            line.append(f"apply max|kernel - f64 plain| {err:.3e}")
+        print("; ".join(line))
+        _require(ok, f"ASRC kernels vs plain, {label}")
+    return worst
+
+
+def _reset_launches():
+    k1.launches = 0
+    for name in kasrc.launches:
+        kasrc.launches[name] = 0
+
+
+def phase_asrc_path(dev, dtype, kernel, calls, n=ASRC_N, S=ASRC_S,
+                    replay=8):
+    """One ASRC path: process() calls with the drifting ratios, then
+    staggered flush(mask) calls, with ``replay`` streams replayed through a
+    CPU engine of the port.  Returns (launches of its kernel, the worst
+    sample difference against the replay)."""
+    name = {"pallas": "asrc_apply"}.get(
+        kernel, "asrc_step_f64" if dtype == np.float64 else "asrc_step")
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    eng = _asrc_engine(dev, S, dtype, kernel)
+    cpu = _asrc_engine("cpu", replay, dtype, kernel)
+    rows = np.linspace(0, S - 1, replay).astype(np.int64)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tdtype = eng.hist.dtype
+    worst, produced, dispatch = 0.0, 0, 0
+
+    def compare(res, res_cpu, what):
+        nonlocal worst
+        (out, Ks), (oc, Kc) = res, res_cpu
+        _require(np.array_equal(Ks[rows], Kc), f"{what}: counts differ")
+        _require(np.array_equal(eng.get_position()[rows],
+                                cpu.get_position()), f"{what}: positions "
+                 "differ")
+        kmx = int(Kc.max(initial=0))
+        og = out[torch.from_numpy(rows).to(dev), :kmx].cpu()
+        err = float((og - oc[:, :kmx]).abs().max()) if kmx else 0.0
+        _require(bool(torch.isfinite(out).all()) and err <= tol,
+                 f"{what}: samples differ by {err:.3e} (bound {tol:g})")
+        worst = max(worst, err)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    for t in range(calls):
+        x = torch.randn((S, n), generator=gen, device=dev, dtype=tdtype)
+        x.mul_(0.5)
+        ratios = _drift(S, t)
+        res = eng.process(x, ratios)
+        dispatch += 1
+        produced += int(res[1].sum())
+        compare(res, cpu.process(x[torch.from_numpy(rows).to(dev)].cpu(),
+                                 ratios[rows]), f"process call {t}")
+    for j in range(4):      # staggered: a quarter of the streams at a time
+        mask = np.arange(S) % 4 == j
+        fr = _drift(S, calls + j)
+        res = eng.flush(fr, mask)
+        dispatch += int(res[1].max() > 0)
+        compare(res, cpu.flush(fr[rows], mask[rows]), f"flush {j}")
+        if j < 3:           # the live streams keep serving
+            x = torch.randn((S, n), generator=gen, device=dev,
+                            dtype=tdtype).mul_(0.5)
+            res = eng.process(x, fr)
+            dispatch += 1
+            compare(res, cpu.process(
+                x[torch.from_numpy(rows).to(dev)].cpu(), fr[rows]),
+                f"process after flush {j}")
+    res = eng.flush(np.ones(S))             # all latched: nothing to emit
+    _require(not res[1].any() and not bool(res[0].any()),
+             "flush of latched streams emitted")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kasrc.launches[name]
+    print(f"  {np.dtype(dtype).name} kernel={kernel!r}: {calls} process() "
+          f"calls + 4 staggered flushes ({dispatch} dispatching calls) over "
+          f"{S} streams x {n} frames -> {produced} outputs in {secs:.2f} s "
+          f"wall incl. the CPU replay; {name} launches {launches}; "
+          f"{replay} replayed streams: counts and positions equal, max "
+          f"sample diff {worst:.3e}")
+    _require(dev.type != "cuda" or launches == dispatch > 0,
+             f"{name} launches != dispatching calls")
+    return launches, worst
+
+
+def phase_asrc_throughput(dev, tag, n=ASRC_N, S=ASRC_S, windows=3, reps=10):
+    """config 5's bench.py loop, host planning, and the ASRC step and apply
+    against their plain versions.  Returns {kernel: (ms, plain_ms,
+    (bound_ms, bound_by))}."""
+    eng = _asrc_engine(dev, S)
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.standard_normal((S, n)).astype(np.float32)) \
+        .to(dev)
+    tick = [0]
+
+    def run5():             # bench.py:359-368
+        tot = 0
+        for _ in range(3):
+            tick[0] += 1
+            out, Ks = eng.process(xs, _drift(S, tick[0]))
+            tot += int(Ks.sum())
+        float(torch.sum(out))
+        return tot
+
+    run5()
+    for window in range(windows):
+        t0 = time.perf_counter()
+        produced = run5()
+        dt = time.perf_counter() - t0
+        print(f"  config 5 window {window}: 3 process() calls x {S} streams "
+              f"x {n} frames -> {produced} outputs in {dt * 1e3:.3f} ms = "
+              f"{produced / dt / 1e6:.2f} M outputs/s {tag}")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng._plan(n, _drift(S, tick[0]), None)
+    print(f"  host count plan: {(time.perf_counter() - t0) / 20 * 1e6:.1f} "
+          f"us per call (float64 accounting on the host CPU)")
+
+    result = {}
+    for dtype in (np.float32, np.float64):
+        if dtype == np.float64:
+            eng = _asrc_engine(dev, S, dtype)
+            eng.process(xs.double(), _drift(S, 0))
+        ratios, Ks, k_max, _ = eng._plan(n, _drift(S, tick[0] + 1), None)
+        x = xs.to(eng.hist.dtype)
+        args = _step_args(eng, eng.hist, x, eng._bank_dev, ratios, Ks)
+        geom = dict(num_taps=eng.num_taps, num_filters=eng.num_filters,
+                    k_max=k_max)
+        label = "f32" if dtype == np.float32 else "f64"
+        variants = {
+            "plain step": lambda: kasrc.asrc_step_reference(
+                *args, hist_len=eng.num_samples, **geom),
+            "kernel step": lambda: kasrc.asrc_step(
+                *args, hist_len=eng.num_samples, **geom),
+            "kernel only": lambda: kasrc.asrc_step_kernel(*args, **geom),
+        }
+        order = ["plain step", "kernel step", "kernel only", "kernel only",
+                 "kernel step", "plain step"]
+        med = _time_in_turns(dev, variants, order, reps,
+                             f"per call ({label})", tag)
+        w = np.dtype(dtype).itemsize
+        bound = _bound_ms(
+            w * (2 * S * eng.num_samples + S * n + eng.bank.size
+                 + S * k_max) + 20 * S,
+            4 * int(Ks.sum()) * eng.num_taps,
+            PEAK_F32 if dtype == np.float32 else PEAK_F64)
+        print(f"  asrc_step {label} bound {bound[0]:.4f} ms "
+              f"({bound[1]}-bound; {int(Ks.sum())} valid outputs)")
+        result["asrc_step" if dtype == np.float32 else "asrc_step_f64"] = (
+            med.get("kernel step"), med["plain step"], bound)
+        if dtype == np.float32:
+            buf, base, fi, frac, _ = kasrc.apply_prologue(
+                eng.hist, x, args[3], args[4], args[6],
+                hist_len=eng.num_samples, **geom)
+            bank = eng._bank_dev
+            med = _time_in_turns(dev, {
+                "plain apply": lambda: kasrc.asrc_apply_reference(
+                    buf, bank, base, fi, frac),
+                "apply kernel": lambda: kasrc.asrc_apply(
+                    buf, bank, base, fi, frac)},
+                ["plain apply", "apply kernel", "apply kernel",
+                 "plain apply"], reps, "per call (f32)", tag)
+            bound_a = _bound_ms(
+                4 * (buf.numel() + 4 * S * k_max + eng.bank.size),
+                4 * S * k_max * eng.num_taps, PEAK_F32)
+            print(f"  asrc_apply bound {bound_a[0]:.4f} ms ({bound_a[1]}-"
+                  f"bound; {S * k_max} outputs, unmasked)")
+            result["asrc_apply"] = (med.get("apply kernel"),
+                                    med["plain apply"], bound_a)
+    return result
+
+
+def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                  bound, library_ms=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def main() -> int:
@@ -276,17 +627,36 @@ def main() -> int:
     print("phase 2: build")
     phase_build()
     print("phase 3: K1 vs plain PyTorch on the card")
-    worst = phase_kernel_vs_plain(dev)
-    print("phase 4: main path, 60 s round trip through process()/flush()")
-    launches = phase_roundtrip(dev)
-    print("phase 5: throughput")
+    worst = {"fixed_step": phase_kernel_vs_plain(dev)}
+    print("phase 4: ASRC kernels vs plain PyTorch on the card, config 5")
+    worst.update(phase_asrc_kernels_vs_plain(dev))
+    print("phase 5: fixed-ratio path, 60 s round trip through "
+          "process()/flush()")
+    launches = {"fixed_step": phase_roundtrip(dev)}
+    print("phase 6: ASRC paths, config 5 through process()/flush(mask)")
+    for key, dtype, kernel, calls in (
+            ("asrc_step", np.float32, "auto", 30),
+            ("asrc_step_f64", np.float64, "auto", 8),
+            ("asrc_apply", np.float32, "pallas", 6)):
+        launches[key], err = phase_asrc_path(dev, dtype, kernel, calls)
+        worst[key] = max(worst[key], err)
+    print("phase 7: throughput")
     med = phase_throughput(dev, tag)
-    print(json.dumps({"kernels": [{
-        "name": "fixed_step", "route": "cuda",
-        "source": "art_tpu_torch/csrc/fixed_step.cu",
-        "replaces": "art_tpu/ops/fixed_pallas.py:108",
-        "launches": launches, "max_abs_err": worst,
-        "ms": med["K1 step"], "plain_ms": med["plain step"]}]}))
+    timed = phase_asrc_throughput(dev, tag)
+    src = "art_tpu_torch/csrc/"
+    pk = "art_tpu/ops/pallas_kernels.py:"
+    kernels = [_kernel_entry(
+        "fixed_step", src + "fixed_step.cu", "art_tpu/ops/fixed_pallas.py:108",
+        launches["fixed_step"], worst["fixed_step"], med["K1 step"],
+        med["plain step"], med["bound"], med["conv1d library"])]
+    for key, replaces in (("asrc_step", pk + "567 and :355"),
+                          ("asrc_step_f64", pk + "805"),
+                          ("asrc_apply", pk + "82")):
+        ms, plain_ms, bound = timed[key]
+        kernels.append(_kernel_entry(key, src + "asrc_step.cu", replaces,
+                                     launches[key], worst[key], ms, plain_ms,
+                                     bound))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0
