@@ -24,12 +24,13 @@ reference performs in C doubles; the only tolerated divergence is sub-ULP
 (ring slides shift both sides of the reference's comparisons by the same
 exact integer, which can perturb a rounding at an exact tie).
 
-A copy of the part of ``art_tpu/core/accounting.py`` that ``plan_process``
-and ``ring_floor`` need (``ProcessPlan``, ``snap_offset``, ``ring_floor``,
-``_count_emissions``, ``plan_process``), unchanged, so that the port imports
+A copy of the part of ``art_tpu/core/accounting.py`` that the port's
+engines need (``ProcessPlan``, ``snap_offset``, ``ring_floor``,
+``_count_emissions``, ``plan_process``, and ``ring_positions`` for the
+interpolated mode's pattern oracle), unchanged, so that the port imports
 nothing of the JAX package and its counts and positions stay bitwise equal
 to the JAX engines' (tests/test_torch_host.py).  The ``simulate_*`` dry
-runs and ``ring_positions`` are left out: nothing in the port calls them.
+runs are left out: nothing in the port calls them.
 """
 
 from __future__ import annotations
@@ -250,3 +251,47 @@ def plan_process(*, output_offset: float, input_index: int, flags: int,
         first_position=o_lin + flush_shift,
         flush_shift=flush_shift,
     )
+
+
+def ring_positions(*, first_position: float, flush_shift: int,
+                   ratio: float, K: int, input_index: int, input_used: int,
+                   num_samples: int, num_taps: int, flush: bool
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-emission integer positions (linear) and ring-exact fractions.
+
+    The reference emits at fl(o_ring + fl(k/ratio)) where o_ring is slid
+    DOWN by (num_samples - num_taps) at each ring slide during the call
+    (reference resampler.c:500-501, 526): the slide subtraction cancels
+    magnitude, so the rounded sum keeps fraction bits that the
+    linear-coordinate sum fl(o_linear + fl(k/ratio)) loses at larger
+    magnitude.  Nearest-filter rounding (subsample_no_interpolate) and
+    interpolation fractions must use the ring-rounded value to match the
+    reference bit-for-bit at phase-grid ties.
+
+    The per-emission slide count depends on how many inputs were consumed
+    before the emission, which depends on the rounded position itself; the
+    fixpoint converges immediately except at sub-ulp integer crossings
+    (the iteration is vectorized and capped).
+    Returns (ipos int64 linear, frac float64).
+    """
+    o0 = first_position - flush_shift      # ring offset at call entry
+    q = np.arange(K, dtype=np.float64) / ratio
+    half = num_taps // 2
+    S = num_samples - num_taps
+    if flush or S <= 0:
+        x = o0 + q                          # flush: o already slid, no input
+        ip = np.floor(x)
+        return ip.astype(np.int64) + flush_shift, x - ip
+    i0 = input_index
+    s = np.zeros(K, dtype=np.int64)
+    for _ in range(4):
+        x = (o0 - s * S) + q
+        ip = np.floor(x).astype(np.int64) + s * S
+        m = np.clip(ip + half - i0 + 1, 0, input_used)
+        s_new = np.maximum(0, -((num_samples - i0 - m) // S))
+        if np.array_equal(s_new, s):
+            break
+        s = s_new
+    x = (o0 - s * S) + q
+    ip = np.floor(x)
+    return ip.astype(np.int64) + s * S, x - ip

@@ -25,12 +25,13 @@
 // (Hopper's tensor cores have no IEEE float32 mode).  The TPU kernel's
 // workarounds -- the residue split, the 8-tile halo BlockSpec, split_out,
 // rounding nb up to a multiple of qn -- are not carried over: exactly nb
-// blocks are computed.  A CTA owns 128 output blocks x 32 phases of one
+// blocks are computed.  A CTA owns kBM output blocks (128 at the main
+// path's shapes, see below) x 32 phases of one
 // channel:
 //   - P (376 KB at the main path's shapes) does not fit shared memory, so
 //     the CTA stages one M-row slice of its 32 (or 2x32) P columns at a
 //     time: qn slices per CTA, ~19 KB each;
-//   - the CTA's window segment [i0*M, (i0+128)*M + KQ) is staged once, as
+//   - the CTA's window segment [i0*M, (i0+kBM)*M + KQ) is staged once, as
 //     rows of M samples at an odd row stride S, so row i0+r+q holds the
 //     samples block r needs from slice q: element k = q*M + m of block r's
 //     window is win_s[(r + q)*S + m], and the four rows a warp reads at one
@@ -46,6 +47,24 @@
 //     the filter's centre to a full-size sum: summed in one chain, the
 //     60 s round trip read -133.91 dB on an H100 (the CPU's blocked sgemm
 //     -136.49 dB); blocks of 32 cost 16 registers and ~3% more adds.
+//
+// Shared memory and M.  The window tile grows as (kBM + qn - 1) * M floats
+// and the P slice as M * BNt floats (BNt = 32, or 64 interpolated), so a
+// fixed 128-block tile runs out of the 227 KB a block may use near M = 360
+// (reduced) and M = 300 (interpolated): 192k->44.1k (M = 640) did not fit.
+// The host therefore picks the row tile kBM = 32 * TM, TM in {4, 2, 1},
+// and the P piece (PR rows of the slice): the largest tile that fits with
+// PR = M, else the largest that fits with PR a multiple of kKB (pick_tile):
+//   M = 147, qn = 4 (the main path)   kBM = 128, PR = M     96 KB
+//   M = 320, qn = 2, reduced          kBM = 128, PR = M    207 KB
+//   M = 320, qn = 2, interpolated     kBM =  64, PR = M    165 KB
+//   M = 640, qn = 2, reduced          kBM =  32, PR = M    167 KB
+//   M = 640, qn = 2, interpolated     kBM =  64, PR = 256  232 KB
+// A piece holds whole 32-term blocks, so each output's partial sums are
+// taken over the same terms k = q*M + m in the same order whatever the
+// tile: the outputs are bitwise those of the 128-block kernel.  A shape
+// whose 32-block window plus one 32-row piece exceeds 227 KB (M above
+// ~1700) is refused, and the wrapper names it.
 // Offsets into buf and out are 64-bit: c*W and c*nb*L outgrow 2^31 for
 // grouped flat buffers.
 
@@ -56,28 +75,28 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBN = 32;                             // phases per CTA
 constexpr int kTN = 4;                              // phases per thread
-constexpr int kTM = 4;                              // blocks per thread
 constexpr int kColThreads = kBN / kTN;              // 8
 constexpr int kRowThreads = kThreads / kColThreads; // 32
-constexpr int kBM = kRowThreads * kTM;              // 128 blocks per CTA
 constexpr int kKB = 32;                             // terms per partial sum
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__host__ __device__ inline int win_floats(int M, int qn) {
-    // window rows of stride S = M | 1, padded so P's slice starts 16B-aligned
+// blocks per thread kTM; the CTA owns kBM = 32 * kTM output blocks
+__host__ __device__ inline int win_floats(int kBM, int M, int qn) {
+    // window rows of stride S = M | 1, padded so P's piece starts 16B-aligned
     return (((kBM + qn - 1) * (M | 1)) + 3) & ~3;
 }
 
-template <bool kInterp>
+template <bool kInterp, int kTM>
 __global__ void __launch_bounds__(kThreads, 2)
 fixed_step_kernel(const float* __restrict__ buf, long long W, long long start,
                   long long K, const float* __restrict__ P, int L2,
                   const float* __restrict__ fracv, int M, int L, int qn,
-                  long long nb, float* __restrict__ out) {
+                  int PR, long long nb, float* __restrict__ out) {
     constexpr int BNt = kInterp ? 2 * kBN : kBN;
+    constexpr int kBM = kRowThreads * kTM;
     extern __shared__ float4 smem4[];
     float* win_s = reinterpret_cast<float*>(smem4);
-    float* P_s = win_s + win_floats(M, qn);
+    float* P_s = win_s + win_floats(kBM, M, qn);
     const int S = M | 1;
 
     const int tid = threadIdx.x;
@@ -100,55 +119,63 @@ fixed_step_kernel(const float* __restrict__ buf, long long W, long long start,
     float acc[kTM][kTN] = {};
     float acc2[kInterp ? kTM : 1][kTN] = {};
     for (int q = 0; q < qn; ++q) {
-        __syncthreads();  // window staged / previous slice consumed
         const float* Pq = P + static_cast<long long>(q) * M * L2;
-        for (int e = tid; e < M * BNt; e += kThreads) {
-            const int m = e / BNt;
-            const int j = e - m * BNt;
-            const int col = n0 + (j % kBN);
-            float v = 0.f;
-            if (col < L)
-                v = Pq[static_cast<long long>(m) * L2 + (j >= kBN ? L + col : col)];
-            P_s[e] = v;
-        }
-        __syncthreads();
         const float* wq = win_s + (ty + q) * S;
-        const float* pq = P_s + tx * kTN;
-        for (int m0 = 0; m0 < M; m0 += kKB) {
-            const int m1 = min(m0 + kKB, M);
-            float part[kTM][kTN] = {};
-            float part2[kInterp ? kTM : 1][kTN] = {};
+        for (int mp = 0; mp < M; mp += PR) {
+            // stage rows [mp, mp + PR) of slice q's 32 (or 2x32) columns
+            const int rows = min(PR, M - mp);
+            __syncthreads();  // window staged / previous piece consumed
+            for (int e = tid; e < rows * BNt; e += kThreads) {
+                const int m = e / BNt;
+                const int j = e - m * BNt;
+                const int col = n0 + (j % kBN);
+                float v = 0.f;
+                if (col < L)
+                    v = Pq[static_cast<long long>(mp + m) * L2 +
+                           (j >= kBN ? L + col : col)];
+                P_s[e] = v;
+            }
+            __syncthreads();
+            // piece-local row index: the inner loop has PR 1's form
+            const float* pq = P_s + tx * kTN;
+            const float* wp = wq + mp;
+            for (int m0 = 0; m0 < rows; m0 += kKB) {
+                const int m1 = min(m0 + kKB, rows);
+                float part[kTM][kTN] = {};
+                float part2[kInterp ? kTM : 1][kTN] = {};
 #pragma unroll 4
-            for (int m = m0; m < m1; ++m) {
-                float a[kTM];
+                for (int m = m0; m < m1; ++m) {
+                    float a[kTM];
 #pragma unroll
-                for (int r = 0; r < kTM; ++r)
-                    a[r] = wq[r * kRowThreads * S + m];
-                const float4 b =
-                    *reinterpret_cast<const float4*>(pq + m * BNt);
-                const float bv[kTN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-                for (int r = 0; r < kTM; ++r)
-#pragma unroll
-                    for (int j = 0; j < kTN; ++j) part[r][j] += a[r] * bv[j];
-                if constexpr (kInterp) {
-                    const float4 b2 =
-                        *reinterpret_cast<const float4*>(pq + m * BNt + kBN);
-                    const float bv2[kTN] = {b2.x, b2.y, b2.z, b2.w};
+                    for (int r = 0; r < kTM; ++r)
+                        a[r] = wp[r * kRowThreads * S + m];
+                    const float4 b =
+                        *reinterpret_cast<const float4*>(pq + m * BNt);
+                    const float bv[kTN] = {b.x, b.y, b.z, b.w};
 #pragma unroll
                     for (int r = 0; r < kTM; ++r)
 #pragma unroll
                         for (int j = 0; j < kTN; ++j)
-                            part2[r][j] += a[r] * bv2[j];
+                            part[r][j] += a[r] * bv[j];
+                    if constexpr (kInterp) {
+                        const float4 b2 = *reinterpret_cast<const float4*>(
+                            pq + m * BNt + kBN);
+                        const float bv2[kTN] = {b2.x, b2.y, b2.z, b2.w};
+#pragma unroll
+                        for (int r = 0; r < kTM; ++r)
+#pragma unroll
+                            for (int j = 0; j < kTN; ++j)
+                                part2[r][j] += a[r] * bv2[j];
+                    }
                 }
+#pragma unroll
+                for (int r = 0; r < kTM; ++r)
+#pragma unroll
+                    for (int j = 0; j < kTN; ++j) {
+                        acc[r][j] += part[r][j];
+                        if constexpr (kInterp) acc2[r][j] += part2[r][j];
+                    }
             }
-#pragma unroll
-            for (int r = 0; r < kTM; ++r)
-#pragma unroll
-                for (int j = 0; j < kTN; ++j) {
-                    acc[r][j] += part[r][j];
-                    if constexpr (kInterp) acc2[r][j] += part2[r][j];
-                }
         }
     }
 
@@ -172,29 +199,85 @@ fixed_step_kernel(const float* __restrict__ buf, long long W, long long start,
     }
 }
 
+template <bool kInterp, int kTM>
+cudaError_t launch_tile(const float* buf, long long ch, long long W,
+                        long long start, long long K, const float* P, int L2,
+                        const float* fracv, int M, int L, int qn, int PR,
+                        long long nb, float* out, size_t smem,
+                        cudaStream_t stream) {
+    constexpr int kBM = kRowThreads * kTM;
+    const long long row_tiles = (nb + kBM - 1) / kBM;
+    if (row_tiles > 65535 || ch > 65535) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        fixed_step_kernel<kInterp, kTM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((L + kBN - 1) / kBN, static_cast<unsigned>(row_tiles),
+                    static_cast<unsigned>(ch));
+    fixed_step_kernel<kInterp, kTM><<<grid, kThreads, smem, stream>>>(
+        buf, W, start, K, P, L2, fracv, M, L, qn, PR, nb, out);
+    return cudaGetLastError();
+}
+
+// The tile: the largest row tile (kTM = 4, 2, 1) whose window fits with a
+// P piece of all M rows; failing that, the largest whose window fits with a
+// piece of the most whole 32-row blocks that fit.  Returns false when not
+// even a 32-block window with a 32-row piece fits in kMaxSmem.
+bool pick_tile(int M, int qn, int BNt, int* tm, int* pr, size_t* smem) {
+    for (int whole = 1; whole >= 0; --whole)
+        for (int t = 4; t >= 1; t /= 2) {
+            const size_t win = static_cast<size_t>(
+                win_floats(kRowThreads * t, M, qn)) * 4;
+            if (win >= kMaxSmem) continue;
+            const long long fit =
+                static_cast<long long>(kMaxSmem - win) / (4LL * BNt);
+            const int rows = fit >= M ? M
+                                      : static_cast<int>(fit / kKB) * kKB;
+            if (rows <= 0 || (whole && rows != M)) continue;
+            *tm = t;
+            *pr = rows;
+            *smem = win + static_cast<size_t>(rows) * BNt * 4;
+            return true;
+        }
+    return false;
+}
+
 template <bool kInterp>
 cudaError_t launch(const float* buf, long long ch, long long W,
                    long long start, long long K, const float* P, int L2,
                    const float* fracv, int M, int L, int qn, long long nb,
                    float* out, cudaStream_t stream) {
-    const int BNt = kInterp ? 2 * kBN : kBN;
-    const size_t smem = (static_cast<size_t>(win_floats(M, qn)) +
-                         static_cast<size_t>(M) * BNt) * sizeof(float);
-    const long long row_tiles = (nb + kBM - 1) / kBM;
-    if (smem > kMaxSmem || row_tiles > 65535 || ch > 65535)
+    int tm = 0, pr = 0;
+    size_t smem = 0;
+    if (!pick_tile(M, qn, kInterp ? 2 * kBN : kBN, &tm, &pr, &smem))
         return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        fixed_step_kernel<kInterp>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((L + kBN - 1) / kBN, static_cast<unsigned>(row_tiles),
-                    static_cast<unsigned>(ch));
-    fixed_step_kernel<kInterp><<<grid, kThreads, smem, stream>>>(
-        buf, W, start, K, P, L2, fracv, M, L, qn, nb, out);
-    return cudaGetLastError();
+    if (tm == 4)
+        return launch_tile<kInterp, 4>(buf, ch, W, start, K, P, L2, fracv, M,
+                                       L, qn, pr, nb, out, smem, stream);
+    if (tm == 2)
+        return launch_tile<kInterp, 2>(buf, ch, W, start, K, P, L2, fracv, M,
+                                       L, qn, pr, nb, out, smem, stream);
+    return launch_tile<kInterp, 1>(buf, ch, W, start, K, P, L2, fracv, M, L,
+                                   qn, pr, nb, out, smem, stream);
 }
 
 }  // namespace
+
+// The tile art_fixed_step would launch for (M, qn, interpolated): writes
+// blocks per CTA, P rows per piece and shared-memory bytes, and returns 0,
+// or cudaErrorInvalidValue when the shape does not fit.
+extern "C" int art_fixed_step_tile(int M, int qn, int interp, int* bm,
+                                   int* pr, long long* smem) {
+    int tm = 0, rows = 0;
+    size_t bytes = 0;
+    if (M <= 0 || qn <= 0 ||
+        !pick_tile(M, qn, interp ? 2 * kBN : kBN, &tm, &rows, &bytes))
+        return cudaErrorInvalidValue;
+    *bm = kRowThreads * tm;
+    *pr = rows;
+    *smem = static_cast<long long>(bytes);
+    return 0;
+}
 
 // buf [ch, W] and P [KQ, L2] float32 contiguous on the device, fracv [L] or
 // null, out [ch, nb*L].  Returns the launch's cudaError_t (0 on success);

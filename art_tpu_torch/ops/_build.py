@@ -34,6 +34,9 @@ _SIGNATURES = {
     # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, stream
     "art_fixed_step": [_vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _vp, _i, _i, _i,
                        _ll, _vp, _vp],
+    # M, qn, interp, &blocks per CTA, &P rows per piece, &shared bytes
+    "art_fixed_step_tile": [_i, _i, _i, ctypes.POINTER(_i),
+                            ctypes.POINTER(_i), ctypes.POINTER(_ll)],
     # hist, H, x, n, S, bank, taps, F, offsets, ratios, Ks, shift, k_max,
     # out, stream
     "art_asrc_step_f32": _ASRC_STEP,

@@ -1,24 +1,36 @@
-"""K1: the fixed-ratio streaming chunk step, on a CUDA kernel.
+"""K1: the fixed-ratio streaming chunk step, on a CUDA kernel; K6 as an
+entry point of the same kernel.
 
 The counterpart of ``art_tpu/ops/fixed_pallas.py::fixed_step_pallas``: same
 arguments, same ``(new_hist, out [ch, nb*L], acc + sum(out**2))`` results.
 The contraction runs in ``csrc/fixed_step.cu`` (see its header for what it
 computes, what bounds it and how it is laid out); the history concat, the
 power sum and the history advance stay plain PyTorch around the launch, as
-they sit outside the ``pallas_call`` in JAX.
+they sit outside the ``pallas_call`` in JAX.  ``fixed_step_window`` is the
+contraction alone over a window buffer that already holds the history (the
+group forms' shared buffer).
 
-A CPU tensor takes the plain version (``fixed_step_reference``); a CUDA
-tensor launches the kernel or raises.  ``launches`` counts kernel launches.
+``polyphase_apply`` is the counterpart of
+``art_tpu/ops/pallas_kernels.py::polyphase_apply_pallas`` (K6): the same
+contraction with ``start = 0``, nothing masked and an arbitrary dense P.
+
+A CPU tensor takes the plain version (``*_reference``); a CUDA tensor
+launches the kernel or raises.  ``launches`` counts K1's launches through
+its chunk-step entry points, ``polyphase_launches`` those through
+``polyphase_apply``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ..parallel.pipeline import resample_block
+from ..parallel.pipeline import resample_block, window_at, window_dots
 from . import _build
 
 launches = 0
+polyphase_launches = 0
 
 
 def fixed_step_reference(hist, x, P, start: int, K: int, acc, *, M: int,
@@ -38,12 +50,27 @@ def _check(name, t, dev, shape=None):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
 
 
-def fixed_step_kernel(buf, P, start: int, K: int, *, M: int, L: int,
-                      nb: int, qn: int, fracv=None):
-    """Launch K1 over the window buffer ``buf = cat(hist, x)`` [ch, W]:
-    returns out [ch, nb*L], block i = buf[:, start + i*M : +qn*M] @ P
-    (reads past W are zero), zeroed at and beyond K."""
-    global launches
+def kernel_tile(M: int, qn: int, interp: bool):
+    """(blocks per CTA, P rows per staged piece, shared-memory bytes) of
+    K1's launch for this shape; raises ValueError naming a shape that does
+    not fit a block's shared memory."""
+    bm, pr, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    rc = _build.library().art_fixed_step_tile(
+        M, qn, int(interp), ctypes.byref(bm), ctypes.byref(pr),
+        ctypes.byref(smem))
+    if rc != 0:
+        raise ValueError(f"K1 has no tile for M={M}, qn={qn}"
+                         f"{', interpolated' if interp else ''}: the "
+                         "smallest window tile plus one 32-row P piece "
+                         "exceed 227 KB of shared memory")
+    return bm.value, pr.value, smem.value
+
+
+def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
+            qn: int, fracv=None):
+    """One launch of art_fixed_step (uncounted): out [ch, nb*L], block i =
+    buf[:, start + i*M : +qn*M] @ P (reads past W are zero), zeroed at and
+    beyond K."""
     dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
@@ -56,6 +83,7 @@ def fixed_step_kernel(buf, P, start: int, K: int, *, M: int, L: int,
     if not (0 <= start <= W and 0 <= K <= nb * L and nb >= 1):
         raise ValueError(f"bad plan: start={start} W={W} K={K} nb={nb} "
                          f"L={L}")
+    kernel_tile(M, qn, fracv is not None)
     lib = _build.library()
     out = torch.empty((ch, nb * L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -65,9 +93,32 @@ def fixed_step_kernel(buf, P, start: int, K: int, *, M: int, L: int,
             L2, fracv.data_ptr() if fracv is not None else None, M, L, qn,
             int(nb), out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"art_fixed_step launch failed: cudaError {rc}")
+        raise RuntimeError(f"art_fixed_step launch failed: cudaError {rc} "
+                           f"(ch={ch}, M={M}, L={L}, qn={qn}, nb={nb})")
+    return out
+
+
+def fixed_step_kernel(buf, P, start: int, K: int, *, M: int, L: int,
+                      nb: int, qn: int, fracv=None):
+    """Launch K1 over the window buffer ``buf`` [ch, W] (history already
+    in front): returns out [ch, nb*L], block i = buf[:, start + i*M :
+    +qn*M] @ P (reads past W are zero), zeroed at and beyond K."""
+    global launches
+    out = _launch(buf, P, start, K, M=M, L=L, nb=nb, qn=qn, fracv=fracv)
     launches += 1
     return out
+
+
+def fixed_step_window(buf, P, start: int, K: int, *, M: int, L: int,
+                      nb: int, qn: int, fracv=None):
+    """The contraction of one chunk whose window starts at ``start`` in
+    ``buf`` (out [ch, nb*L] zeroed at and beyond K).  CPU tensors take the
+    plain version, CUDA tensors launch K1."""
+    if buf.device.type == "cpu":
+        win = window_at(buf, start, (nb - 1) * M + qn * M)
+        return window_dots(win, P, K, M=M, L=L, nb=nb, qn=qn, fracv=fracv)
+    return fixed_step_kernel(buf, P, start, K, M=M, L=L, nb=nb, qn=qn,
+                             fracv=fracv)
 
 
 def fixed_step(hist, x, P, start: int, K: int, acc, *, M: int, L: int,
@@ -89,3 +140,39 @@ def fixed_step(hist, x, P, start: int, K: int, acc, *, M: int, L: int,
                             fracv=fracv)
     new_hist = buf[:, buf.shape[1] - hist_len:].contiguous()
     return new_hist, out, acc + torch.sum(out * out)
+
+
+# ---------------------------------------------------------------- K6
+def _poly_shape(win, P, M: int, qn: int, L: int) -> int:
+    ch, wlen = win.shape
+    nb_pad = wlen // M - 512
+    if wlen % M or nb_pad < 1 or tuple(P.shape) != (qn * M, L):
+        raise ValueError(f"polyphase_apply: win {tuple(win.shape)} must be "
+                         f"[ch, (nb_pad + 512)*M] with nb_pad >= 1 and P "
+                         f"{tuple(P.shape)} [qn*M, L] for M={M}, qn={qn}, "
+                         f"L={L}")
+    return nb_pad
+
+
+def polyphase_apply_reference(win, P, *, M: int, qn: int, L: int):
+    """The plain version of K6: out[c, i, :] = win[c, i*M : i*M + qn*M] @ P
+    for i < nb_pad = W // M - 512 (unfold + matmul)."""
+    nb_pad = _poly_shape(win, P, M, qn, L)
+    return win[:, :(nb_pad - 1) * M + qn * M].unfold(1, qn * M, M) @ P
+
+
+def polyphase_apply(win, P, *, M: int, qn: int, L: int):
+    """Fixed-ratio steady-state resample of a pre-aligned window buffer,
+    with JAX's arguments: ``win`` [ch, (nb_pad + 512)*M] float32 (the last
+    512 block rows are JAX's zero halo tile), ``P`` [qn*M, L] any dense
+    matrix.  Returns out [ch, nb_pad, L].  On a CUDA tensor: one launch of
+    K1 with start 0, K = nb_pad*L, nb = nb_pad; on a CPU tensor the plain
+    version.  (JAX's ``nb_pad % 512 == 0`` is a Mosaic tiling rule and is
+    not required here.)"""
+    global polyphase_launches
+    if win.device.type == "cpu":
+        return polyphase_apply_reference(win, P, M=M, qn=qn, L=L)
+    nb_pad = _poly_shape(win, P, M, qn, L)
+    out = _launch(win, P, 0, nb_pad * L, M=M, L=L, nb=nb_pad, qn=qn)
+    polyphase_launches += 1
+    return out.view(win.shape[0], nb_pad, L)

@@ -14,21 +14,26 @@ from __future__ import annotations
 import torch
 
 
-def window_and_hist(x, hist, start: int, xlen: int, hist_len: int):
-    """History concat -> window of ``xlen`` samples at ``start`` (reads past
-    the end are zero) and the advanced history (the last ``hist_len``
-    columns of history + input).
-
-    ``jax.lax.dynamic_slice`` clamps an out-of-range start; here it raises
-    instead, since the accounting never produces one."""
-    buf = torch.cat([hist, x], dim=1)
+def window_at(buf, start: int, xlen: int):
+    """``xlen`` samples of ``buf`` [S, W] from column ``start``, reads past
+    the end zero.  ``jax.lax.dynamic_slice`` clamps an out-of-range start;
+    here it raises instead, since the accounting never produces one."""
     W = buf.shape[1]
     if not 0 <= start <= W:
         raise ValueError(f"window start {start} outside [0, {W}]")
     win = buf[:, start:start + xlen]
     if win.shape[1] < xlen:
         win = torch.nn.functional.pad(win, (0, xlen - win.shape[1]))
-    return win, buf[:, W - hist_len:].contiguous()
+    return win
+
+
+def window_and_hist(x, hist, start: int, xlen: int, hist_len: int):
+    """History concat -> window of ``xlen`` samples at ``start`` (reads past
+    the end are zero) and the advanced history (the last ``hist_len``
+    columns of history + input)."""
+    buf = torch.cat([hist, x], dim=1)
+    return (window_at(buf, start, xlen),
+            buf[:, buf.shape[1] - hist_len:].contiguous())
 
 
 def mask_outputs(out, K: int, nb: int, L: int):
@@ -39,16 +44,24 @@ def mask_outputs(out, K: int, nb: int, L: int):
     return out * valid.to(out.dtype)
 
 
-def resample_block(x, hist, P, start: int, K: int, *, M: int, L: int,
-                   nb: int, qn: int, hist_len: int, fracv=None):
-    """One chunk's contraction: output block i is
+def window_dots(win, P, K: int, *, M: int, L: int, nb: int, qn: int,
+                fracv=None):
+    """The contraction over a window: output block i < nb is
     ``win[i*M : i*M + qn*M] @ P``; with ``fracv`` P stacks two phase banks
-    [qn*M, 2L] whose dots are lerped per phase.  Returns
-    (out [S, nb*L] zeroed beyond K, new_hist)."""
-    KQ = qn * M
-    win, new_hist = window_and_hist(x, hist, start, (nb - 1) * M + KQ,
-                                    hist_len)
-    d = win.unfold(1, KQ, M) @ P                        # [S, nb, L or 2L]
+    [qn*M, 2L] whose dots are lerped per phase.  Returns out [S, nb*L]
+    zeroed at and beyond K."""
+    d = win[:, :(nb - 1) * M + qn * M].unfold(1, qn * M, M) @ P
     if fracv is not None:
         d = d[:, :, :L] * (1.0 - fracv) + d[:, :, L:] * fracv
-    return mask_outputs(d, K, nb, L), new_hist
+    return mask_outputs(d, K, nb, L)
+
+
+def resample_block(x, hist, P, start: int, K: int, *, M: int, L: int,
+                   nb: int, qn: int, hist_len: int, fracv=None):
+    """One chunk's contraction (``window_dots`` over the window of
+    history + x at ``start``).  Returns (out [S, nb*L] zeroed beyond K,
+    new_hist)."""
+    win, new_hist = window_and_hist(x, hist, start, (nb - 1) * M + qn * M,
+                                    hist_len)
+    return window_dots(win, P, K, M=M, L=L, nb=nb, qn=qn,
+                       fracv=fracv), new_hist

@@ -1,10 +1,12 @@
 """Round-trip fidelity of the streaming engine: the ``artest -i -e`` metric.
 
-The counterpart of ``bench._measure_roundtrip_snr`` (without the
-``process_flat_out`` group form, which is not ported yet): preset -3 stereo
+The counterpart of ``bench._measure_roundtrip_snr``: preset -3 stereo
 44.1k->48k on the bit-identical artest LCG noise with 4096-frame fades,
-forward then inverse through ``DeviceStreamResampler``, and the diff RMS
-against the time-aligned source via the display_stats expression
+forward then inverse through ``DeviceStreamResampler`` on the headline code
+path (``bench._stream_flat_out``: the first chunk through ``process()``,
+M-multiple groups through ``process_flat_out``, the tail through
+``process()``, then ``flush()``), and the diff RMS against the
+time-aligned source via the display_stats expression
 ``10*log10(sumsq / count * 2)`` (reference artest.c:106-114).
 """
 
@@ -43,17 +45,33 @@ def artest_noise(seconds: float) -> np.ndarray:
 
 def stream(eng: DeviceStreamResampler, x: torch.Tensor,
            chunk_target: int = 1 << 19):
-    """Push x [ch, n] through ``eng``: process() over M-multiple chunks and
-    a tail chunk, then flush().  Returns (valid output [ch, K_total], the
-    number of process()/flush() calls)."""
+    """Push x [ch, n] through ``eng`` as ``bench._stream_flat_out`` does:
+    the first M-multiple chunk through process() (it absorbs the
+    non-periodic entry plan), the whole chunks that follow as one
+    process_flat_out group (a chunk at a time through process() if the
+    group is refused), the tail through process(), then flush().  Returns
+    (valid output [ch, K_total], the number of dispatching calls: each
+    process(), process_flat_out() and flush() is one K1 launch on a
+    card)."""
     n = x.shape[1]
     chunk = m_multiple(chunk_target, eng.M)
-    outs, calls, pos = [], 0, 0
-    while pos < n:
-        c = min(chunk, n - pos)
-        o, K = eng.process(x[:, pos:pos + c], c)
+    pos = min(chunk, n)
+    o, K = eng.process(x[:, :pos], pos)
+    outs, calls = [o[:, :K]], 1
+    while n - pos >= chunk:
+        g = (n - pos) // chunk
+        try:
+            o, _ = eng.process_flat_out(x[:, pos:pos + g * chunk], chunk)
+            pos += g * chunk
+        except ValueError:
+            o, K = eng.process(x[:, pos:pos + chunk], chunk)
+            o = o[:, :K]
+            pos += chunk
+        outs.append(o)
+        calls += 1
+    if pos < n:
+        o, K = eng.process(x[:, pos:], n - pos)
         outs.append(o[:, :K])
-        pos += c
         calls += 1
     o, K = eng.flush()
     outs.append(o[:, :K])
@@ -63,7 +81,7 @@ def stream(eng: DeviceStreamResampler, x: torch.Tensor,
 def roundtrip_diff_db(seconds: float, device, chunk_target: int = 1 << 19):
     """Forward then inverse resample ``seconds`` of the test signal on
     ``device``.  Returns a dict: ``diff_db`` (the diff RMS in dB),
-    ``calls`` (process()/flush() calls made on both legs) and
+    ``calls`` (dispatching calls made on both legs, see ``stream``) and
     ``frames`` (output frames of the forward and the inverse leg)."""
     x = torch.from_numpy(artest_noise(seconds)).to(device)
     legs = []

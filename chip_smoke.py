@@ -1,44 +1,66 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``art_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase; needs one card
+    python3 chip_smoke.py --checksum    # only K1's main-path output hash
 
-Drives the port's two paths on the card -- the reduced float32 fixed-ratio
-streaming resampler, preset -3 (2 channels, 380 taps, 44.1k<->48k), and the
-batched drifting-ratio ASRC at BASELINE config 5 (256 streams, 380 taps,
-380 filters, 32768-frame chunks, ratios 1 + 0.01 sin(0.1 s + 0.031 t)) --
-in phases; any failure raises and exits non-zero:
+Drives the port's paths on the card -- the fixed-ratio streaming
+resampler (preset -3, 2 channels, 380 taps, 44.1k<->48k, reduced; and
+BASELINE config 1, preset -1 mono 44.1k->48k, interpolated) in every
+dispatch form, and the batched drifting-ratio ASRC at BASELINE config 5
+(256 streams, 380 taps, 380 filters, 32768-frame chunks, ratios 1 + 0.01
+sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi's name and power limit;
 2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
    per source, in parallel), with ptxas's register and spill lines;
 3. K1 against its plain PyTorch version on the card, at the main path's
-   shapes (~2^22-frame stereo chunks) and its edge cases: max abs error vs
+   shapes (~2^22-frame stereo chunks), its edge cases and the large input
+   periods (preset -3 192k->44.1k, M=640; preset -1 96k->44.1k
+   interpolated, M=320) with the tile K1 picked for each: max abs error vs
    the float64 plain version <= 1e-5, a zero tail past K, the new history
-   bitwise equal;
-4. the ASRC kernels against their plain versions at config 5's shapes:
+   bitwise equal; then the sha256 of K1's bytes on the preset -3 chunk
+   (``--checksum`` prints it alone, also from an older checkout);
+4. K6 (polyphase_apply) against its float64 plain version at the main
+   path's shapes (<= 1e-5), then its entry point called 4 times: 4
+   launches;
+5. the ASRC kernels against their plain versions at config 5's shapes:
    near-1 drifting ratios, ratios 0.5, 0.2 and 2.0, a mid-tile Ks, Ks = 0
    rows, the flush call and S = 3; float32 within 1e-5 and float64 within
    1e-12 of the float64 plain version, new history bitwise, the apply
    kernel within 1e-5;
-5. the fixed-ratio path: a 60 s artest round trip (forward then inverse)
-   through DeviceStreamResampler.process()/flush() on the card, <= -130 dB
-   and no more than 3 dB above the same stream on the CPU (plain path);
-   K1's launch count equals the number of process()/flush() calls;
-6. the ASRC paths: BatchedASRC.process() over 256 streams and 32768-frame
+6. the fixed-ratio paths, K1's launches counted on each against its
+   design (one per process() call and per chunk of process_scan and
+   process_flat, one per process_flat_out/_packed group):
+   - the 60 s artest round trip through the headline path (first chunk by
+     process(), M-multiple groups by process_flat_out, tail, flush()):
+     <= -130 dB and no more than 3 dB above the same stream on the CPU;
+   - config 1: the first chunk by process(), then 16 ~2^22-frame chunks
+     through process_flat, process_scan(stats=True) and process_flat_out,
+     the last group replayed on a CPU engine of the port from the card's
+     state (counts and positions equal, samples within 1e-5);
+   - the headline group forms (G=8 chunks of 4,194,351 frames) against
+     sequential process(): process_flat bitwise in history, power and Ks,
+     process_flat_out bitwise in samples, process_flat_packed's bytes and
+     clip counts equal to quantizing those samples on the host, with a
+     power-of-two and another scaler;
+7. the ASRC paths: BatchedASRC.process() over 256 streams and 32768-frame
    chunks with the drifting ratios, then staggered flush(mask) calls, in
    float32 (kernel "auto", 30 calls), float64 (8 calls) and with the apply
    kernel (kernel "pallas", 6 calls); 8 of the streams replayed through a
    CPU engine of the port: counts and positions exactly equal, samples
    within 1e-5 (float32) and 1e-12 (float64); each kernel's launch count
    equals the number of dispatching calls;
-7. throughput: three windows of 8 chunks of ~2^22 frames through
-   process(x, n, acc), the host's planning time per chunk, K1's step
-   against the plain step and against one conv1d call (the library
-   yardstick); config 5's bench.py loop (3 calls per window, three windows)
-   in M outputs/s, its host planning time, and the ASRC step (kernel only,
-   kernel step, plain step) and apply in ms per call, in float32 and
-   float64; all kernel times with CUDA events, taken in turns.
+8. throughput: three windows of 8 chunks through process(x, n, acc), the
+   host's planning time per chunk, K1's step against the plain step and
+   one conv1d call (the library yardstick); the group forms as
+   bench._bench_device_fixed measures them (config 1 and config 1b, 64
+   mono rows, by process_flat, G=16; preset -3 by process_flat,
+   process_flat_out and process_flat_packed, G=8) with the host's group
+   plan; K6 against its plain version and conv1d; config 5's bench.py
+   loop, its host planning time, and the ASRC step (kernel only, kernel
+   step, plain step) and apply in ms per call, in float32 and float64;
+   all kernel times with CUDA events, taken in turns.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound, then, last, the {"ok": true, "device": ...} line.  Without a
@@ -47,6 +69,7 @@ usable CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -66,6 +89,10 @@ from art_tpu_torch.parallel.pipeline import window_and_hist
 
 # bench.py's headline configuration (preset -3); the planner reduces it
 FLAGS = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
+# BASELINE config 1 (bench.py:241-245): preset -1 mono 44.1k->48k, 48 taps,
+# 48 filters, no lowpass; 48 filters cannot carry 160 phases, so the
+# engine runs its interpolated mode
+INTERP = (1, 48, 48, 44100, 48000, 0, SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS)
 # BASELINE config 5 as bench.py measures it (bench.py:353-365)
 ASRC_S, ASRC_TAPS, ASRC_N = 256, 380, 32768
 # H100 SXM data sheet peaks at 700 W (NVIDIA): HBM3, float32 outside the
@@ -160,6 +187,26 @@ def _kernel_cases(dev, n_target):
     cases.append(("interp fracv 48/48 taps", noise(2, H), noise(2, n), P2,
                   fracv, 100, K, dict(M=M, L=L, nb=-(-K // L), qn=qn,
                                       hist_len=H)))
+    # large input periods, which the 128-block tile did not fit: preset -3
+    # 192k->44.1k (reduced, M=640) and preset -1 96k->44.1k (interpolated,
+    # M=320), steady chunks of real engine plans
+    for taps, src in ((380, 192000), (48, 96000)):
+        eng = DeviceStreamResampler(2, taps, taps, src, 44100, 0, FLAGS,
+                                    device=dev)
+        eng.advance_position(taps // 2)
+        n = roundtrip.m_multiple(n_target, eng.M)
+        eng._plan(n)
+        K, start, j0, pos0, plan = eng._plan_compute(n)
+        kw = _kw(eng, K)
+        if eng.interp:
+            P, fracv = eng._interp_pattern(pos0, plan, n, K, kw["nb"])[:2]
+        else:
+            P, fracv = eng._matrix(j0), None
+        cases.append((f"preset {-1 if eng.interp else -3} {src // 1000}k->"
+                      f"44.1k M={eng.M} qn={eng.qn} "
+                      f"{'interpolated' if eng.interp else 'reduced'} steady "
+                      f"K={K}", noise(2, eng.num_samples), noise(2, n), P,
+                      fracv, start, K, kw))
     return cases
 
 
@@ -182,7 +229,10 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
         tail0 = not bool(out[:, K:].any())
         hist_eq = bool(torch.equal(h, h32))
         finite = bool(torch.isfinite(out).all())
-        print(f"  {label}: out {tuple(out.shape)}; max|K1 - f64 plain| = "
+        tile = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None)
+        print(f"  {label}: tile {tile[0]} blocks x P pieces of {tile[1]} "
+              f"rows, {tile[2]} B shared; out {tuple(out.shape)}; "
+              f"max|K1 - f64 plain| = "
               f"{err:.3e} (f32 plain: {err32:.3e}); acc rel err "
               f"{acc_rel:.2e}; tail zero {tail0}; new_hist bitwise {hist_eq}")
         _require(finite and err <= 1e-5 and tail0 and hist_eq,
@@ -192,7 +242,8 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
 
 
 def phase_roundtrip(dev, seconds=60):
-    """The fixed-ratio path.  Returns K1's launch count during it."""
+    """The 60 s round trip through the headline path.  Returns K1's launch
+    count during it."""
     _reset_launches()
     t0 = time.perf_counter()
     rt = roundtrip.roundtrip_diff_db(seconds, dev)
@@ -200,11 +251,11 @@ def phase_roundtrip(dev, seconds=60):
     launches = k1.launches
     rt_cpu = roundtrip.roundtrip_diff_db(seconds, "cpu")
     print(f"  round trip {seconds} s stereo: {rt['diff_db']:.2f} dB on "
-          f"{dev} (K1 path, {secs:.2f} s wall incl. matrix builds), "
+          f"{dev} (K1, {secs:.2f} s wall incl. matrix builds), "
           f"{rt_cpu['diff_db']:.2f} dB on cpu (plain path); output frames "
           f"{rt['frames']} vs {rt_cpu['frames']}")
-    print(f"  K1 launches {launches}, process()/flush() calls "
-          f"{rt['calls']}")
+    print(f"  K1 launches {launches}, process()/process_flat_out()/flush() "
+          f"calls {rt['calls']}")
     _require(rt["frames"] == rt_cpu["frames"], "output counts differ")
     _require(rt["diff_db"] <= -130.0, "round trip above -130 dB")
     # one-sided: K1 sums each dot in blocks of 32 terms and lands below the
@@ -213,7 +264,7 @@ def phase_roundtrip(dev, seconds=60):
     _require(rt["diff_db"] <= rt_cpu["diff_db"] + 3.0,
              "kernel-path round trip more than 3 dB above the plain path")
     _require(dev.type != "cuda" or launches == rt["calls"] > 0,
-             "K1 launches != process()/flush() calls")
+             "K1 launches != dispatching calls")
     return launches
 
 
@@ -334,6 +385,332 @@ def _bound_ms(nbytes: int, flops: int, peak_flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_checksum(dev, n_target=1 << 22):
+    """sha256 of K1's output bytes on the preset -3 44.1k->48k steady
+    chunk (4,194,351 frames in, std-0.5 noise from a fixed seed).  Uses
+    only entry points the port has had since its first kernel, so
+    ``python3 chip_smoke.py --checksum`` run from an older checkout prints
+    that tree's bytes for the same input."""
+    eng = _engine(44100, 48000, dev)
+    n = roundtrip.m_multiple(n_target, eng.M)
+    eng._plan(n)
+    K, start, j0, _, _ = eng._plan_compute(n)
+    rng = np.random.default_rng(4242)
+    buf = torch.from_numpy(rng.normal(0, 0.5, (2, eng.num_samples + n))
+                           .astype(np.float32)).to(dev)
+    kw = _kw(eng, K)
+    out = k1.fixed_step_kernel(buf, eng._matrix(j0), start, K, M=kw["M"],
+                               L=kw["L"], nb=kw["nb"], qn=kw["qn"])
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def _noise_dev(dev, shape, seed, scale=0.5):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _poly_inputs(dev, nb_pad=28672, M=147, qn=4, L=160):
+    """K6's arguments at the main path's shapes: 2 channels, M=147, qn=4,
+    L=160, nb_pad = 56 x 512 (near a 2^22-frame chunk's 28,533 blocks);
+    data over the first nb_pad*M + qn*M samples, then JAX's zero tile; a
+    dense random P (K6 takes any matrix)."""
+    rng = np.random.default_rng(99)
+    win = torch.zeros((2, (nb_pad + 512) * M), device=dev)
+    win[:, :nb_pad * M + qn * M] = torch.from_numpy(rng.normal(
+        0, 0.5, (2, nb_pad * M + qn * M)).astype(np.float32)).to(dev)
+    P = torch.from_numpy(rng.normal(0, 0.05, (qn * M, L))
+                         .astype(np.float32)).to(dev)
+    return win, P, dict(M=M, qn=qn, L=L)
+
+
+def phase_polyphase(dev, calls=4):
+    """K6 against its float64 plain version, then its entry point called
+    ``calls`` times (no engine path runs it).  Returns (launches, max
+    error)."""
+    win, P, kw = _poly_inputs(dev)
+    out = k1.polyphase_apply(win, P, **kw)
+    ref = k1.polyphase_apply_reference(win.double(), P.double(), **kw)
+    err = float((out.double() - ref).abs().max())
+    print(f"  polyphase_apply win {tuple(win.shape)} P {tuple(P.shape)} -> "
+          f"out {tuple(out.shape)}: max|K6 - f64 plain| = {err:.3e}")
+    _require(bool(torch.isfinite(out).all()) and err <= 1e-5,
+             "K6 vs plain")
+    _reset_launches()
+    for _ in range(calls):
+        out = k1.polyphase_apply(win, P, **kw)
+    _sync(dev)
+    launches = k1.polyphase_launches
+    print(f"  polyphase_apply entry point: {calls} calls, {launches} K6 "
+          f"launches, {k1.launches} K1 chunk-step launches")
+    _require(dev.type != "cuda" or (launches == calls and k1.launches == 0),
+             "K6 launches != calls")
+    return launches, err
+
+
+def phase_interp_path(dev, n_target=1 << 22, G=16):
+    """BASELINE config 1 through every form: the first chunk by
+    process(), then a group of G M-multiple chunks each through
+    process_flat (stats), process_scan(stats=True) and process_flat_out;
+    the last group replayed through a CPU engine of the port from the
+    card engine's state.  Returns K1's launches on the path."""
+    eng = DeviceStreamResampler(*INTERP, device=dev)
+    eng.advance_position(INTERP[1] // 2)
+    assert eng.interp
+    n = roundtrip.m_multiple(n_target, eng.M)
+    x0 = _noise_dev(dev, (1, n), 31)
+    xs = _noise_dev(dev, (G, 1, n), 32)
+    flat = torch.cat(list(xs), dim=1)
+    zero = torch.zeros((), device=dev)
+    _reset_launches()
+    t0 = time.perf_counter()
+    _, K0 = eng.process(x0, n)
+    Ks1, acc = eng.process_flat(flat, n, zero)
+    _, Ks2, acc = eng.process_scan(xs, n, acc, stats=True)
+    state = eng.state_dict()
+    out, Ks3 = eng.process_flat_out(flat, n)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = k1.launches
+    want = 1 + G + G + 1
+    K = Ks1[0]
+    print(f"  config 1 (mono, 48 taps, L/M {eng.L}/{eng.M}, qn {eng.qn}): "
+          f"first chunk {n} frames -> {K0}; then process_flat, "
+          f"process_scan(stats) and process_flat_out over {G} x {n} frames "
+          f"-> {K} each, in {secs:.2f} s wall; K1 launches {launches} "
+          f"(design: {want})")
+    _require(all(k == K for k in (*Ks1, *Ks2, *Ks3)) and K == n * eng.L
+             // eng.M, "config 1 group counts")
+    _require(bool(torch.isfinite(acc)) and bool(torch.isfinite(out).all())
+             and tuple(out.shape) == (1, G * K), "config 1 outputs")
+    _require(dev.type != "cuda" or launches == want,
+             "config 1 K1 launches != design")
+    cpu = DeviceStreamResampler(*INTERP, device="cpu")
+    cpu.load_state(state)
+    out_c, Ks_c = cpu.process_flat_out(flat.cpu(), n)
+    err = float((out.cpu() - out_c).abs().max())
+    print(f"  CPU replay of the process_flat_out group: counts equal "
+          f"{list(Ks_c) == list(Ks3)}, positions {cpu.get_position()} / "
+          f"{eng.get_position()}, max sample diff {err:.3e}")
+    _require(list(Ks_c) == list(Ks3)
+             and cpu.get_position() == eng.get_position() and err <= 1e-5,
+             "config 1 CPU replay")
+    return launches
+
+
+def _host_quantize(x, scaler, hi, lo):
+    """The reference's double rounding on the host: code = fl32(x *
+    fl32(scaler)), floor(float64(code) + 0.5), clip; and the clip count."""
+    code = (x.astype(np.float64) * np.float64(np.float32(scaler))) \
+        .astype(np.float32)
+    ov = np.floor(code.astype(np.float64) + 0.5)
+    return np.clip(ov, lo, hi).astype(np.int64), int(((ov > hi)
+                                                      | (ov < lo)).sum())
+
+
+def phase_group_forms(dev, n_target=1 << 22, G=8):
+    """The headline group forms against sequential process() on the card
+    (preset -3, 2 ch, G=8 chunks of 4,194,351 frames, as bench.py:386-421
+    sets them up).  Returns K1's launches over the five engines' runs."""
+    engs = [_engine(44100, 48000, dev) for _ in range(5)]
+    n = roundtrip.m_multiple(n_target, engs[0].M)
+    first = _noise_dev(dev, (2, n), 41)
+    xs = _noise_dev(dev, (G, 2, n), 42)
+    flat = torch.cat(list(xs), dim=1)
+    for e in engs:
+        e.prewarm()
+        e.process(first, n)
+    a, b, c, d, e = engs
+    counts = {}
+
+    def run(name, fn):
+        _reset_launches()
+        r = fn()
+        _sync(dev)
+        counts[name] = k1.launches
+        return r
+
+    def sequential():
+        acc, valid, Ks = torch.zeros((), device=dev), [], []
+        for x in xs:
+            o, K, acc = a.process(x, n, acc)
+            valid.append(o[:, :K])
+            Ks.append(K)
+        return torch.cat(valid, dim=1), Ks, acc
+
+    valid, Ks, acc_a = run("process() x G", sequential)
+    Ks_b, acc_b = run("process_flat", lambda: b.process_flat(
+        flat, n, torch.zeros((), device=dev)))
+    out_c, Ks_c = run("process_flat_out", lambda: c.process_flat_out(
+        flat, n))
+    zi = torch.zeros((), dtype=torch.int32, device=dev)
+    packed = {}
+    for eng, scaler in ((d, 32768.0), (e, 32768.0 * 1.37)):
+        packed[scaler] = run(f"process_flat_packed scaler {scaler:g}",
+                             lambda: eng.process_flat_packed(
+                                 flat, n, zi, scaler=scaler,
+                                 highclip=32767, lowclip=-32768))
+    ok_flat = (list(Ks_b) == Ks and torch.equal(acc_b, acc_a)
+               and torch.equal(b.hist, a.hist)
+               and b.get_position() == a.get_position())
+    ok_out = (list(Ks_c) == Ks and torch.equal(out_c, valid)
+              and torch.equal(c.hist, a.hist))
+    print(f"  sequential: Ks {Ks[0]} x {G}, acc {float(acc_a):.6e}; "
+          f"process_flat bitwise (hist, acc, Ks, position) {ok_flat}; "
+          f"process_flat_out bitwise {ok_out}")
+    _require(ok_flat and ok_out, "group forms vs sequential process()")
+    x = out_c.cpu().numpy()
+    for scaler, (pk, Ks_p, clips) in packed.items():
+        ov, nclip = _host_quantize(x, scaler, 32767, -32768)
+        same = np.array_equal(pk.cpu().numpy().view(np.uint8),
+                              ov.astype("<i2").view(np.uint8))
+        print(f"  process_flat_packed scaler {scaler:g}: {pk.dtype} "
+              f"{tuple(pk.shape)}, bytes equal to the host quantization "
+              f"{same}, clips {int(clips)} (host {nclip})")
+        _require(same and int(clips) == nclip > 0 and list(Ks_p) == Ks,
+                 f"packed scaler {scaler:g}")
+    # one launch per chunk where the power is summed chunk by chunk, one
+    # per group where the group's blocks are one launch
+    want = {k: G if k in ("process() x G", "process_flat") else 1
+            for k in counts}
+    print(f"  K1 launches: {counts} (design: {want})")
+    _require(dev.type != "cuda" or counts == want,
+             "group-form K1 launches != design")
+    return sum(counts.values())
+
+
+def _plan_group_us(eng, flat, n):
+    """Host time of one group's consume/emit (and pattern) plan, in us,
+    whether process_flat would take the group or refuse it; the engine's
+    state is put back."""
+    state = (eng.output_offset, eng.input_index)
+    t0 = time.perf_counter()
+    try:
+        eng._flat_plan(flat, n)
+    except ValueError:
+        pass
+    dt = time.perf_counter() - t0
+    eng.output_offset, eng.input_index = state
+    return dt * 1e6
+
+
+def _group_rate(dev, tag, label, ctor, n_target, G, form, groups=1,
+                aggregate_rows=False, windows=3):
+    """Output frames/s of a group form as bench._bench_device_fixed
+    measures it: the first chunk absorbed by process(), then ``groups``
+    groups of G chunks per window ending in one sync, median of
+    ``windows``.  ``aggregate_rows``: the rows are independent mono
+    streams, so frames count once per row.  A stats group that
+    process_flat refuses (an interpolated pattern whose float64 drift
+    since its last fresh build passed PATTERN_TOL inside the group) runs
+    through process_scan(stats=True), as bench.py's mode fallback does;
+    such groups are counted and printed."""
+    eng = DeviceStreamResampler(*ctor, device=dev)
+    eng.advance_position(ctor[1] // 2)
+    eng.prewarm()
+    n = roundtrip.m_multiple(n_target, eng.M)
+    ch = ctor[0]
+    flat = _noise_dev(dev, (ch, G * n), 51, 0.25)
+    xs = flat.view(ch, G, n).transpose(0, 1)
+    eng.process(flat[:, :n], n)
+    zi = torch.zeros((), dtype=torch.int32, device=dev)
+    scanned = [0]
+
+    def run():
+        produced, acc, clips, out = 0, torch.zeros((), device=dev), zi, None
+        for _ in range(groups):
+            if form == "stats":
+                try:
+                    Ks, acc = eng.process_flat(flat, n, acc)
+                except ValueError:
+                    _, Ks, acc = eng.process_scan(xs, n, acc, stats=True)
+                    scanned[0] += 1
+            elif form == "delivered":
+                out, Ks = eng.process_flat_out(flat, n)
+            else:
+                _, Ks, clips = eng.process_flat_packed(
+                    flat, n, clips, scaler=32768.0, highclip=32767,
+                    lowclip=-32768)
+            produced += int(Ks.sum())
+        if form == "stats":
+            float(acc)
+        elif form == "delivered":
+            float(out[0, -1])
+        else:
+            int(clips)
+        return produced * (ch if aggregate_rows else 1)
+
+    run()
+    rates = []
+    for w in range(windows):
+        t0 = time.perf_counter()
+        produced = run()
+        dt = time.perf_counter() - t0
+        rates.append(produced / dt / 1e6)
+        print(f"  {label} window {w}: {groups} x {G} chunks x {ch} x {n} "
+              f"frames -> {produced} output frames in {dt * 1e3:.3f} ms = "
+              f"{rates[-1]:.2f} M output frames/s {tag}")
+    plan = _plan_group_us(eng, flat, n)
+    med = sorted(rates)[len(rates) // 2]
+    print(f"  {label}: median {med:.2f} M output frames/s; host group plan "
+          f"{plan:.1f} us per group of {G}; groups through process_scan "
+          f"{scanned[0]} of {groups * (windows + 1)} {tag}")
+    return med, plan
+
+
+def phase_group_throughput(dev, tag):
+    """Config 1, config 1b and the headline stats, delivered and int16
+    packed forms.  Returns {label: (median M frames/s, plan us)}."""
+    res = {}
+    res["config 1 stats"] = _group_rate(
+        dev, tag, "config 1 process_flat", INTERP, 1 << 22, 16, "stats")
+    res["config 1b stats"] = _group_rate(
+        dev, tag, "config 1b (64 mono rows) process_flat",
+        (64, *INTERP[1:]), 1 << 21, 16, "stats", aggregate_rows=True)
+    head = (2, 380, 380, 44100, 48000, 0, FLAGS)
+    for form, api in (("stats", "process_flat"),
+                      ("delivered", "process_flat_out"),
+                      ("packed", "process_flat_packed int16")):
+        res[f"preset -3 {form}"] = _group_rate(
+            dev, tag, f"preset -3 {api}", head, 1 << 22, 8, form, groups=2)
+    return res
+
+
+def phase_polyphase_timing(dev, tag, reps=10):
+    """K6 against its plain version and one conv1d (the library
+    yardstick), with its bound.  Returns the medians and the bound."""
+    win, P, kw = _poly_inputs(dev)
+    M, qn, L = kw["M"], kw["qn"], kw["L"]
+    nb_pad = win.shape[1] // M - 512
+    xw = win[:, None, :(nb_pad - 1) * M + qn * M].contiguous()
+    weight = P.T[:, None, :].contiguous()
+
+    def conv():
+        return torch.nn.functional.conv1d(xw, weight, stride=M)
+
+    ref = k1.polyphase_apply_reference(win, P, **kw)
+    conv_err = float((conv().transpose(1, 2) - ref).abs().max())
+    print(f"  conv1d yardstick vs K6 plain: max abs diff {conv_err:.3e}")
+    _require(conv_err <= 1e-5, "conv1d yardstick computes another function")
+    med = _time_in_turns(dev, {
+        "K6 plain": lambda: k1.polyphase_apply_reference(win, P, **kw),
+        "K6 kernel": lambda: k1.polyphase_apply(win, P, **kw),
+        "conv1d library": conv},
+        ["K6 plain", "K6 kernel", "conv1d library", "conv1d library",
+         "K6 kernel", "K6 plain"], reps, f"per call (nb_pad {nb_pad})", tag)
+    ch = win.shape[0]
+    # P is dense: every output needs all qn*M terms
+    med["bound"] = _bound_ms(4 * (win.numel() + P.numel() + ch * nb_pad * L),
+                             2 * ch * nb_pad * L * qn * M, PEAK_F32)
+    print(f"  polyphase_apply bound {med['bound'][0]:.4f} ms "
+          f"({med['bound'][1]}-bound)")
+    return med
+
+
 # ------------------------------------------------------------------ ASRC
 def _asrc_engine(dev, S=ASRC_S, dtype=np.float32, kernel="auto"):
     eng = BatchedASRC(S, ASRC_TAPS, ASRC_TAPS, dtype=dtype, kernel=kernel,
@@ -444,6 +821,7 @@ def phase_asrc_kernels_vs_plain(dev, n=ASRC_N):
 
 def _reset_launches():
     k1.launches = 0
+    k1.polyphase_launches = 0
     for name in kasrc.launches:
         kasrc.launches[name] = 0
 
@@ -616,32 +994,48 @@ def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
             "bound_by": bound[1], "library_ms": library_ms}
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test runs only on an NVIDIA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if argv[1:] == ["--checksum"]:
+        print(f"K1 preset -3 44.1k->48k chunk sha256 {k1_checksum(dev)}")
+        return 0
+    t_start = time.perf_counter()
     print("phase 1: device")
     name, count, tag = phase_device()
     print("phase 2: build")
     phase_build()
     print("phase 3: K1 vs plain PyTorch on the card")
     worst = {"fixed_step": phase_kernel_vs_plain(dev)}
-    print("phase 4: ASRC kernels vs plain PyTorch on the card, config 5")
+    print(f"  K1 preset -3 44.1k->48k chunk sha256 {k1_checksum(dev)}")
+    print("phase 4: K6 (polyphase_apply) vs plain PyTorch, its entry point")
+    launches = {}
+    launches["polyphase_apply"], worst["polyphase_apply"] = \
+        phase_polyphase(dev)
+    print("phase 5: ASRC kernels vs plain PyTorch on the card, config 5")
     worst.update(phase_asrc_kernels_vs_plain(dev))
-    print("phase 5: fixed-ratio path, 60 s round trip through "
-          "process()/flush()")
-    launches = {"fixed_step": phase_roundtrip(dev)}
-    print("phase 6: ASRC paths, config 5 through process()/flush(mask)")
+    print("phase 6: fixed-ratio paths: the 60 s round trip through the "
+          "headline path, BASELINE config 1 through every form, the "
+          "headline group forms against sequential process()")
+    fixed = {"round trip": phase_roundtrip(dev),
+             "config 1": phase_interp_path(dev),
+             "group forms": phase_group_forms(dev)}
+    launches["fixed_step"] = sum(fixed.values())
+    print(f"  K1 launches on the fixed-ratio paths: {fixed}")
+    print("phase 7: ASRC paths, config 5 through process()/flush(mask)")
     for key, dtype, kernel, calls in (
             ("asrc_step", np.float32, "auto", 30),
             ("asrc_step_f64", np.float64, "auto", 8),
             ("asrc_apply", np.float32, "pallas", 6)):
         launches[key], err = phase_asrc_path(dev, dtype, kernel, calls)
         worst[key] = max(worst[key], err)
-    print("phase 7: throughput")
+    print("phase 8: throughput")
     med = phase_throughput(dev, tag)
+    phase_group_throughput(dev, tag)
+    poly = phase_polyphase_timing(dev, tag)
     timed = phase_asrc_throughput(dev, tag)
     src = "art_tpu_torch/csrc/"
     pk = "art_tpu/ops/pallas_kernels.py:"
@@ -656,6 +1050,13 @@ def main() -> int:
         kernels.append(_kernel_entry(key, src + "asrc_step.cu", replaces,
                                      launches[key], worst[key], ms, plain_ms,
                                      bound))
+    kernels.append(_kernel_entry(
+        "polyphase_apply", src + "fixed_step.cu", pk + "963",
+        launches["polyphase_apply"], worst["polyphase_apply"],
+        poly["K6 kernel"], poly["K6 plain"], poly["bound"],
+        poly["conv1d library"]))
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
@@ -663,4 +1064,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -1,6 +1,8 @@
-"""Kernel K1 (art_tpu_torch/csrc/fixed_step.cu) and the ASRC kernels
-(art_tpu_torch/csrc/asrc_step.cu) held against their plain versions on an
-NVIDIA card.  These tests need a CUDA device and nvcc; without
+"""Kernel K1 (art_tpu_torch/csrc/fixed_step.cu, also at large input
+periods and as K6's polyphase_apply), the ASRC kernels
+(art_tpu_torch/csrc/asrc_step.cu) and the fixed-ratio group forms held
+against their plain versions, or sequential process(), on an NVIDIA
+card.  These tests need a CUDA device and nvcc; without
 them they skip.  Run them on the card with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -214,3 +216,151 @@ def test_asrc_engine_on_card_matches_cpu_engine(dtype, kernel, tol):
         assert float((og.cpu() - oc).abs().max()) <= tol
     assert kasrc.launches[name] == before + calls
     assert torch.equal(engines[0].hist.cpu(), engines[1].hist)
+
+
+# ------------------------------------------------ K1 at large M, K6, groups
+# K1 picks a smaller row tile and stages P in pieces where the 128-block
+# tile does not fit 227 KB of shared memory (csrc/fixed_step.cu header).
+WIDE = {   # (taps, filters, src, dst, flags): M, mode
+    "p2-96k-44k": (156, 320, 96000, 44100, IB),          # 320, reduced
+    "p3-192k-44k": (380, 380, 192000, 44100, IB),        # 640, reduced
+    "p1-96k-44k": (48, 48, 96000, 44100, IB),            # 320, interpolated
+    "p1-192k-44k": (48, 48, 192000, 44100, IB),          # 640, interpolated
+}
+
+
+def _wide_case(name, dev, n_periods=40, seed=0):
+    """A steady chunk of a real engine plan: (hist, x, P, fracv, start, K,
+    kw) on ``dev``; the plan and matrices come from a CPU engine."""
+    taps, filt, src, dst, flags = WIDE[name]
+    eng = DeviceStreamResampler(2, taps, filt, src, dst, 0, flags,
+                                device="cpu")
+    eng.advance_position(taps // 2)
+    n = n_periods * eng.M
+    eng._plan(n)
+    K, start, j0, pos0, plan = eng._plan_compute(n)
+    nb = -(-K // eng.L)
+    if eng.interp:
+        P, fracv = eng._interp_pattern(pos0, plan, n, K, nb)[:2]
+    else:
+        P, fracv = eng._matrix(j0), None
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    hist = t(rng.normal(0, 0.5, (2, eng.num_samples)))
+    x = t(rng.normal(0, 0.5, (2, n)))
+    kw = dict(M=eng.M, L=eng.L, nb=nb, qn=eng.qn, hist_len=eng.num_samples)
+    return (hist, x, P.to(dev), None if fracv is None else fracv.to(dev),
+            start, K, kw)
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_kernel_large_M_matches_plain(name):
+    dev = _card()
+    hist, x, P, fracv, start, K, kw = _wide_case(name, dev)
+    assert kw["M"] in (320, 640)
+    bm, pr, smem = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None)
+    assert bm in (32, 64, 128) and 0 < pr <= kw["M"] and smem <= 227 * 1024
+    acc = torch.zeros((), device=dev)
+    h, o, a = k1.fixed_step(hist, x, P, start, K, acc, fracv=fracv, **kw)
+    torch.cuda.synchronize()
+    d = lambda v: None if v is None else v.double()
+    _, orf, _ = k1.fixed_step_reference(d(hist), d(x), d(P), start, K,
+                                        acc.double(), fracv=d(fracv), **kw)
+    assert float((o.double() - orf).abs().max()) <= 1e-5
+    assert not o[:, K:].any()
+
+
+def test_kernel_tile_refuses_and_names_a_shape_too_large():
+    _card()
+    with pytest.raises(ValueError, match="M=4000, qn=2"):
+        k1.kernel_tile(4000, 2, False)
+    # the main path keeps the 128-block tile and one whole P slice:
+    # (131 rows x 147 + pad) + 147 x 32 floats
+    assert k1.kernel_tile(147, 4, False) == (128, 147, 95856)
+
+
+@pytest.mark.parametrize("nb_pad", [1024, 37])
+def test_polyphase_apply_matches_plain(nb_pad):
+    dev = _card()
+    M, qn, L = 147, 4, 160
+    rng = np.random.default_rng(nb_pad)
+    win = np.zeros((2, (nb_pad + 512) * M), np.float32)
+    win[:, :nb_pad * M + qn * M] = rng.standard_normal(
+        (2, nb_pad * M + qn * M))
+    P = (rng.standard_normal((qn * M, L)) * 0.05).astype(np.float32)
+    w, p = torch.from_numpy(win).to(dev), torch.from_numpy(P).to(dev)
+    before = k1.polyphase_launches, k1.launches
+    out = k1.polyphase_apply(w, p, M=M, qn=qn, L=L)
+    torch.cuda.synchronize()
+    assert (k1.polyphase_launches, k1.launches) == (before[0] + 1, before[1])
+    ref = k1.polyphase_apply_reference(w.double(), p.double(), M=M, qn=qn,
+                                       L=L)
+    assert out.shape == (2, nb_pad, L)
+    assert float((out.double() - ref).abs().max()) <= 1e-5
+
+
+GROUP_CTORS = {"reduced": (2, 380, 380, 44100, 48000, 0, IB),
+               "interp": (1, 48, 48, 44100, 48000, 0,
+                          SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS)}
+
+
+@pytest.mark.parametrize("method", ["process_scan", "process_flat",
+                                    "process_flat_out",
+                                    "process_flat_packed"])
+@pytest.mark.parametrize("mode", list(GROUP_CTORS))
+def test_group_forms_bitwise_equal_sequential_on_card(mode, method):
+    """On the card, each group form against sequential process(): Ks,
+    position and history equal, outputs and the power sum bitwise, packed
+    bytes equal to quantizing the sequential samples on the host."""
+    dev = _card()
+    ctor = GROUP_CTORS[mode]
+    a, b = (DeviceStreamResampler(*ctor, device=dev) for _ in range(2))
+    for e in (a, b):
+        e.advance_position(ctor[1] // 2)
+    G, ch, n = 3, ctor[0], 50 * a.M
+    rng = np.random.default_rng(21)
+    xs = torch.from_numpy(rng.normal(0, 0.7, (G + 1, ch, n))
+                          .astype(np.float32)).to(dev)
+    for e in (a, b):
+        e.process(xs[0], n)
+    acc_a, outs, Ks = torch.zeros((), device=dev), [], []
+    for x in xs[1:]:
+        o, K, acc_a = a.process(x, n, acc_a)
+        outs.append(o)
+        Ks.append(K)
+    flat = torch.cat(list(xs[1:]), dim=1)
+    zero = torch.zeros((), device=dev)
+    launches = k1.launches
+    if method == "process_scan":
+        o_b, Ks_b, acc_b = b.process_scan(xs[1:], n, zero)
+        assert torch.equal(acc_b, acc_a)
+        for g in range(G):
+            assert torch.equal(o_b[g], outs[g])
+        want_launches = G
+    elif method == "process_flat":
+        Ks_b, acc_b = b.process_flat(flat, n, zero)
+        assert torch.equal(acc_b, acc_a)
+        want_launches = G
+    else:
+        valid = torch.cat([o[:, :K] for o, K in zip(outs, Ks)], dim=1)
+        if method == "process_flat_out":
+            o_b, Ks_b = b.process_flat_out(flat, n)
+            assert torch.equal(o_b, valid)
+        else:
+            packed, Ks_b, clips = b.process_flat_packed(
+                flat, n, torch.zeros((), dtype=torch.int32, device=dev),
+                scaler=32768.0 * 1.37, highclip=32767, lowclip=-32768)
+            v = valid.cpu().numpy().astype(np.float64)
+            code = (v * np.float64(np.float32(32768.0 * 1.37))) \
+                .astype(np.float32)
+            ov = np.floor(code.astype(np.float64) + 0.5)
+            want = np.clip(ov, -32768, 32767).astype("<i2")
+            assert np.array_equal(packed.cpu().numpy().view(np.uint8),
+                                  want.view(np.uint8))
+            assert int(clips) == int(((ov > 32767) | (ov < -32768)).sum())
+        want_launches = 1
+    torch.cuda.synchronize()
+    assert k1.launches == launches + want_launches
+    assert list(Ks_b) == Ks
+    assert b.get_position() == a.get_position()
+    assert torch.equal(b.hist, a.hist)

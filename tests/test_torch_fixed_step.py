@@ -118,3 +118,48 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         k1.fixed_step_kernel(torch.zeros((2, 700)), torch.zeros((588, 160)),
                              0, 0, M=147, L=160, nb=1, qn=4)
     assert k1.launches == launches
+
+
+def _poly_inputs(nb_pad, M=147, qn=4, L=160, ch=2, seed=0):
+    """K6's inputs as tests/test_pallas.py makes them: data over the first
+    nb_pad*M + qn*M samples, then zeros to (nb_pad + 512)*M; dense P."""
+    rng = np.random.default_rng(seed)
+    win = np.zeros((ch, (nb_pad + 512) * M), np.float32)
+    win[:, :nb_pad * M + qn * M] = rng.standard_normal(
+        (ch, nb_pad * M + qn * M)).astype(np.float32)
+    P = rng.standard_normal((qn * M, L)).astype(np.float32) * 0.05
+    return win, P
+
+
+def test_polyphase_apply_matches_pallas_interpret():
+    """K6's plain version against polyphase_apply_pallas in interpret mode
+    at tests/test_pallas.py's shapes (atol 2e-5, its bound)."""
+    from art_tpu.ops.pallas_kernels import _TB, polyphase_apply_pallas
+    M, qn, L = 147, 4, 160
+    win, P = _poly_inputs(2 * _TB, M, qn, L)
+    ref = np.asarray(polyphase_apply_pallas(jnp.asarray(win), jnp.asarray(P),
+                                            M=M, qn=qn, L=L, interpret=True))
+    launches = k1.polyphase_launches
+    out = k1.polyphase_apply(torch.from_numpy(win), torch.from_numpy(P),
+                             M=M, qn=qn, L=L)
+    assert k1.polyphase_launches == launches     # the CPU takes the plain
+    assert tuple(out.shape) == ref.shape == (2, 2 * _TB, L)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+
+
+def test_polyphase_apply_shapes():
+    """Any nb_pad >= 1 (Mosaic's multiple of 512 is not carried over); a
+    buffer that is not (nb_pad + 512) whole periods, or a P of the wrong
+    shape, raises."""
+    M, qn, L = 147, 4, 160
+    win, P = _poly_inputs(37, M, qn, L, seed=1)
+    out = k1.polyphase_apply(torch.from_numpy(win), torch.from_numpy(P),
+                             M=M, qn=qn, L=L).numpy()
+    want = np.stack([win[:, i * M:i * M + qn * M] @ P for i in range(37)],
+                    axis=1)
+    assert np.abs(out - want).max() <= 1e-5
+    for w, p in ((win[:, :-1], P), (win[:, :512 * M], P), (win, P[:, :-1])):
+        with pytest.raises(ValueError, match="polyphase_apply"):
+            k1.polyphase_apply(torch.from_numpy(np.ascontiguousarray(w)),
+                               torch.from_numpy(np.ascontiguousarray(p)),
+                               M=M, qn=qn, L=L)

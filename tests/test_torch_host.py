@@ -173,6 +173,34 @@ def test_ring_floor_equal_on_seeded_sweep():
                                          avail, ns, taps))
 
 
+def test_ring_positions_equal_on_seeded_sweep():
+    """Chained real plans (slides, flush calls, the flush shift) through
+    both copies: integer positions and fractions bitwise equal."""
+    rng = np.random.default_rng(20261017)
+    for taps in (48, 88, 380):
+        ns = taps * 16
+        state = dict(output_offset=float(taps // 2) + rng.uniform(0, 1),
+                     input_index=taps)
+        ratio = float(rng.uniform(0.4, 2.5))
+        for n_in in (37, 1281, 4096, 9000, -1):
+            plan = j_acc.plan_process(
+                **state, flags=j_flags.SUBSAMPLE_INTERPOLATE, num_taps=taps,
+                num_samples=ns, num_filters=64, fixed_ratio=0.0, n_in=n_in,
+                n_out=20000, ratio=ratio)
+            kw = dict(first_position=plan.first_position,
+                      flush_shift=plan.flush_shift, ratio=ratio,
+                      K=plan.output_generated,
+                      input_index=state["input_index"],
+                      input_used=plan.input_used, num_samples=ns,
+                      num_taps=taps, flush=plan.flush)
+            (ia, fa), (ib, fb) = (j_acc.ring_positions(**kw),
+                                  t_acc.ring_positions(**kw))
+            assert ia.dtype == ib.dtype and np.array_equal(ia, ib)
+            assert np.array_equal(fa.view(np.uint64), fb.view(np.uint64))
+            state = dict(output_offset=plan.new_output_offset,
+                         input_index=plan.new_input_index)
+
+
 @pytest.mark.parametrize("seed", [j_testsig.LCG_SEED, 1, 0xDEADBEEF])
 def test_noise_and_fades_bitwise(seed):
     a, b = j_testsig.NoiseLCG(seed), t_testsig.NoiseLCG(seed)
