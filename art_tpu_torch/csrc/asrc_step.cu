@@ -34,41 +34,75 @@
 // 32768-frame chunks, ratios 1 +- 1%) one call makes ~8.39M outputs of 380
 // taps, two FMAs per tap (the lerp and the dot): ~12.8 GFLOP, ~0.19 ms at the
 // 67 TFLOP/s float32 rate of an H100 SXM (also ~0.19 ms in float64 at the
-// 67 TFLOP/s of its FP64 tensor cores; 0.38 ms on the CUDA cores alone),
-// against ~75 MB of history, input and output (~0.02 ms at 3.35 TB/s); that
-// is arithmetic from shapes and the data sheet.  What bounds the kernel is
-// the bank: [381, 380] (579 KB in float32, 1.16 MB in float64) does not fit
-// the 227 KB of shared memory a block may use, and every output gathers two
-// of its rows (3,040 B in float32), so one call asks ~25 GB (float32) or
-// ~51 GB (float64) of the L1/L2 caches.  Measured on an H100 80GB HBM3 at
-// 700 W (PERF.md): 2.98 ms per float32 call, 7.21 ms per float64 call and
-// 3.26 ms per apply call, all near 8.4 TB/s of bank-row traffic.
+// 67 TFLOP/s of its FP64 tensor cores; this kernel runs on the CUDA cores,
+// 0.38 ms), against ~75 MB of history, input and output (~0.02 ms at
+// 3.35 TB/s); that is arithmetic from shapes and the data sheet.  What
+// bounds a kernel that keeps the bank on chip is the SM's data path to
+// shared memory and L1, 128 B/clk: every output-tap reads two bank values
+// (8 B in float32, 16 B in float64) and one window value, ~3.19G
+// output-taps a call, so ~25.5 GB (float32) or ~51 GB (float64) of bank
+// reads alone, ~0.76 ms and ~1.5 ms at 132 SMs x 128 B/clk x 1.98 GHz.
+// The first kernel of this file (one warp per output, both bank rows
+// gathered from L2 for every output) took 2.99 ms per float32 call and 7.19
+// ms per float64 call on an H100 80GB HBM3 at 700 W; this design takes
+// 1.79 and 3.31 ms there (PERF.md has the runs and what holds them: the
+// window's reads and the per-run set-up come on top of the bank's).
 //
-// Design (right and simple first).
-//   - A grid of (output tiles, streams): a block of 8 warps owns kTile = 128
-//     consecutive outputs of one stream, warp w takes outputs w, w + 8, ...,
-//     so the block's warps read overlapping windows at the same time.
-//   - One warp per output: lane l takes taps 4l..4l+3, 4l+128.., so the
-//     bank rows are read in 16-byte loads and neighbouring lanes read
-//     neighbouring addresses of the window and of both rows (coalesced),
-//     through the read-only cache (__ldg).  buf is read from hist and x in
-//     place, no concat: a window wholly inside one of them (all outputs but
-//     the ~taps around the seam) is read straight, with no per-tap clamp or
-//     select.  That fast path took the float32 step from 6.84 to 2.98 ms.
-//   - Each lane keeps one partial sum of its ~12 taps (FMAs in T); the warp
-//     then adds the 32 partial sums in a butterfly of shuffles: a blocked
-//     summation order, like K1's blocks of 32.  The float64 instance
-//     accumulates in double throughout.
-//   - Outputs at k >= Ks[s] are written as 0 without being computed; a tile
-//     that lies wholly past Ks[s] writes its zeros coalesced and returns.
-//   - Offsets into hist, x, buf and out are 64-bit.
+// Design.
+//   - The bank [F + 1, taps] (579 KB in float32 at config 5) does not fit
+//     the 227 KB of shared memory a block may use, so it passes through in
+//     tap pieces: all F + 1 rows over a piece's P taps and the X taps that
+//     follow it (wrapping to tap 0), at row stride E = P + X, two buffers,
+//     piece p + 1 copied with cp.async while piece p is used.  At config 5
+//     P = X = 32 in float32 and 16 in float64: 97.5 KB a buffer.  The host
+//     picks P and X from (taps, F, dtype) (ops/asrc_step.py::step_geometry).
+//   - A block owns a run of consecutive outputs of one stream, 8 per thread
+//     in float32 and 6 in float64 (384 threads: runs of 3072 and 2304), each
+//     thread keeping its outputs' phase row, fraction, window start and sum
+//     in registers across the piece loop, so the whole bank crosses L2 once
+//     per run (~1.3 GB per float32 call, not ~25 GB).  With 384 threads a
+//     thread may hold 168 registers, which these slots need without a spill.
+//     No shuffle reduction: a thread sums its output's taps piece by piece
+//     (float32: a partial sum per piece, then added to the total; float64:
+//     one sum), so the result does not depend on timing.
+//   - The lanes of a warp read different phase rows at once, so their bank
+//     reads are laid out by lane: the lane with offset o = X - kVec (1 +
+//     l % 8) reads entries o .. o + P - 1 of its rows, four at a time in
+//     16-byte loads (kVec = 4 float32 or 2 float64 values).  With X one
+//     wavefront of values and E a multiple of it, the 8 lanes of a
+//     quarter-warp read 8 different 16-byte columns whatever their rows: no
+//     bank conflicts.  Such a lane reads taps o .. o + P - 1 of the piece,
+//     the last X - o of them from the X that follow, and the last pieces'
+//     reads wrap to tap 0, so each output sums all its taps once.
+//   - Lane l takes output kVec (l % 8) + ... of its warp's 32 (see lk), so
+//     that output + o is nearly the same for every lane near ratio 1 and the
+//     lanes' window reads meet on one or two 128-byte lines.
+//   - The run's windows [wlo, whi) are staged once in the shared memory the
+//     bank leaves (37 KB at config 5: 9344 float32 or 4672 float64 values,
+//     a run at ratio >= ~0.4 or ~0.6), read from hist and x with the reads
+//     clamped to the buffer as JAX's take_along_axis clip.  A run whose
+//     windows do not fit reads them in place through L1 (__ldg) from hist
+//     and x, no concat, whatever the ratio: a warp whose piece windows lie
+//     wholly in hist or wholly in x reads them straight, the few pieces
+//     that cross the seam take clamped reads.
+//   - Outputs at k >= Ks[s] are written as 0 without being computed: a run
+//     wholly past Ks[s] writes its zeros and returns, a warp skips its slots
+//     past Ks[s], and lanes past it inside a slot repeat the last valid
+//     output's position (so their window stays in the buffer) and store 0.
+//   - The float64 position chain is the first kernel's (__d*_rn), so fi,
+//     frac and base stay the plain version's bit for bit; it runs once per
+//     slot in a loop whose results are parked in shared memory, so that the
+//     division's slow-path call finds few live registers.  Offsets into
+//     hist, x and out are 64-bit; a stream's hist ++ x must be shorter than
+//     2^31 values.
 // The TPU kernels' workarounds are not carried over: no double-single
 // position or bank planes, no Hankel carry/roll tiers or hankel_smax bounds,
 // no one-hot coarse alignment, no transposed lane-padded bank tables, no
-// fold_low, no pack_step_scalars, no S % 8 geometry.  One kernel takes any S
-// and any positive ratio (and any taps % 4 == 0, which resampleInit
-// requires).  Cutting the bank traffic (outputs that share a phase row
-// sharing its load, or a bank staged per block) is work for a later kernel.
+// fold_low, no pack_step_scalars, no S % 8 geometry.  One kernel takes any S,
+// any positive ratio and any (taps, F) that resampleInit allows.
+//
+// asrc_apply is the first kernel's form (one warp per output, bank rows
+// gathered through the read-only cache, a warp shuffle per output).
 
 #include <cuda_runtime.h>
 
@@ -76,6 +110,7 @@
 
 namespace {
 
+// asrc_apply: a block of 8 warps owns kTile = 128 consecutive outputs
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPerWarp = 16;
@@ -95,87 +130,326 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
-    const double2 a = __ldg(reinterpret_cast<const double2*>(p));
-    const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+// asrc_step: see the header
+// threads per block and outputs per thread (slots): 384 threads, so that a
+// thread may hold 168 registers, and 8 float32 or 6 float64 slots, the
+// most whose state those registers hold without spilling
+constexpr int kStepThreads = 384;
+template <typename T>
+constexpr int kStepSlots = sizeof(T) == 4 ? 8 : 6;
+template <typename T>
+constexpr int kStepRun = kStepThreads * kStepSlots<T>;  // outputs per block
+constexpr long long kMaxSmem = 232448;    // shared memory a block may use
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Piece p of the bank into buf: row j, entry c < pc + X is bank[j, (p0 + c)
+// mod taps] (the piece's pc taps and the X that follow, wrapping to tap 0;
+// X <= taps, so it wraps at most once), at row stride E, in 16-byte copies
+// (p0, pc, X and taps are multiples of 4 and rows start 16-byte aligned),
+// as one cp.async group.  Each thread copies one 16-byte column of every
+// rows_per_pass-th row (the host keeps a row's copies within one pass).
+template <typename T>
+__device__ __forceinline__ void stage_piece(T* buf, const T* __restrict__ bank,
+                                            int taps, int F, int E, int X,
+                                            int p0, int pc) {
+    constexpr int kVec = 16 / sizeof(T);
+    const int per_row = (pc + X) / kVec;
+    const int rows_per_pass = kStepThreads / per_row;
+    const int tid = threadIdx.x;
+    const int c = (tid % per_row) * kVec;
+    const int t = p0 + c < taps ? p0 + c : p0 + c - taps;
+    if (tid < rows_per_pass * per_row)
+        for (int j = tid / per_row; j <= F; j += rows_per_pass)
+            cp_async16(buf + j * E + c,
+                       bank + static_cast<long long>(j) * taps + t);
+    cp_async_commit();
+}
+
+enum PieceMode { kLinear, kWrap, kClamped };
+
+// Four consecutive bank entries from shared memory in 16-byte loads (one
+// float4, two double2; p is 16-byte aligned).
+__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void lds4(const double* p, double (&v)[4]) {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
     v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+// Whether the window piece [b, b + len) of hist ++ x lies wholly in hist
+// or wholly in x; window_at is then where it starts.
+__device__ __forceinline__ bool window_fits(long long H, long long n,
+                                            long long b, long long len) {
+    return (b >= 0 && b + len <= H) || (b >= H && b + len <= H + n);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ const T* window_at(const T* hist_s, long long H,
+                                             const T* x_s, long long b) {
+    return b < H ? hist_s + b : x_s + (b - H);
+}
+
+// One piece's dots for the warp's first ja slots (all kStepSlots<T> when
+// kAll).  The lane with offset o takes buffer entries o, o + 1, ...,
+// o + pc - 1 of rows fi and fi + 1 (bp + row[j] + o and + E), four at a
+// time in 16-byte loads, that is taps T = p0 + o + u (mod taps) for u < pc,
+// and adds win[T] * (b1 + frac (b2 - b1)), b1 = bank[fi, T], b2 =
+// bank[fi + 1, T], to sums[j] in that order (the lerp in this form needs
+// no 1 - frac register per slot).  Slot j's window starts at wlo + wrel[j]
+// in hist ++ x.  kLinear: no lane's T wraps; kWrap: some do; kClamped:
+// reads of hist ++ x are clamped to the buffer.  kStaged: the run's window
+// from wlo on is in shared memory at ws; otherwise the window is read in
+// place through L1, and (kLinear, kWrap) each slot's reads of this piece
+// lie wholly in hist or in x.
+template <typename T, bool kAll, PieceMode kMode, bool kStaged>
+__device__ __forceinline__ void piece_dots(
+        const T* bp, const T* ws, int E, int o, int p0, int pc, int taps,
+        int ja, const int (&row)[kStepSlots<T>],
+        const T (&frac)[kStepSlots<T>],
+        const int (&wrel)[kStepSlots<T>], long long wlo,
+        const T* __restrict__ hist_s, long long H, const T* __restrict__ x_s,
+        long long last, T (&sums)[kStepSlots<T>]) {
+    constexpr bool kLin = kMode == kLinear;
+    int wo[kStepSlots<T>];                     // kStaged: window offset in ws
+    const T* w[kStepSlots<T>];                 // in place: window pointer
+#pragma unroll
+    for (int j = 0; j < kStepSlots<T>; ++j) {
+        wo[j] = wrel[j] + (kLin ? p0 + o : 0);
+        w[j] = nullptr;
+        if constexpr (!kStaged && kMode != kClamped)
+            w[j] = window_at(hist_s, H, x_s, wlo + wo[j]);
+    }
+    for (int u0 = 0; u0 < pc; u0 += 4) {    // pc % 4 == 0
+        int i[4];                           // window taps; kLinear: + u
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            i[c] = u0 + c;
+            if constexpr (!kLin) {
+                const int t = p0 + o + u0 + c;
+                i[c] = t < taps ? t : t - taps;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kStepSlots<T>; ++j) {
+            if (kAll || j < ja) {
+                const T* b = bp + row[j] + o + u0;
+                T w1[4], w2[4];
+                lds4(b, w1);
+                lds4(b + E, w2);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    T v;
+                    if constexpr (kStaged) {
+                        v = ws[wo[j] + i[c]];
+                    } else if constexpr (kMode == kClamped) {
+                        const long long g =
+                            min(max(wlo + wo[j] + i[c], 0LL), last);
+                        v = g < H ? __ldg(hist_s + g) : __ldg(x_s + (g - H));
+                    } else {
+                        v = __ldg(w[j] + i[c]);
+                    }
+                    sums[j] += v * (w1[c] + frac[j] * (w2[c] - w1[c]));
+                }
+            }
+        }
+    }
+}
+
+// Output k's emission position, as the plain version computes it in
+// float64: phase row fi, fraction frac (rounded to T) and window base.
+template <typename T>
+__device__ __forceinline__ long long position(long long k, double off,
+                                              double ratio, int F, int half,
+                                              long long shift, int* fi,
+                                              T* frac) {
+    const double pos = __dadd_rn(off, __ddiv_rn(static_cast<double>(k),
+                                                ratio));
+    const double ip = floor(pos);
+    const double ff = __dmul_rn(__dsub_rn(pos, ip), static_cast<double>(F));
+    *fi = min(static_cast<int>(floor(ff)), F - 1);
+    *frac = static_cast<T>(__dsub_rn(ff, static_cast<double>(*fi)));
+    return static_cast<long long>(ip) - half + 1 + shift;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStepThreads, 1)
 asrc_step_kernel(const T* __restrict__ hist, long long H,
                  const T* __restrict__ x, long long n,
-                 const T* __restrict__ bank, int taps, int F,
-                 const double* __restrict__ offsets,
+                 const T* __restrict__ bank, int taps, int F, int P, int X,
+                 int wcap, const double* __restrict__ offsets,
                  const double* __restrict__ ratios,
                  const int* __restrict__ Ks, long long shift,
                  long long k_max, T* __restrict__ out) {
+    // float32 sums each piece apart, then adds it (a blocked order)
+    constexpr bool kBlocked = sizeof(T) == 4;
+    constexpr int kVec = 16 / sizeof(T);
+    extern __shared__ float4 smem4[];
+    T* const bufs = reinterpret_cast<T*>(smem4);
+    const int E = P + X;                    // entries per staged row
+    const int piece = (F + 1) * E;
+    T* const ws = bufs + 2 * piece;         // the staged window, wcap values
     const int s = blockIdx.y;
-    const long long k0 = static_cast<long long>(blockIdx.x) * kTile;
-    const long long Ks_s = Ks[s];
+    const int tid = threadIdx.x;
+    const long long k0 = static_cast<long long>(blockIdx.x) * kStepRun<T>;
+    const long long kend = min(static_cast<long long>(Ks[s]), k_max);
     T* out_s = out + static_cast<long long>(s) * k_max;
-    if (k0 >= Ks_s) {                      // the whole tile is masked
-        for (long long k = k0 + threadIdx.x; k < k0 + kTile && k < k_max;
-             k += kThreads)
+    if (k0 >= kend) {                       // the whole run is masked
+        for (long long k = k0 + tid; k < k0 + kStepRun<T> && k < k_max;
+             k += kStepThreads)
             out_s[k] = T(0);
         return;
     }
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
+    const int pieces = (taps + P - 1) / P;
+    // piece 0 lands while the positions are computed
+    stage_piece(bufs, bank, taps, F, E, X, 0, min(P, taps));
+
+    const int lane = tid & 31;
+    // the lane's entry offset: lanes 8 apart share one, the 8 of a
+    // quarter-warp read 8 different 16-byte columns of any rows
+    const int o = X - kVec * (1 + lane % (X / kVec));
     const T* hist_s = hist + static_cast<long long>(s) * H;
     const T* x_s = x + static_cast<long long>(s) * n;
     const long long last = H + n - 1;
     const double off = offsets[s];
     const double ratio = ratios[s];
     const int half = taps / 2;
+    const long long kwarp = k0 + (tid - lane);  // the warp's slot-0 output
+    // the lane's output among its warp's 32 of a slot: where the offsets
+    // span a wavefront (X = 8 kVec) lane l takes output kVec (l % 8) +
+    // (l / 8) % kVec + 8 kVec (l / 8 / kVec), so that output + o is nearly
+    // the same for all lanes near ratio 1 and their window reads meet on
+    // one or two 128-byte lines; otherwise output l
+    const int lk = X == 8 * kVec
+        ? kVec * (lane % 8) + (lane / 8) % kVec + 8 * kVec * (lane / 8 / kVec)
+        : lane;
+    const long long kthread = kwarp + lk;
+    int row[kStepSlots<T>];
+    T frac[kStepSlots<T>], acc[kStepSlots<T>];
+    // The run's windows span [wlo, whi) (positions grow with k), less than
+    // H + n < 2^31 wide: a slot's window starts at wlo + wrel[j].  Where
+    // the span fits the wcap values left after the bank's buffers, it is
+    // staged once, with the reads clamped to the buffer, and every piece
+    // reads it from shared memory; otherwise the pieces read hist and x in
+    // place.
+    int fi_edge;
+    T frac_edge;
+    const long long wlo = position(k0, off, ratio, F, half, shift, &fi_edge,
+                                   &frac_edge);
+    const long long whi =
+        position(min(k0 + kStepRun<T>, kend) - 1, off, ratio, F, half, shift,
+                 &fi_edge, &frac_edge) + taps;
+    // The slots' positions, one slot at a time: a loop, so that the few
+    // values live across the division's slow-path call need no spill,
+    // parked in shared memory behind piece 0's buffer, which piece 1 and
+    // the staged window fill only after the barrier below.
+    int* const srow = reinterpret_cast<int*>(bufs + piece);
+    int* const swrel = srow + kStepRun<T>;
+    T* const sfrac = reinterpret_cast<T*>(swrel + kStepRun<T>);
+#pragma unroll 1
+    for (int j = 0; j < kStepSlots<T>; ++j) {
+        // lanes past the valid outputs take the last valid one's position
+        const int e = j * kStepThreads + tid;
+        int fi;
+        swrel[e] = static_cast<int>(
+            position(min(kthread + j * kStepThreads, kend - 1), off,
+                     ratio, F, half, shift, &fi, &sfrac[e]) - wlo);
+        srow[e] = fi * E;
+    }
+    int wrel[kStepSlots<T>];
+    int ja = 0;     // slots holding a valid output of this warp (a prefix)
+#pragma unroll
+    for (int j = 0; j < kStepSlots<T>; ++j) {
+        const int e = j * kStepThreads + tid;
+        wrel[j] = swrel[e];
+        row[j] = srow[e];
+        frac[j] = sfrac[e];
+        acc[j] = T(0);
+        if (kwarp + j * kStepThreads < kend) ja = j + 1;
+    }
+    __syncthreads();
+    const bool staged = whi - wlo <= wcap;
+    if (staged)
+        for (int e = tid; e < whi - wlo; e += kStepThreads) {
+            const long long g = min(max(wlo + e, 0LL), last);
+            ws[e] = g < H ? hist_s[g] : x_s[g - H];
+        }
 
-    for (int i = 0; i < kPerWarp; ++i) {
-        const long long k = k0 + warp + static_cast<long long>(i) * kWarps;
-        if (k >= k_max) break;
-        if (k >= Ks_s) {
-            if (lane == 0) out_s[k] = T(0);
-            continue;
+    for (int p = 0; p < pieces; ++p) {
+        const int p0 = p * P;
+        const int pc = min(P, taps - p0);
+        if (p + 1 < pieces) {
+            stage_piece(bufs + ((p + 1) & 1) * piece, bank, taps, F, E, X,
+                        p0 + P, min(P, taps - p0 - P));
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
-        const double pos = __dadd_rn(off, __ddiv_rn(static_cast<double>(k),
-                                                    ratio));
-        const double ip = floor(pos);
-        const double ff = __dmul_rn(__dsub_rn(pos, ip),
-                                    static_cast<double>(F));
-        const int fi = min(static_cast<int>(floor(ff)), F - 1);
-        const T frac = static_cast<T>(__dsub_rn(ff, static_cast<double>(fi)));
-        const T one_m = T(1) - frac;
-        const long long base = static_cast<long long>(ip) - half + 1 + shift;
-        const T* b1 = bank + static_cast<long long>(fi) * taps;
-        const T* b2 = b1 + taps;
-        // the window lies wholly in hist or wholly in x for all but the
-        // ~taps outputs around the seam (warp-uniform branch); only those
-        // pay the per-tap clamp and select
-        const T* win = nullptr;
-        if (base >= 0 && base + taps <= H)
-            win = hist_s + base;
-        else if (base >= H && base + taps <= H + n)
-            win = x_s + (base - H);
-        T acc = T(0);
-        for (int t = 4 * lane; t < taps; t += 128) {
-            T w1[4], w2[4], v[4];
-            load4(b1 + t, w1);
-            load4(b2 + t, w2);
-            if (win != nullptr) {
+        __syncthreads();                    // piece p is in its buffer
+        const T* bp = bufs + (p & 1) * piece;
+        // taps p0 + o + u, u < pc, wrap past taps in the last pieces
+        const bool wraps = p0 + pc + X - 1 > taps;
+        bool fast = true;
+        if (!staged)
 #pragma unroll
-                for (int u = 0; u < 4; ++u) v[u] = __ldg(win + t + u);
-            } else {
+            for (int j = 0; j < kStepSlots<T>; ++j)
+                if (j < ja && !(wraps ? window_fits(H, n, wlo + wrel[j], taps)
+                                      : window_fits(H, n,
+                                                    wlo + wrel[j] + p0 + o,
+                                                    pc)))
+                    fast = false;
+        fast = __all_sync(0xffffffffu, fast);   // warp-uniform path
+        T part[kStepSlots<T>];
 #pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    const long long j = min(max(base + t + u, 0LL), last);
-                    v[u] = j < H ? __ldg(hist_s + j) : __ldg(x_s + (j - H));
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-                acc += v[u] * (w1[u] * one_m + w2[u] * frac);
+        for (int j = 0; j < kStepSlots<T>; ++j)
+            part[j] = kBlocked ? T(0) : acc[j];
+#define ART_PIECE(ALL, MODE, STAGED)                                          \
+        piece_dots<T, ALL, MODE, STAGED>(bp, ws, E, o, p0, pc, taps, ja, row, \
+                                         frac, wrel, wlo, hist_s, H, x_s,     \
+                                         last, part)
+        if (ja == kStepSlots<T>) {
+            if (staged) {
+                if (wraps) ART_PIECE(true, kWrap, true);
+                else ART_PIECE(true, kLinear, true);
+            } else if (!fast) ART_PIECE(true, kClamped, false);
+            else if (wraps) ART_PIECE(true, kWrap, false);
+            else ART_PIECE(true, kLinear, false);
+        } else {
+            if (staged) {
+                if (wraps) ART_PIECE(false, kWrap, true);
+                else ART_PIECE(false, kLinear, true);
+            } else if (!fast) ART_PIECE(false, kClamped, false);
+            else if (wraps) ART_PIECE(false, kWrap, false);
+            else ART_PIECE(false, kLinear, false);
         }
-        acc = warp_sum(acc);
-        if (lane == 0) out_s[k] = acc;
+#undef ART_PIECE
+#pragma unroll
+        for (int j = 0; j < kStepSlots<T>; ++j)
+            acc[j] = kBlocked ? acc[j] + part[j] : part[j];
+        __syncthreads();                    // buffer p & 1 may be refilled
+    }
+
+#pragma unroll
+    for (int j = 0; j < kStepSlots<T>; ++j) {
+        const long long k = kthread + j * kStepThreads;
+        if (k < k_max) out_s[k] = k < kend ? acc[j] : T(0);
     }
 }
 
@@ -226,45 +500,70 @@ asrc_apply_kernel(const float* __restrict__ buf, long long B,
 
 template <typename T>
 int launch_step(const T* hist, long long H, const T* x, long long n,
-                long long S, const T* bank, int taps, int F,
-                const double* offsets, const double* ratios, const int* Ks,
-                long long shift, long long k_max, T* out, void* stream) {
-    const long long tiles = (k_max + kTile - 1) / kTile;
+                long long S, const T* bank, int taps, int F, int P,
+                int X, int threads, int run, const double* offsets,
+                const double* ratios, const int* Ks, long long shift,
+                long long k_max, T* out, void* stream) {
+    const long long runs = (k_max + kStepRun<T> - 1) / kStepRun<T>;
+    // two bank piece buffers, then the staged window in what is left
+    const long long bank_bytes =
+        2LL * (F + 1) * (P + X) * static_cast<long long>(sizeof(T));
     if (S <= 0 || S > 65535 || H < 0 || n < 0 || H + n < 1 || taps <= 0 ||
-        taps % 4 || F <= 0 || k_max <= 0 || tiles > 0x7fffffffLL ||
+        H + n > 0x7fffffffLL || taps % 4 || F <= 0 || k_max <= 0 ||
+        runs > 0x7fffffffLL || P <= 0 ||
+        P % 4 || X <= 0 || X % 4 || X > taps || X > 32 ||
+        bank_bytes > kMaxSmem ||
+        (P + X) * static_cast<int>(sizeof(T)) > 16 * kStepThreads ||
+        threads != kStepThreads || run != kStepRun<T> ||
         reinterpret_cast<uintptr_t>(bank) % 16)
         return cudaErrorInvalidValue;
-    const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(S));
-    asrc_step_kernel<T><<<grid, kThreads, 0,
+    const int wcap =
+        static_cast<int>((kMaxSmem - bank_bytes) / sizeof(T));
+    const cudaError_t err = cudaFuncSetAttribute(
+        asrc_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(S));
+    asrc_step_kernel<T><<<grid, kStepThreads,
+                          static_cast<size_t>(kMaxSmem),
                           static_cast<cudaStream_t>(stream)>>>(
-        hist, H, x, n, bank, taps, F, offsets, ratios, Ks, shift, k_max, out);
+        hist, H, x, n, bank, taps, F, P, X, wcap, offsets, ratios, Ks, shift,
+        k_max, out);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 // hist [S, H], x [S, n], bank [F + 1, taps] (T contiguous on the device),
-// offsets and ratios float64 [S], Ks int32 [S], out [S, k_max].  Return the
-// launch's cudaError_t (0 on success); arguments the kernel does not take
-// return cudaErrorInvalidValue.
+// offsets and ratios float64 [S], Ks int32 [S], out [S, k_max]; the
+// geometry (taps per piece P, outputs per block, threads) from
+// ops/asrc_step.py::step_geometry.  Return the launch's cudaError_t (0 on
+// success); arguments the kernel does not take, a geometry it was not built
+// for included, return cudaErrorInvalidValue.
 extern "C" int art_asrc_step_f32(const float* hist, long long H,
                                  const float* x, long long n, long long S,
-                                 const float* bank, int taps, int F,
-                                 const double* offsets, const double* ratios,
-                                 const int* Ks, long long shift,
-                                 long long k_max, float* out, void* stream) {
-    return launch_step<float>(hist, H, x, n, S, bank, taps, F, offsets,
-                              ratios, Ks, shift, k_max, out, stream);
+                                 const float* bank, int taps, int F, int P,
+                                 int X, int run, int threads,
+                                 const double* offsets,
+                                 const double* ratios, const int* Ks,
+                                 long long shift, long long k_max, float* out,
+                                 void* stream) {
+    return launch_step<float>(hist, H, x, n, S, bank, taps, F, P, X, threads,
+                              run, offsets, ratios, Ks, shift, k_max, out,
+                              stream);
 }
 
 extern "C" int art_asrc_step_f64(const double* hist, long long H,
                                  const double* x, long long n, long long S,
-                                 const double* bank, int taps, int F,
-                                 const double* offsets, const double* ratios,
-                                 const int* Ks, long long shift,
-                                 long long k_max, double* out, void* stream) {
-    return launch_step<double>(hist, H, x, n, S, bank, taps, F, offsets,
-                               ratios, Ks, shift, k_max, out, stream);
+                                 const double* bank, int taps, int F, int P,
+                                 int X, int run, int threads,
+                                 const double* offsets,
+                                 const double* ratios, const int* Ks,
+                                 long long shift, long long k_max,
+                                 double* out, void* stream) {
+    return launch_step<double>(hist, H, x, n, S, bank, taps, F, P, X, threads,
+                               run, offsets, ratios, Ks, shift, k_max, out,
+                               stream);
 }
 
 // buf [S, B], bank [F + 1, taps], frac and out [S, K] float32, base and fi

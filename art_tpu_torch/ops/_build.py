@@ -28,8 +28,8 @@ _lib = None
 build_log = ""      # nvcc's output of the build this process made, if any
 
 _vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ASRC_STEP = [_vp, _ll, _vp, _ll, _ll, _vp, _i, _i, _vp, _vp, _vp, _ll, _ll,
-              _vp, _vp]
+_ASRC_STEP = [_vp, _ll, _vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp,
+              _vp, _vp, _ll, _ll, _vp, _vp]
 _SIGNATURES = {
     # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, stream
     "art_fixed_step": [_vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _vp, _i, _i, _i,
@@ -37,8 +37,8 @@ _SIGNATURES = {
     # M, qn, interp, &blocks per CTA, &P rows per piece, &shared bytes
     "art_fixed_step_tile": [_i, _i, _i, ctypes.POINTER(_i),
                             ctypes.POINTER(_i), ctypes.POINTER(_ll)],
-    # hist, H, x, n, S, bank, taps, F, offsets, ratios, Ks, shift, k_max,
-    # out, stream
+    # hist, H, x, n, S, bank, taps, F, P, X, outputs per block, threads,
+    # offsets, ratios, Ks, shift, k_max, out, stream
     "art_asrc_step_f32": _ASRC_STEP,
     "art_asrc_step_f64": _ASRC_STEP,
     # buf, S, B, bank, taps, F, base, fi, frac, K, out, stream

@@ -21,6 +21,8 @@ A CPU tensor takes the plain version (``asrc_step_reference``,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -111,6 +113,63 @@ def apply_prologue(hist, x, offsets, ratios, shift: int, *, num_taps: int,
             buf[:, buf.shape[1] - hist_len:].contiguous())
 
 
+SMEM_BYTES = 232448     # dynamic shared memory a block may use (H100)
+# csrc/asrc_step.cu kStepThreads, kStepSlots<T>: threads per block and
+# outputs per thread
+STEP_THREADS = 384
+STEP_SLOTS = {torch.float32: 8, torch.float64: 6}
+
+
+class StepGeometry(NamedTuple):
+    piece_taps: int         # P: taps per staged bank piece
+    lane_span: int          # X: taps a staged row holds past its piece's P
+    pieces: int             # ceil(taps / P); the last may be shorter
+    outputs_per_block: int
+    threads: int
+    bank_bytes: int         # two piece buffers of (F + 1) x (P + X) values
+    window_capacity: int    # values of a run's window staged in the rest
+
+
+def step_geometry(num_taps: int, num_filters: int,
+                  dtype: torch.dtype) -> StepGeometry:
+    """The ASRC step kernel's launch geometry for (taps, F, dtype).  A
+    block takes all ``SMEM_BYTES`` of shared memory.  The bank passes
+    through it in pieces, double-buffered: all F + 1 rows over the piece's
+    P taps and the X that follow, the lane with offset o reading entries
+    o .. o + P - 1 of a row, four at a time.  With X a wavefront of values
+    (32 float32, 16 float64) and P + X a multiple of it, the 8 lanes of a
+    quarter-warp meet 8 different bank columns whatever their phase rows
+    (csrc/asrc_step.cu header); that takes the largest such P whose two
+    buffers fit, else the largest P and X (multiples of 4) that fit.  A
+    run's window is staged in the rest when it fits there.  Raises
+    ValueError naming a shape that resampleInit refuses or a type the
+    kernel has no instance for."""
+    if (num_taps % 4 or not 4 <= num_taps <= 1024
+            or not 1 <= num_filters <= 1024
+            or dtype not in (torch.float32, torch.float64)):
+        raise ValueError(f"the ASRC step kernel has no geometry for "
+                         f"taps={num_taps}, F={num_filters}, {dtype}: it "
+                         f"takes taps 4-1024 in steps of 4, F 1-1024, "
+                         f"float32 or float64")
+    width = torch.finfo(dtype).bits // 8
+    lanes = 128 // width            # one 128-byte wavefront of values
+    # entries per staged row: two of them fit, and one pass of the threads'
+    # 16-byte copies covers a row
+    row = min(SMEM_BYTES // (2 * (num_filters + 1) * width),
+              16 * STEP_THREADS // width) // 4 * 4
+    if row >= 2 * lanes:
+        X = lanes
+        P = min((row - X) // lanes, -(-num_taps // lanes)) * lanes
+    else:
+        X = max(4, row // 2 // 4 * 4)
+        P = max(4, (row - X) // 4 * 4)
+    X = min(X, num_taps)
+    bank = 2 * (num_filters + 1) * (P + X) * width
+    return StepGeometry(P, X, -(-num_taps // P),
+                        STEP_THREADS * STEP_SLOTS[dtype], STEP_THREADS, bank,
+                        (SMEM_BYTES - bank) // width)
+
+
 def _check(name, t, dev, dtype, shape):
     if t.device != dev or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous {dtype} tensor on "
@@ -153,8 +212,10 @@ def asrc_step_kernel(hist, x, bank, offsets, ratios, Ks, shift: int, *,
     _check("offsets", offsets, dev, torch.float64, (S,))
     _check("ratios", ratios, dev, torch.float64, (S,))
     _check("Ks", Ks, dev, torch.int32, (S,))
-    if k_max <= 0 or H + n < 1:
-        raise ValueError(f"bad step: k_max={k_max}, H={H}, n={n}")
+    if k_max <= 0 or not 1 <= H + n < 2**31:
+        raise ValueError(f"bad step: k_max={k_max}, H={H}, n={n} (the "
+                         f"kernel takes 1 <= H + n < 2**31 per stream)")
+    geo = step_geometry(num_taps, num_filters, hist.dtype)
     f64 = hist.dtype == torch.float64
     name = "asrc_step_f64" if f64 else "asrc_step"
     lib = _build.library()
@@ -162,9 +223,10 @@ def asrc_step_kernel(hist, x, bank, offsets, ratios, Ks, shift: int, *,
     out = torch.empty((S, k_max), dtype=hist.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = fn(hist.data_ptr(), H, x.data_ptr(), n, S, bank.data_ptr(),
-                num_taps, num_filters, offsets.data_ptr(), ratios.data_ptr(),
-                Ks.data_ptr(), int(shift), int(k_max), out.data_ptr(),
-                _stream(dev))
+                num_taps, num_filters, geo.piece_taps, geo.lane_span,
+                geo.outputs_per_block, geo.threads, offsets.data_ptr(),
+                ratios.data_ptr(), Ks.data_ptr(), int(shift), int(k_max),
+                out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"art_{name} launch failed: cudaError {rc}")
     launches[name] += 1

@@ -13,7 +13,8 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi's name and power limit;
 2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
-   per source, in parallel), with ptxas's register and spill lines;
+   per source, in parallel), with ptxas's register and spill lines; the
+   two asrc_step instances must not spill;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes (~2^22-frame stereo chunks), its edge cases and the large input
    periods (preset -3 192k->44.1k, M=640; preset -1 96k->44.1k
@@ -24,7 +25,9 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 4. K6 (polyphase_apply) against its float64 plain version at the main
    path's shapes (<= 1e-5), then its entry point called 4 times: 4
    launches;
-5. the ASRC kernels against their plain versions at config 5's shapes:
+5. the ASRC kernels against their plain versions at config 5's shapes,
+   after the geometry (bank piece, outputs per block, threads, shared
+   memory) each asrc_step instance picks there:
    near-1 drifting ratios, ratios 0.5, 0.2 and 2.0, a mid-tile Ks, Ks = 0
    rows, the flush call and S = 3; float32 within 1e-5 and float64 within
    1e-12 of the float64 plain version, new history bitwise, the apply
@@ -71,6 +74,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -134,6 +138,20 @@ def phase_device():
     return name, count, f"[{smi}]"
 
 
+def _spills(log):
+    """{kernel: (spill store bytes, spill load bytes)} from ptxas -v."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     _build.library()
@@ -142,6 +160,12 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if line.startswith("==") or "ptxas" in line or "spill" in line:
             print(f"  {line.strip()}")
+    if _build.build_log:        # empty when an earlier process built it
+        step = {k: v for k, v in _spills(_build.build_log).items()
+                if "asrc_step_kernel" in k}
+        print(f"  asrc_step instances (spill store, load bytes): {step}")
+        _require(len(step) == 2 and not any(sum(v) for v in step.values()),
+                 "the asrc_step instances spill")
 
 
 def _kernel_cases(dev, n_target):
@@ -769,6 +793,14 @@ def phase_asrc_kernels_vs_plain(dev, n=ASRC_N):
         ASRC_TAPS, ASRC_TAPS, 1.0, True, np.float32)).to(dev)
     bank64 = torch.from_numpy(make_filter_bank(
         ASRC_TAPS, ASRC_TAPS, 1.0, True, np.float64)).to(dev)
+    for dtype in (torch.float32, torch.float64):
+        g = kasrc.step_geometry(ASRC_TAPS, ASRC_TAPS, dtype)
+        print(f"  asrc_step {dtype} geometry: {g.pieces} pieces of "
+              f"{g.piece_taps} taps, {ASRC_TAPS + 1} rows of "
+              f"{g.piece_taps + g.lane_span} entries each, "
+              f"{g.outputs_per_block} outputs per block, {g.threads} "
+              f"threads; shared memory: {g.bank_bytes} B of bank buffers, "
+              f"a staged window of up to {g.window_capacity} values")
     worst = {"asrc_step": 0.0, "asrc_step_f64": 0.0, "asrc_apply": 0.0}
     for label, eng, ratios, Ks, k_max, flush in _asrc_cases(dev, n):
         S, H = eng.S, eng.num_samples

@@ -113,14 +113,31 @@ def _asrc_engine(dev, s, taps, dtype=np.float32, kernel="auto"):
     return eng
 
 
+# case: (streams, taps, filters, frames per call).  The kernel stages the
+# bank in pieces of P taps (ops/asrc_step.py::step_geometry) and gives each
+# block a run of outputs (3072 float32, 2304 float64): "taps36" and
+# "taps100" end on a shorter piece, "F1024" has the most rows per piece
+# (float64: P = 8), "midrun" ends Ks inside a run, "seam" moves the
+# positions 1500 samples back so that one run reads windows in hist,
+# across the seam and in x.  A run's windows are staged in shared memory
+# where they fit; at ratio 0.2 and 380 filters ("r0.2wide") they do not,
+# and the pieces read hist and x in place.
+ASRC_CASES = {"S3": (3, 380, 380, 4096), "taps36": (4, 36, 36, 2000),
+              "taps100": (4, 100, 100, 2000), "F1024": (2, 64, 1024, 5000),
+              "midrun": (3, 48, 48, 12000), "seam": (2, 380, 380, 6000),
+              "r0.2wide": (2, 380, 380, 30000)}
+
+
 def _asrc_case(case, dev, seed):
     """(eng, hist, x, ratios, Ks, k_max) for one step at small shapes."""
     rng = np.random.default_rng(seed)
-    s, taps, n = (3, 380, 4096) if case == "S3" else (8, 48, 512)
-    eng = _asrc_engine("cpu", s, taps)
+    s, taps, filters, n = ASRC_CASES.get(case, (8, 48, 48, 512))
+    eng = BatchedASRC(s, taps, filters, hankel_kb=256, device="cpu")
+    eng.advance_position(taps // 2)
     eng.process(np.zeros((s, n), np.float32), np.ones(s))  # fill the ring
     ratios = {"S3": np.array([0.99, 1.0, 1.01]), "r0.5": np.full(s, 0.5),
-              "r0.2": np.full(s, 0.2), "r2.0": np.full(s, 2.0)}.get(
+              "r0.2": np.full(s, 0.2), "r0.2wide": np.full(s, 0.2),
+              "r2.0": np.full(s, 2.0)}.get(
                   case, 1.0 + 0.01 * np.sin(0.1 * np.arange(s) + 0.3))
     if case == "flush":
         x = np.zeros((s, taps // 2))
@@ -130,18 +147,52 @@ def _asrc_case(case, dev, seed):
         _, Ks, k_max, _ = eng._plan(n, ratios, None)
     if case == "mid":
         Ks = np.minimum(Ks, 77 + 130 * np.arange(s)).astype(np.int32)
+    if case == "midrun":
+        Ks = np.minimum(Ks, [5096, 8209, k_max]).astype(np.int32)
     if case == "Ks0":
         Ks[::2] = 0
+    if case == "seam":
+        eng.offsets = eng.offsets - 1500.0
     hist = rng.normal(0, 0.5, (s, eng.num_samples))
     return eng, hist, x, ratios, Ks, k_max
 
 
+def _seam_inside_a_run(eng, ratios, Ks, k_max, run):
+    """True when some stream's valid windows cross from hist into x inside
+    one run of ``run`` outputs, with outputs of that run on both sides."""
+    base, _, _ = kasrc.decompose_positions(
+        torch.from_numpy(eng.offsets), torch.from_numpy(ratios), k_max,
+        num_taps=eng.num_taps, num_filters=eng.num_filters,
+        shift=eng.num_samples - eng.input_index, dtype=torch.float64)
+    H = eng.num_samples
+    for s in range(eng.S):
+        b = base[s, :int(Ks[s])]
+        cross = ((b < H) & (b + eng.num_taps > H)).nonzero()
+        if len(cross):
+            r = int(cross[0]) // run
+            seg = b[r * run:(r + 1) * run]
+            if bool((seg + eng.num_taps <= H).any()) and bool(
+                    (seg >= H).any()):
+                return True
+    return False
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["near1", "r0.5", "r0.2", "r2.0", "mid",
-                                  "Ks0", "flush", "S3"])
+                                  "Ks0", "flush", "S3", "taps36", "taps100",
+                                  "F1024", "midrun", "seam", "r0.2wide"])
 def test_asrc_step_kernel_matches_plain(case, dtype):
     dev = _card()
     eng, hist, x, ratios, Ks, k_max = _asrc_case(case, dev, seed=len(case))
+    run = kasrc.step_geometry(eng.num_taps, eng.num_filters,
+                              dtype).outputs_per_block
+    if case == "seam":
+        assert _seam_inside_a_run(eng, ratios, Ks, k_max, run)
+    if case == "midrun":
+        assert k_max > 2 * run and Ks[0] % run and Ks[1] % run
+    if case == "r0.2wide":      # the first run's windows exceed the stage
+        geo = kasrc.step_geometry(eng.num_taps, eng.num_filters, dtype)
+        assert run * 5 > geo.window_capacity and k_max > run
     t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=dev)
     bank = t(eng.bank)
     args = (t(hist), t(x), bank, t(eng.offsets, torch.float64),
