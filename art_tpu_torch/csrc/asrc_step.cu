@@ -10,6 +10,8 @@
 // and
 //   K5 asrc_apply_pallas   (_asrc_kernel, the windowed two-phase dot from
 //                           precomputed base/fi/frac), served by asrc_apply.
+// All three are instances of one template, asrc_step_kernel<T, kTwo>,
+// whose positions are computed (the step) or given (kTwo, the apply).
 //
 // What asrc_step computes (the body of art_tpu/parallel/asrc.py::_asrc_step),
 // for each stream s and output k < k_max, with buf = hist ++ x per stream:
@@ -25,10 +27,11 @@
 // fi + 1 reaches row F, the rotated extra filter.  The position chain uses
 // __ddiv_rn / __dadd_rn / __dsub_rn / __dmul_rn, which nvcc never contracts
 // into an FMA, so fi, frac and base equal the plain version's bit for bit.
-// asrc_apply computes, from given base/fi/frac [S, K],
+// asrc_apply computes, from given base/fi/frac [S, K] over one buffer
+// buf [S, B],
 //   out[s, k] = (1 - frac) sum_t buf[s, base + t] bank[fi, t]
 //             +      frac  sum_t buf[s, base + t] bank[fi + 1, t]
-// unmasked (the caller masks), as the K5 body does.
+// unmasked (the caller masks), as the K5 body does: dot, then lerp.
 //
 // What bounds it.  At BASELINE config 5 (256 streams, 380 taps, 380 filters,
 // 32768-frame chunks, ratios 1 +- 1%) one call makes ~8.39M outputs of 380
@@ -36,17 +39,19 @@
 // 67 TFLOP/s float32 rate of an H100 SXM (also ~0.19 ms in float64 at the
 // 67 TFLOP/s of its FP64 tensor cores; this kernel runs on the CUDA cores,
 // 0.38 ms), against ~75 MB of history, input and output (~0.02 ms at
-// 3.35 TB/s); that is arithmetic from shapes and the data sheet.  What
+// 3.35 TB/s); that is arithmetic from shapes and the data sheet.  asrc_apply
+// computes all 8.91M outputs (k_max 34,816), unmasked: ~0.20 ms.  What
 // bounds a kernel that keeps the bank on chip is the SM's data path to
 // shared memory and L1, 128 B/clk: every output-tap reads two bank values
 // (8 B in float32, 16 B in float64) and one window value, ~3.19G
 // output-taps a call, so ~25.5 GB (float32) or ~51 GB (float64) of bank
 // reads alone, ~0.76 ms and ~1.5 ms at 132 SMs x 128 B/clk x 1.98 GHz.
 // The first kernel of this file (one warp per output, both bank rows
-// gathered from L2 for every output) took 2.99 ms per float32 call and 7.19
-// ms per float64 call on an H100 80GB HBM3 at 700 W; this design takes
-// 1.79 and 3.31 ms there (PERF.md has the runs and what holds them: the
-// window's reads and the per-run set-up come on top of the bank's).
+// gathered from L2 for every output, a shuffle reduction per output) took
+// 2.99 ms per float32 step, 7.19 ms per float64 step and 3.29 ms per apply
+// on an H100 80GB HBM3 at 700 W; PERF.md has this design's times and what
+// holds them (the window's reads and the per-run set-up come on top of the
+// bank's).
 //
 // Design.
 //   - The bank [F + 1, taps] (579 KB in float32 at config 5) does not fit
@@ -55,16 +60,19 @@
 //     follow it (wrapping to tap 0), at row stride E = P + X, two buffers,
 //     piece p + 1 copied with cp.async while piece p is used.  At config 5
 //     P = X = 32 in float32 and 16 in float64: 97.5 KB a buffer.  The host
-//     picks P and X from (taps, F, dtype) (ops/asrc_step.py::step_geometry).
+//     picks P and X from (taps, F, dtype) (ops/asrc_step.py::step_geometry;
+//     asrc_apply takes the float32 geometry).
 //   - A block owns a run of consecutive outputs of one stream, 8 per thread
 //     in float32 and 6 in float64 (384 threads: runs of 3072 and 2304), each
-//     thread keeping its outputs' phase row, fraction, window start and sum
-//     in registers across the piece loop, so the whole bank crosses L2 once
-//     per run (~1.3 GB per float32 call, not ~25 GB).  With 384 threads a
-//     thread may hold 168 registers, which these slots need without a spill.
-//     No shuffle reduction: a thread sums its output's taps piece by piece
-//     (float32: a partial sum per piece, then added to the total; float64:
-//     one sum), so the result does not depend on timing.
+//     thread keeping its outputs' phase row, window start and sum (step: and
+//     fraction; apply: two sums, one per phase row) in registers across the
+//     piece loop, so the whole bank crosses L2 once per run (~1.3 GB per
+//     float32 call, not ~25 GB).  With 384 threads a thread may hold 168
+//     registers, which these slots need without a spill.  No shuffle
+//     reduction: a thread sums its output's taps piece by piece (float32: a
+//     partial sum per piece, then added to the total; float64: one sum), so
+//     the result does not depend on timing.  The apply lerps its two sums
+//     once, after the last piece, reading frac then.
 //   - The lanes of a warp read different phase rows at once, so their bank
 //     reads are laid out by lane: the lane with offset o = X - kVec (1 +
 //     l % 8) reads entries o .. o + P - 1 of its rows, four at a time in
@@ -84,57 +92,46 @@
 //     windows do not fit reads them in place through L1 (__ldg) from hist
 //     and x, no concat, whatever the ratio: a warp whose piece windows lie
 //     wholly in hist or wholly in x reads them straight, the few pieces
-//     that cross the seam take clamped reads.
+//     that cross the seam take clamped reads.  The step's positions grow
+//     with k, so its span is the first and last output's; the apply takes
+//     any bases, clamped to [0, B - taps] as the first kernel did, and
+//     finds its span with a block reduction.  Its buf is one row (hist =
+//     buf, no x) that holds every clamped window, so it needs neither the
+//     seam nor the clamped reads.
 //   - Outputs at k >= Ks[s] are written as 0 without being computed: a run
 //     wholly past Ks[s] writes its zeros and returns, a warp skips its slots
 //     past Ks[s], and lanes past it inside a slot repeat the last valid
 //     output's position (so their window stays in the buffer) and store 0.
+//     The apply's Ks is K for every stream.
 //   - The float64 position chain is the first kernel's (__d*_rn), so fi,
 //     frac and base stay the plain version's bit for bit; it runs once per
 //     slot in a loop whose results are parked in shared memory, so that the
 //     division's slow-path call finds few live registers.  Offsets into
 //     hist, x and out are 64-bit; a stream's hist ++ x must be shorter than
 //     2^31 values.
+//   - One template, not a second kernel: the apply instance is the step's
+//     with its positions loaded and two sums.  Every instance takes the
+//     step's scalar arguments with the apply's three pointers appended:
+//     the float64 step sits at its 168-register cap, and passing the
+//     positions' pointers in a struct tipped it into a spill.
 // The TPU kernels' workarounds are not carried over: no double-single
 // position or bank planes, no Hankel carry/roll tiers or hankel_smax bounds,
 // no one-hot coarse alignment, no transposed lane-padded bank tables, no
 // fold_low, no pack_step_scalars, no S % 8 geometry.  One kernel takes any S,
 // any positive ratio and any (taps, F) that resampleInit allows.
-//
-// asrc_apply is the first kernel's form (one warp per output, bank rows
-// gathered through the read-only cache, a warp shuffle per output).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-// asrc_apply: a block of 8 warps owns kTile = 128 consecutive outputs
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPerWarp = 16;
-constexpr int kTile = kWarps * kPerWarp;   // outputs per block
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-    return v;
-}
-
-// Four consecutive taps of a bank row in 16-byte loads (rows start 16-byte
-// aligned: taps % 4 == 0 and the bank is 16-byte aligned).
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-// asrc_step: see the header
 // threads per block and outputs per thread (slots): 384 threads, so that a
 // thread may hold 168 registers, and 8 float32 or 6 float64 slots, the
 // most whose state those registers hold without spilling
 constexpr int kStepThreads = 384;
+constexpr int kStepWarps = kStepThreads / 32;
 template <typename T>
 constexpr int kStepSlots = sizeof(T) == 4 ? 8 : 6;
 template <typename T>
@@ -207,31 +204,32 @@ __device__ __forceinline__ const T* window_at(const T* hist_s, long long H,
     return b < H ? hist_s + b : x_s + (b - H);
 }
 
-// One piece's dots for the warp's first ja slots (all kStepSlots<T> when
-// kAll).  The lane with offset o takes buffer entries o, o + 1, ...,
-// o + pc - 1 of rows fi and fi + 1 (bp + row[j] + o and + E), four at a
-// time in 16-byte loads, that is taps T = p0 + o + u (mod taps) for u < pc,
-// and adds win[T] * (b1 + frac (b2 - b1)), b1 = bank[fi, T], b2 =
+// One piece's dots for the warp's first ja slots (all kSlots when kAll).
+// The lane with offset o takes buffer entries o, o + 1, ..., o + pc - 1 of
+// rows fi and fi + 1 (bp + row[j] + o and + E), four at a time in 16-byte
+// loads, that is taps T = p0 + o + u (mod taps) for u < pc.  The step
+// (!kTwo) adds win[T] * (b1 + frac (b2 - b1)), b1 = bank[fi, T], b2 =
 // bank[fi + 1, T], to sums[j] in that order (the lerp in this form needs
-// no 1 - frac register per slot).  Slot j's window starts at wlo + wrel[j]
-// in hist ++ x.  kLinear: no lane's T wraps; kWrap: some do; kClamped:
-// reads of hist ++ x are clamped to the buffer.  kStaged: the run's window
-// from wlo on is in shared memory at ws; otherwise the window is read in
-// place through L1, and (kLinear, kWrap) each slot's reads of this piece
-// lie wholly in hist or in x.
-template <typename T, bool kAll, PieceMode kMode, bool kStaged>
+// no 1 - frac register per slot); the apply (kTwo) adds win[T] * b1 to
+// sums[j] and win[T] * b2 to sums2[j].  Slot j's window starts at wlo +
+// wrel[j] in hist ++ x.  kLinear: no lane's T wraps; kWrap: some do;
+// kClamped: reads of hist ++ x are clamped to the buffer.  kStaged: the
+// run's window from wlo on is in shared memory at ws; otherwise the window
+// is read in place through L1, and (kLinear, kWrap) each slot's reads of
+// this piece lie wholly in hist or in x.
+template <typename T, int kSlots, bool kTwo, bool kAll, PieceMode kMode,
+          bool kStaged>
 __device__ __forceinline__ void piece_dots(
         const T* bp, const T* ws, int E, int o, int p0, int pc, int taps,
-        int ja, const int (&row)[kStepSlots<T>],
-        const T (&frac)[kStepSlots<T>],
-        const int (&wrel)[kStepSlots<T>], long long wlo,
+        int ja, const int (&row)[kSlots], const T (&frac)[kSlots],
+        const int (&wrel)[kSlots], long long wlo,
         const T* __restrict__ hist_s, long long H, const T* __restrict__ x_s,
-        long long last, T (&sums)[kStepSlots<T>]) {
+        long long last, T (&sums)[kSlots], T (&sums2)[kTwo ? kSlots : 1]) {
     constexpr bool kLin = kMode == kLinear;
-    int wo[kStepSlots<T>];                     // kStaged: window offset in ws
-    const T* w[kStepSlots<T>];                 // in place: window pointer
+    int wo[kSlots];                            // kStaged: window offset in ws
+    const T* w[kSlots];                        // in place: window pointer
 #pragma unroll
-    for (int j = 0; j < kStepSlots<T>; ++j) {
+    for (int j = 0; j < kSlots; ++j) {
         wo[j] = wrel[j] + (kLin ? p0 + o : 0);
         w[j] = nullptr;
         if constexpr (!kStaged && kMode != kClamped)
@@ -248,7 +246,7 @@ __device__ __forceinline__ void piece_dots(
             }
         }
 #pragma unroll
-        for (int j = 0; j < kStepSlots<T>; ++j) {
+        for (int j = 0; j < kSlots; ++j) {
             if (kAll || j < ja) {
                 const T* b = bp + row[j] + o + u0;
                 T w1[4], w2[4];
@@ -266,7 +264,12 @@ __device__ __forceinline__ void piece_dots(
                     } else {
                         v = __ldg(w[j] + i[c]);
                     }
-                    sums[j] += v * (w1[c] + frac[j] * (w2[c] - w1[c]));
+                    if constexpr (kTwo) {
+                        sums[j] += v * w1[c];
+                        sums2[j] += v * w2[c];
+                    } else {
+                        sums[j] += v * (w1[c] + frac[j] * (w2[c] - w1[c]));
+                    }
                 }
             }
         }
@@ -289,7 +292,10 @@ __device__ __forceinline__ long long position(long long k, double off,
     return static_cast<long long>(ip) - half + 1 + shift;
 }
 
-template <typename T>
+// asrc_step (!kTwo: positions computed from offsets, ratios and shift,
+// masked at Ks) and asrc_apply (kTwo: positions given as base, fi and frac
+// [S, k_max], unmasked; T = float, buf as hist, n = 0): see the header.
+template <typename T, bool kTwo>
 __global__ void __launch_bounds__(kStepThreads, 1)
 asrc_step_kernel(const T* __restrict__ hist, long long H,
                  const T* __restrict__ x, long long n,
@@ -297,7 +303,12 @@ asrc_step_kernel(const T* __restrict__ hist, long long H,
                  int wcap, const double* __restrict__ offsets,
                  const double* __restrict__ ratios,
                  const int* __restrict__ Ks, long long shift,
-                 long long k_max, T* __restrict__ out) {
+                 long long k_max, T* __restrict__ out,
+                 const int* __restrict__ base, const int* __restrict__ fi,
+                 const T* __restrict__ given_frac) {
+    constexpr int kSlots = kStepSlots<T>;
+    constexpr int kSlots2 = kTwo ? kSlots : 1;  // the apply's second sums
+    constexpr int kRun = kStepRun<T>;
     // float32 sums each piece apart, then adds it (a blocked order)
     constexpr bool kBlocked = sizeof(T) == 4;
     constexpr int kVec = 16 / sizeof(T);
@@ -308,17 +319,18 @@ asrc_step_kernel(const T* __restrict__ hist, long long H,
     T* const ws = bufs + 2 * piece;         // the staged window, wcap values
     const int s = blockIdx.y;
     const int tid = threadIdx.x;
-    const long long k0 = static_cast<long long>(blockIdx.x) * kStepRun<T>;
-    const long long kend = min(static_cast<long long>(Ks[s]), k_max);
+    const long long k0 = static_cast<long long>(blockIdx.x) * kRun;
+    const long long kend =
+        kTwo ? k_max : min(static_cast<long long>(Ks[s]), k_max);
     T* out_s = out + static_cast<long long>(s) * k_max;
     if (k0 >= kend) {                       // the whole run is masked
-        for (long long k = k0 + tid; k < k0 + kStepRun<T> && k < k_max;
+        for (long long k = k0 + tid; k < k0 + kRun && k < k_max;
              k += kStepThreads)
             out_s[k] = T(0);
         return;
     }
     const int pieces = (taps + P - 1) / P;
-    // piece 0 lands while the positions are computed
+    // piece 0 lands while the positions are computed or loaded
     stage_piece(bufs, bank, taps, F, E, X, 0, min(P, taps));
 
     const int lane = tid & 31;
@@ -328,8 +340,8 @@ asrc_step_kernel(const T* __restrict__ hist, long long H,
     const T* hist_s = hist + static_cast<long long>(s) * H;
     const T* x_s = x + static_cast<long long>(s) * n;
     const long long last = H + n - 1;
-    const double off = offsets[s];
-    const double ratio = ratios[s];
+    const double off = kTwo ? 0.0 : offsets[s];
+    const double ratio = kTwo ? 1.0 : ratios[s];
     const int half = taps / 2;
     const long long kwarp = k0 + (tid - lane);  // the warp's slot-0 output
     // the lane's output among its warp's 32 of a slot: where the offsets
@@ -341,48 +353,86 @@ asrc_step_kernel(const T* __restrict__ hist, long long H,
         ? kVec * (lane % 8) + (lane / 8) % kVec + 8 * kVec * (lane / 8 / kVec)
         : lane;
     const long long kthread = kwarp + lk;
-    int row[kStepSlots<T>];
-    T frac[kStepSlots<T>], acc[kStepSlots<T>];
-    // The run's windows span [wlo, whi) (positions grow with k), less than
-    // H + n < 2^31 wide: a slot's window starts at wlo + wrel[j].  Where
-    // the span fits the wcap values left after the bank's buffers, it is
-    // staged once, with the reads clamped to the buffer, and every piece
-    // reads it from shared memory; otherwise the pieces read hist and x in
-    // place.
-    int fi_edge;
-    T frac_edge;
-    const long long wlo = position(k0, off, ratio, F, half, shift, &fi_edge,
-                                   &frac_edge);
-    const long long whi =
-        position(min(k0 + kStepRun<T>, kend) - 1, off, ratio, F, half, shift,
-                 &fi_edge, &frac_edge) + taps;
-    // The slots' positions, one slot at a time: a loop, so that the few
-    // values live across the division's slow-path call need no spill,
-    // parked in shared memory behind piece 0's buffer, which piece 1 and
-    // the staged window fill only after the barrier below.
-    int* const srow = reinterpret_cast<int*>(bufs + piece);
-    int* const swrel = srow + kStepRun<T>;
-    T* const sfrac = reinterpret_cast<T*>(swrel + kStepRun<T>);
-#pragma unroll 1
-    for (int j = 0; j < kStepSlots<T>; ++j) {
-        // lanes past the valid outputs take the last valid one's position
-        const int e = j * kStepThreads + tid;
-        int fi;
-        swrel[e] = static_cast<int>(
-            position(min(kthread + j * kStepThreads, kend - 1), off,
-                     ratio, F, half, shift, &fi, &sfrac[e]) - wlo);
-        srow[e] = fi * E;
-    }
-    int wrel[kStepSlots<T>];
+    int row[kSlots];
+    T frac[kSlots], acc[kSlots];
+    T acc2[kSlots2] = {};
+    // The run's windows span [wlo, whi), less than H + n < 2^31 wide: a
+    // slot's window starts at wlo + wrel[j].  Where the span fits the wcap
+    // values left after the bank's buffers, it is staged once, with the
+    // reads clamped to the buffer, and every piece reads it from shared
+    // memory; otherwise the pieces read hist and x in place.  Lanes past
+    // the valid outputs take the last valid one's position.  Positions are
+    // parked in, and the apply's span reduced through, the shared memory
+    // behind piece 0's buffer, which piece 1 and the staged window fill
+    // only after the barrier below.
+    int wrel[kSlots];
     int ja = 0;     // slots holding a valid output of this warp (a prefix)
+    long long wlo, whi;
+    if constexpr (kTwo) {
+        const long long rs = static_cast<long long>(s) * k_max;
+        int lo = INT_MAX, hi = 0;
 #pragma unroll
-    for (int j = 0; j < kStepSlots<T>; ++j) {
-        const int e = j * kStepThreads + tid;
-        wrel[j] = swrel[e];
-        row[j] = srow[e];
-        frac[j] = sfrac[e];
-        acc[j] = T(0);
-        if (kwarp + j * kStepThreads < kend) ja = j + 1;
+        for (int j = 0; j < kSlots; ++j) {
+            const long long k = min(kthread + j * kStepThreads, kend - 1);
+            // the prologue keeps every window inside buf and every phase in
+            // [0, F - 1]; the clamps keep any other argument in bounds
+            wrel[j] = min(max(base[rs + k], 0), static_cast<int>(H) - taps);
+            row[j] = min(max(fi[rs + k], 0), F - 1) * E;
+            lo = min(lo, wrel[j]);
+            hi = max(hi, wrel[j]);
+        }
+        int* const red = reinterpret_cast<int*>(bufs + piece);
+        lo = __reduce_min_sync(0xffffffffu, lo);
+        hi = __reduce_max_sync(0xffffffffu, hi);
+        if (lane == 0) {
+            red[tid / 32] = lo;
+            red[kStepWarps + tid / 32] = hi;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int w = 0; w < kStepWarps; ++w) {
+            lo = min(lo, red[w]);
+            hi = max(hi, red[kStepWarps + w]);
+        }
+        wlo = lo;
+        whi = static_cast<long long>(hi) + taps;
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) {
+            wrel[j] -= lo;
+            frac[j] = T(0);                 // read at the end, not here
+            acc[j] = T(0);
+            if (kwarp + j * kStepThreads < kend) ja = j + 1;
+        }
+    } else {
+        int fi_edge;
+        T frac_edge;
+        wlo = position(k0, off, ratio, F, half, shift, &fi_edge,
+                       &frac_edge);
+        whi = position(min(k0 + kRun, kend) - 1, off, ratio, F, half, shift,
+                       &fi_edge, &frac_edge) + taps;
+        // one slot at a time: a loop, so that the few values live across
+        // the division's slow-path call need no spill
+        int* const srow = reinterpret_cast<int*>(bufs + piece);
+        int* const swrel = srow + kRun;
+        T* const sfrac = reinterpret_cast<T*>(swrel + kRun);
+#pragma unroll 1
+        for (int j = 0; j < kSlots; ++j) {
+            const int e = j * kStepThreads + tid;
+            int f;
+            swrel[e] = static_cast<int>(
+                position(min(kthread + j * kStepThreads, kend - 1), off,
+                         ratio, F, half, shift, &f, &sfrac[e]) - wlo);
+            srow[e] = f * E;
+        }
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) {
+            const int e = j * kStepThreads + tid;
+            wrel[j] = swrel[e];
+            row[j] = srow[e];
+            frac[j] = sfrac[e];
+            acc[j] = T(0);
+            if (kwarp + j * kStepThreads < kend) ja = j + 1;
+        }
     }
     __syncthreads();
     const bool staged = whi - wlo <= wcap;
@@ -406,25 +456,27 @@ asrc_step_kernel(const T* __restrict__ hist, long long H,
         const T* bp = bufs + (p & 1) * piece;
         // taps p0 + o + u, u < pc, wrap past taps in the last pieces
         const bool wraps = p0 + pc + X - 1 > taps;
+        // the apply's clamped windows all lie in its one buffer
         bool fast = true;
-        if (!staged)
+        if (!kTwo && !staged)
 #pragma unroll
-            for (int j = 0; j < kStepSlots<T>; ++j)
+            for (int j = 0; j < kSlots; ++j)
                 if (j < ja && !(wraps ? window_fits(H, n, wlo + wrel[j], taps)
                                       : window_fits(H, n,
                                                     wlo + wrel[j] + p0 + o,
                                                     pc)))
                     fast = false;
         fast = __all_sync(0xffffffffu, fast);   // warp-uniform path
-        T part[kStepSlots<T>];
+        T part[kSlots], part2[kSlots2];
 #pragma unroll
-        for (int j = 0; j < kStepSlots<T>; ++j)
-            part[j] = kBlocked ? T(0) : acc[j];
+        for (int j = 0; j < kSlots; ++j) part[j] = kBlocked ? T(0) : acc[j];
+#pragma unroll
+        for (int j = 0; j < kSlots2; ++j) part2[j] = kBlocked ? T(0) : acc2[j];
 #define ART_PIECE(ALL, MODE, STAGED)                                          \
-        piece_dots<T, ALL, MODE, STAGED>(bp, ws, E, o, p0, pc, taps, ja, row, \
-                                         frac, wrel, wlo, hist_s, H, x_s,     \
-                                         last, part)
-        if (ja == kStepSlots<T>) {
+        piece_dots<T, kSlots, kTwo, ALL, MODE, STAGED>(                       \
+            bp, ws, E, o, p0, pc, taps, ja, row, frac, wrel, wlo, hist_s, H,  \
+            x_s, last, part, part2)
+        if (ja == kSlots) {
             if (staged) {
                 if (wraps) ART_PIECE(true, kWrap, true);
                 else ART_PIECE(true, kLinear, true);
@@ -441,69 +493,36 @@ asrc_step_kernel(const T* __restrict__ hist, long long H,
         }
 #undef ART_PIECE
 #pragma unroll
-        for (int j = 0; j < kStepSlots<T>; ++j)
+        for (int j = 0; j < kSlots; ++j)
             acc[j] = kBlocked ? acc[j] + part[j] : part[j];
+#pragma unroll
+        for (int j = 0; j < kSlots2; ++j)
+            acc2[j] = kBlocked ? acc2[j] + part2[j] : part2[j];
         __syncthreads();                    // buffer p & 1 may be refilled
     }
 
 #pragma unroll
-    for (int j = 0; j < kStepSlots<T>; ++j) {
+    for (int j = 0; j < kSlots; ++j) {
         const long long k = kthread + j * kStepThreads;
-        if (k < k_max) out_s[k] = k < kend ? acc[j] : T(0);
-    }
-}
-
-__global__ void __launch_bounds__(kThreads)
-asrc_apply_kernel(const float* __restrict__ buf, long long B,
-                  const float* __restrict__ bank, int taps, int F,
-                  const int* __restrict__ base, const int* __restrict__ fi,
-                  const float* __restrict__ frac, long long K,
-                  float* __restrict__ out) {
-    const int s = blockIdx.y;
-    const long long k0 = static_cast<long long>(blockIdx.x) * kTile;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const float* buf_s = buf + static_cast<long long>(s) * B;
-    const long long row = static_cast<long long>(s) * K;
-    for (int i = 0; i < kPerWarp; ++i) {
-        const long long k = k0 + warp + static_cast<long long>(i) * kWarps;
-        if (k >= K) break;
-        // the prologue keeps every window inside buf and every phase in
-        // [0, F - 1]; the clamps only keep a bad argument from reading out
-        // of bounds
-        const long long b = min(max(static_cast<long long>(base[row + k]), 0LL),
-                                B - taps);
-        const int f = min(max(fi[row + k], 0), F - 1);
-        const float* w = buf_s + b;
-        const float* b1 = bank + static_cast<long long>(f) * taps;
-        const float* b2 = b1 + taps;
-        float d1 = 0.f, d2 = 0.f;
-        for (int t = 4 * lane; t < taps; t += 128) {
-            float w1[4], w2[4];
-            load4(b1 + t, w1);
-            load4(b2 + t, w2);
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const float v = __ldg(w + t + u);
-                d1 += v * w1[u];
-                d2 += v * w2[u];
+        if constexpr (kTwo) {
+            if (k < k_max) {
+                const T f = given_frac[static_cast<long long>(s) * k_max + k];
+                out_s[k] = acc[j] * (T(1) - f) + acc2[j] * f;
             }
-        }
-        d1 = warp_sum(d1);
-        d2 = warp_sum(d2);
-        if (lane == 0) {
-            const float fr = frac[row + k];
-            out[row + k] = d1 * (1.f - fr) + d2 * fr;
+        } else {
+            if (k < k_max) out_s[k] = k < kend ? acc[j] : T(0);
         }
     }
 }
 
-template <typename T>
-int launch_step(const T* hist, long long H, const T* x, long long n,
-                long long S, const T* bank, int taps, int F, int P,
-                int X, int threads, int run, const double* offsets,
-                const double* ratios, const int* Ks, long long shift,
-                long long k_max, T* out, void* stream) {
+// Launch one instance on S streams of k_max outputs; hist [S, H] and x
+// [S, n] (the apply: buf [S, B] as hist, n = 0).
+template <typename T, bool kTwo>
+int launch(const T* hist, long long H, const T* x, long long n,
+           long long S, const T* bank, int taps, int F, int P, int X,
+           int threads, int run, const double* offsets, const double* ratios,
+           const int* Ks, long long shift, const int* base, const int* fi,
+           const T* frac, long long k_max, T* out, void* stream) {
     const long long runs = (k_max + kStepRun<T> - 1) / kStepRun<T>;
     // two bank piece buffers, then the staged window in what is left
     const long long bank_bytes =
@@ -515,20 +534,21 @@ int launch_step(const T* hist, long long H, const T* x, long long n,
         bank_bytes > kMaxSmem ||
         (P + X) * static_cast<int>(sizeof(T)) > 16 * kStepThreads ||
         threads != kStepThreads || run != kStepRun<T> ||
+        (kTwo && H < taps) ||
         reinterpret_cast<uintptr_t>(bank) % 16)
         return cudaErrorInvalidValue;
     const int wcap =
         static_cast<int>((kMaxSmem - bank_bytes) / sizeof(T));
     const cudaError_t err = cudaFuncSetAttribute(
-        asrc_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        asrc_step_kernel<T, kTwo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(S));
-    asrc_step_kernel<T><<<grid, kStepThreads,
-                          static_cast<size_t>(kMaxSmem),
-                          static_cast<cudaStream_t>(stream)>>>(
+    asrc_step_kernel<T, kTwo><<<grid, kStepThreads,
+                                static_cast<size_t>(kMaxSmem),
+                                static_cast<cudaStream_t>(stream)>>>(
         hist, H, x, n, bank, taps, F, P, X, wcap, offsets, ratios, Ks, shift,
-        k_max, out);
+        k_max, out, base, fi, frac);
     return cudaGetLastError();
 }
 
@@ -548,9 +568,10 @@ extern "C" int art_asrc_step_f32(const float* hist, long long H,
                                  const double* ratios, const int* Ks,
                                  long long shift, long long k_max, float* out,
                                  void* stream) {
-    return launch_step<float>(hist, H, x, n, S, bank, taps, F, P, X, threads,
-                              run, offsets, ratios, Ks, shift, k_max, out,
-                              stream);
+    return launch<float, false>(hist, H, x, n, S, bank, taps, F, P, X,
+                                threads, run, offsets, ratios, Ks, shift,
+                                nullptr, nullptr, nullptr, k_max, out,
+                                stream);
 }
 
 extern "C" int art_asrc_step_f64(const double* hist, long long H,
@@ -561,26 +582,22 @@ extern "C" int art_asrc_step_f64(const double* hist, long long H,
                                  const double* ratios, const int* Ks,
                                  long long shift, long long k_max,
                                  double* out, void* stream) {
-    return launch_step<double>(hist, H, x, n, S, bank, taps, F, P, X, threads,
-                               run, offsets, ratios, Ks, shift, k_max, out,
-                               stream);
+    return launch<double, false>(hist, H, x, n, S, bank, taps, F, P, X,
+                                 threads, run, offsets, ratios, Ks, shift,
+                                 nullptr, nullptr, nullptr, k_max, out,
+                                 stream);
 }
 
 // buf [S, B], bank [F + 1, taps], frac and out [S, K] float32, base and fi
-// int32 [S, K], all contiguous on the device.
+// int32 [S, K], all contiguous on the device; the geometry from
+// ops/asrc_step.py::step_geometry(taps, F, float32).  Returns as above.
 extern "C" int art_asrc_apply_f32(const float* buf, long long S, long long B,
-                                  const float* bank, int taps, int F,
+                                  const float* bank, int taps, int F, int P,
+                                  int X, int run, int threads,
                                   const int* base, const int* fi,
                                   const float* frac, long long K, float* out,
                                   void* stream) {
-    const long long tiles = (K + kTile - 1) / kTile;
-    if (S <= 0 || S > 65535 || taps <= 0 || taps % 4 || B < taps ||
-        F <= 0 || K <= 0 || tiles > 0x7fffffffLL ||
-        reinterpret_cast<uintptr_t>(bank) % 16)
-        return cudaErrorInvalidValue;
-    const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(S));
-    asrc_apply_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        buf, B, bank, taps, F, base, fi, frac, K, out);
-    return cudaGetLastError();
+    return launch<float, true>(buf, B, buf, 0, S, bank, taps, F, P, X,
+                               threads, run, nullptr, nullptr, nullptr, 0,
+                               base, fi, frac, K, out, stream);
 }

@@ -41,9 +41,10 @@ _SIGNATURES = {
     # offsets, ratios, Ks, shift, k_max, out, stream
     "art_asrc_step_f32": _ASRC_STEP,
     "art_asrc_step_f64": _ASRC_STEP,
-    # buf, S, B, bank, taps, F, base, fi, frac, K, out, stream
-    "art_asrc_apply_f32": [_vp, _ll, _ll, _vp, _i, _i, _vp, _vp, _vp, _ll,
-                           _vp, _vp],
+    # buf, S, B, bank, taps, F, P, X, outputs per block, threads, base, fi,
+    # frac, K, out, stream
+    "art_asrc_apply_f32": [_vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp,
+                           _vp, _vp, _ll, _vp, _vp],
 }
 
 

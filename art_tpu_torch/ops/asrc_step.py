@@ -255,7 +255,9 @@ def asrc_step(hist, x, bank, offsets, ratios, Ks, shift: int, *,
 
 
 def asrc_apply_kernel(buf, bank, base, fi, frac):
-    """Launch the two-phase apply kernel (float32): out [S, K], unmasked."""
+    """Launch the two-phase apply kernel (float32; the step kernel's
+    template with given positions, on ``step_geometry``'s float32 bank
+    pieces and runs): out [S, K], unmasked."""
     dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"the ASRC apply kernel runs on CUDA tensors, got "
@@ -269,16 +271,20 @@ def asrc_apply_kernel(buf, bank, base, fi, frac):
     _check("base", base, dev, torch.int32, (S, K))
     _check("fi", fi, dev, torch.int32, (S, K))
     _check("frac", frac, dev, torch.float32, (S, K))
-    if K <= 0 or B < num_taps or bank.shape[0] < 2:
+    if K <= 0 or not num_taps <= B < 2**31:
         raise ValueError(f"bad apply: K={K}, B={B}, bank "
-                         f"{tuple(bank.shape)}")
+                         f"{tuple(bank.shape)} (the kernel takes taps <= B "
+                         f"< 2**31)")
+    # the float32 step's bank pieces and runs
+    geo = step_geometry(num_taps, bank.shape[0] - 1, torch.float32)
     lib = _build.library()
     out = torch.empty((S, K), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.art_asrc_apply_f32(
             buf.data_ptr(), S, B, bank.data_ptr(), num_taps,
-            bank.shape[0] - 1, base.data_ptr(), fi.data_ptr(),
-            frac.data_ptr(), K, out.data_ptr(), _stream(dev))
+            bank.shape[0] - 1, geo.piece_taps, geo.lane_span,
+            geo.outputs_per_block, geo.threads, base.data_ptr(),
+            fi.data_ptr(), frac.data_ptr(), K, out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"art_asrc_apply_f32 launch failed: cudaError "
                            f"{rc}")

@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``art_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py               # every phase; needs one card
-    python3 chip_smoke.py --checksum    # only K1's main-path output hash
+    python3 chip_smoke.py --checksum    # only K1's output hashes (3 lines)
 
 Drives the port's paths on the card -- the fixed-ratio streaming
 resampler (preset -3, 2 channels, 380 taps, 44.1k<->48k, reduced; and
@@ -13,18 +13,22 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi's name and power limit;
 2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
-   per source, in parallel), with ptxas's register and spill lines; the
-   two asrc_step instances must not spill;
+   per source, in parallel), with ptxas's register and spill lines; no
+   kernel instance (K1's six, the ASRC step's two and the apply) may
+   spill;
 3. K1 against its plain PyTorch version on the card, at the main path's
-   shapes (~2^22-frame stereo chunks), its edge cases and the large input
-   periods (preset -3 192k->44.1k, M=640; preset -1 96k->44.1k
-   interpolated, M=320) with the tile K1 picked for each: max abs error vs
-   the float64 plain version <= 1e-5, a zero tail past K, the new history
-   bitwise equal; then the sha256 of K1's bytes on the preset -3 chunk
-   (``--checksum`` prints it alone, also from an older checkout);
+   shapes (~2^22-frame stereo chunks), its edge cases, BASELINE config 1's
+   interpolated chunk and the large input periods (preset -3 192k->44.1k,
+   M=640; preset -1 96k->44.1k interpolated, M=320) with the tile K1 picked
+   for each and the hull it keeps (the rows of P from the first to the
+   last nonzero in a CTA's 32 phases): max abs error vs the float64 plain
+   version <= 1e-5, a zero tail past K, the new history bitwise equal;
+   then the sha256 of K1's bytes on the preset -3 chunk, on config 1's
+   interpolated chunk and on K6's main-path call (``--checksum`` prints
+   them alone, also from an older checkout);
 4. K6 (polyphase_apply) against its float64 plain version at the main
-   path's shapes (<= 1e-5), then its entry point called 4 times: 4
-   launches;
+   path's shapes (<= 1e-5) with its hull, then its entry point called 4
+   times: 4 launches;
 5. the ASRC kernels against their plain versions at config 5's shapes,
    after the geometry (bank piece, outputs per block, threads, shared
    memory) each asrc_step instance picks there:
@@ -56,13 +60,15 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    equals the number of dispatching calls;
 8. throughput: three windows of 8 chunks through process(x, n, acc), the
    host's planning time per chunk, K1's step against the plain step and
-   one conv1d call (the library yardstick); the group forms as
+   one conv1d call (the library yardstick); K1 on config 1's interpolated
+   chunk against its plain version; the group forms as
    bench._bench_device_fixed measures them (config 1 and config 1b, 64
    mono rows, by process_flat, G=16; preset -3 by process_flat,
    process_flat_out and process_flat_packed, G=8) with the host's group
    plan; K6 against its plain version and conv1d; config 5's bench.py
-   loop, its host planning time, and the ASRC step (kernel only, kernel
-   step, plain step) and apply in ms per call, in float32 and float64;
+   loop with kernel "auto" (the step) and "pallas" (the apply), its host
+   planning time, and the ASRC step (kernel only, kernel step, plain step)
+   and apply in ms per call, in float32 and float64;
    all kernel times with CUDA events, taken in turns.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
@@ -89,7 +95,8 @@ from art_tpu_torch.core.filters import make_filter_bank
 from art_tpu_torch.ops import _build
 from art_tpu_torch.ops import asrc_step as kasrc
 from art_tpu_torch.ops import fixed_step as k1
-from art_tpu_torch.parallel.pipeline import window_and_hist
+from art_tpu_torch.parallel.pipeline import (window_and_hist, window_at,
+                                             window_dots)
 
 # bench.py's headline configuration (preset -3); the planner reduces it
 FLAGS = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
@@ -161,11 +168,42 @@ def phase_build():
         if line.startswith("==") or "ptxas" in line or "spill" in line:
             print(f"  {line.strip()}")
     if _build.build_log:        # empty when an earlier process built it
-        step = {k: v for k, v in _spills(_build.build_log).items()
-                if "asrc_step_kernel" in k}
-        print(f"  asrc_step instances (spill store, load bytes): {step}")
-        _require(len(step) == 2 and not any(sum(v) for v in step.values()),
-                 "the asrc_step instances spill")
+        # 6 fixed_step_kernel instances, 3 ASRC ones (step float32 and
+        # float64, apply)
+        inst = {k: v for k, v in _spills(_build.build_log).items()
+                if "_kernel" in k}
+        print(f"  kernel instances (spill store, load bytes): {inst}")
+        _require(len(inst) == 9 and not any(sum(v) for v in inst.values()),
+                 "a kernel instance spills (or is missing)")
+
+
+def _interp_chunk(dev, n_target):
+    """BASELINE config 1's steady interpolated chunk: (eng, n, K, start, P2,
+    fracv, kw), from a card engine's real plan."""
+    eng = DeviceStreamResampler(*INTERP, device=dev)
+    eng.advance_position(INTERP[1] // 2)
+    n = roundtrip.m_multiple(n_target, eng.M)
+    eng._plan(n)
+    K, start, _, pos0, plan = eng._plan_compute(n)
+    kw = _kw(eng, K)
+    P, fracv = eng._interp_pattern(pos0, plan, n, K, kw["nb"])[:2]
+    return eng, n, K, start, P, fracv, kw
+
+
+def _hull(P, L, interp):
+    """What K1 keeps of P: the rows from the first to the last nonzero in
+    each CTA's 32 phases (both banks' in the interpolated form), as a line
+    of text (the kernel finds the same rows from P itself)."""
+    nz = P != 0
+    if interp:
+        nz = nz[:, :L] | nz[:, L:]
+    kept, work = [], 0
+    for n0 in range(0, L, 32):
+        rows = nz[:, n0:n0 + 32].any(dim=1).nonzero()
+        kept.append(int(rows[-1] - rows[0] + 1) if len(rows) else 0)
+        work += kept[-1] * min(32, L - n0)
+    return (f"hull {min(kept)}-{max(kept)} of {P.shape[0]} rows per 32-phase "
+            f"CTA ({work / (P.shape[0] * L):.1%} of the rows x phases)")
 
 
 def _kernel_cases(dev, n_target):
@@ -208,9 +246,13 @@ def _kernel_cases(dev, n_target):
                           .astype(np.float32)).to(dev)
     fracv = torch.from_numpy(rng.random(L).astype(np.float32)).to(dev)
     K = n * L // M
-    cases.append(("interp fracv 48/48 taps", noise(2, H), noise(2, n), P2,
-                  fracv, 100, K, dict(M=M, L=L, nb=-(-K // L), qn=qn,
-                                      hist_len=H)))
+    cases.append(("interp fracv 48/48 taps, dense random P2", noise(2, H),
+                  noise(2, n), P2, fracv, 100, K,
+                  dict(M=M, L=L, nb=-(-K // L), qn=qn, hist_len=H)))
+    eng, n, K, start, P2, fracv, kw = _interp_chunk(dev, n_target)
+    cases.append((f"config 1 (preset -1 mono 44.1k->48k) interpolated steady "
+                  f"K={K}", noise(1, eng.num_samples), noise(1, n), P2, fracv,
+                  start, K, kw))
     # large input periods, which the 128-block tile did not fit: preset -3
     # 192k->44.1k (reduced, M=640) and preset -1 96k->44.1k (interpolated,
     # M=320), steady chunks of real engine plans
@@ -255,7 +297,8 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
         finite = bool(torch.isfinite(out).all())
         tile = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None)
         print(f"  {label}: tile {tile[0]} blocks x P pieces of {tile[1]} "
-              f"rows, {tile[2]} B shared; out {tuple(out.shape)}; "
+              f"rows, {tile[2]} B shared; "
+              f"{_hull(P, kw['L'], fracv is not None)}; out {tuple(out.shape)}; "
               f"max|K1 - f64 plain| = "
               f"{err:.3e} (f32 plain: {err32:.3e}); acc rel err "
               f"{acc_rel:.2e}; tail zero {tail0}; new_hist bitwise {hist_eq}")
@@ -409,12 +452,17 @@ def _bound_ms(nbytes: int, flops: int, peak_flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _sha256(t):
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
 def k1_checksum(dev, n_target=1 << 22):
     """sha256 of K1's output bytes on the preset -3 44.1k->48k steady
     chunk (4,194,351 frames in, std-0.5 noise from a fixed seed).  Uses
     only entry points the port has had since its first kernel, so
     ``python3 chip_smoke.py --checksum`` run from an older checkout prints
-    that tree's bytes for the same input."""
+    that tree's bytes for the same input (as do the two below, for trees
+    that have the interpolated mode and K6)."""
     eng = _engine(44100, 48000, dev)
     n = roundtrip.m_multiple(n_target, eng.M)
     eng._plan(n)
@@ -425,7 +473,32 @@ def k1_checksum(dev, n_target=1 << 22):
     kw = _kw(eng, K)
     out = k1.fixed_step_kernel(buf, eng._matrix(j0), start, K, M=kw["M"],
                                L=kw["L"], nb=kw["nb"], qn=kw["qn"])
-    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    return _sha256(out)
+
+
+def k1_checksum_interp(dev, n_target=1 << 22):
+    """sha256 of K1's output bytes on BASELINE config 1's steady
+    interpolated chunk (mono, 4,194,351 frames in, std-0.5 noise)."""
+    eng, n, K, start, P2, fracv, kw = _interp_chunk(dev, n_target)
+    rng = np.random.default_rng(4343)
+    buf = torch.from_numpy(rng.normal(0, 0.5, (1, eng.num_samples + n))
+                           .astype(np.float32)).to(dev)
+    return _sha256(k1.fixed_step_kernel(
+        buf, P2, start, K, M=kw["M"], L=kw["L"], nb=kw["nb"], qn=kw["qn"],
+        fracv=fracv))
+
+
+def k1_checksum_poly(dev):
+    """sha256 of K6's output bytes on its main-path call (_poly_inputs)."""
+    win, P, kw = _poly_inputs(dev)
+    return _sha256(k1.polyphase_apply(win, P, **kw))
+
+
+def k1_checksums(dev):
+    """The three K1 hashes, one line each, the preset -3 line first."""
+    print(f"K1 preset -3 44.1k->48k chunk sha256 {k1_checksum(dev)}")
+    print(f"K1 config 1 interpolated chunk sha256 {k1_checksum_interp(dev)}")
+    print(f"K6 main-path call sha256 {k1_checksum_poly(dev)}")
 
 
 def _noise_dev(dev, shape, seed, scale=0.5):
@@ -461,7 +534,8 @@ def phase_polyphase(dev, calls=4):
     ref = k1.polyphase_apply_reference(win.double(), P.double(), **kw)
     err = float((out.double() - ref).abs().max())
     print(f"  polyphase_apply win {tuple(win.shape)} P {tuple(P.shape)} -> "
-          f"out {tuple(out.shape)}: max|K6 - f64 plain| = {err:.3e}")
+          f"out {tuple(out.shape)}: {_hull(P, kw['L'], False)}; "
+          f"max|K6 - f64 plain| = {err:.3e}")
     _require(bool(torch.isfinite(out).all()) and err <= 1e-5,
              "K6 vs plain")
     _reset_launches()
@@ -704,6 +778,31 @@ def phase_group_throughput(dev, tag):
     return res
 
 
+def phase_interp_timing(dev, tag, reps=20):
+    """K1 (kernel only) on BASELINE config 1's steady interpolated chunk
+    against its plain version, in turns, with its bound.  Returns the
+    medians and the bound."""
+    eng, n, K, start, P2, fracv, kw = _interp_chunk(dev, 1 << 22)
+    buf = _noise_dev(dev, (1, eng.num_samples + n), 61)
+    M, L, nb, qn = kw["M"], kw["L"], kw["nb"], kw["qn"]
+    med = _time_in_turns(dev, {
+        "config 1 plain": lambda: window_dots(
+            window_at(buf, start, (nb - 1) * M + qn * M), P2, K, M=M, L=L,
+            nb=nb, qn=qn, fracv=fracv),
+        "config 1 K1 kernel only": lambda: k1.fixed_step_kernel(
+            buf, P2, start, K, M=M, L=L, nb=nb, qn=qn, fracv=fracv)},
+        ["config 1 plain", "config 1 K1 kernel only",
+         "config 1 K1 kernel only", "config 1 plain"], reps,
+        f"per {n}-frame interpolated chunk", tag)
+    # each output needs its taps from both banks and a lerp
+    med["bound"] = _bound_ms(
+        4 * (buf.numel() + P2.numel() + L + nb * L), 2 * K * (2 * eng.num_taps
+                                                             + 2), PEAK_F32)
+    print(f"  config 1 K1 bound {med['bound'][0]:.4f} ms "
+          f"({med['bound'][1]}-bound)")
+    return med
+
+
 def phase_polyphase_timing(dev, tag, reps=10):
     """K6 against its plain version and one conv1d (the library
     yardstick), with its bound.  Returns the medians and the bound."""
@@ -935,29 +1034,33 @@ def phase_asrc_throughput(dev, tag, n=ASRC_N, S=ASRC_S, windows=3, reps=10):
     """config 5's bench.py loop, host planning, and the ASRC step and apply
     against their plain versions.  Returns {kernel: (ms, plain_ms,
     (bound_ms, bound_by))}."""
-    eng = _asrc_engine(dev, S)
     rng = np.random.default_rng(0)
     xs = torch.from_numpy(rng.standard_normal((S, n)).astype(np.float32)) \
         .to(dev)
     tick = [0]
+    engines = {}
+    for kernel in ("auto", "pallas"):   # the step, then the apply
+        eng = engines[kernel] = _asrc_engine(dev, S, kernel=kernel)
 
-    def run5():             # bench.py:359-368
-        tot = 0
-        for _ in range(3):
-            tick[0] += 1
-            out, Ks = eng.process(xs, _drift(S, tick[0]))
-            tot += int(Ks.sum())
-        float(torch.sum(out))
-        return tot
+        def run5():             # bench.py:359-368
+            tot = 0
+            for _ in range(3):
+                tick[0] += 1
+                out, Ks = eng.process(xs, _drift(S, tick[0]))
+                tot += int(Ks.sum())
+            float(torch.sum(out))
+            return tot
 
-    run5()
-    for window in range(windows):
-        t0 = time.perf_counter()
-        produced = run5()
-        dt = time.perf_counter() - t0
-        print(f"  config 5 window {window}: 3 process() calls x {S} streams "
-              f"x {n} frames -> {produced} outputs in {dt * 1e3:.3f} ms = "
-              f"{produced / dt / 1e6:.2f} M outputs/s {tag}")
+        run5()
+        for window in range(windows):
+            t0 = time.perf_counter()
+            produced = run5()
+            dt = time.perf_counter() - t0
+            print(f"  config 5 kernel={kernel!r} window {window}: 3 process() "
+                  f"calls x {S} streams x {n} frames -> {produced} outputs "
+                  f"in {dt * 1e3:.3f} ms = {produced / dt / 1e6:.2f} M "
+                  f"outputs/s {tag}")
+    eng = engines["auto"]
     t0 = time.perf_counter()
     for _ in range(20):
         eng._plan(n, _drift(S, tick[0]), None)
@@ -1033,7 +1136,7 @@ def main(argv) -> int:
         return 2
     dev = torch.device("cuda")
     if argv[1:] == ["--checksum"]:
-        print(f"K1 preset -3 44.1k->48k chunk sha256 {k1_checksum(dev)}")
+        k1_checksums(dev)
         return 0
     t_start = time.perf_counter()
     print("phase 1: device")
@@ -1042,7 +1145,7 @@ def main(argv) -> int:
     phase_build()
     print("phase 3: K1 vs plain PyTorch on the card")
     worst = {"fixed_step": phase_kernel_vs_plain(dev)}
-    print(f"  K1 preset -3 44.1k->48k chunk sha256 {k1_checksum(dev)}")
+    k1_checksums(dev)
     print("phase 4: K6 (polyphase_apply) vs plain PyTorch, its entry point")
     launches = {}
     launches["polyphase_apply"], worst["polyphase_apply"] = \
@@ -1066,6 +1169,7 @@ def main(argv) -> int:
         worst[key] = max(worst[key], err)
     print("phase 8: throughput")
     med = phase_throughput(dev, tag)
+    phase_interp_timing(dev, tag)
     phase_group_throughput(dev, tag)
     poly = phase_polyphase_timing(dev, tag)
     timed = phase_asrc_throughput(dev, tag)

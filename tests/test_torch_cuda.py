@@ -236,6 +236,50 @@ def test_asrc_apply_kernel_matches_plain():
     assert float((o.double() - o64).abs().max()) <= 1e-5
 
 
+# The apply (the step kernel's template with given positions) on the same
+# shapes: "r0.2wide"'s runs span more window than the stage holds, so they
+# read buf in place; "shuffled" permutes the outputs inside each run, so
+# the bases do not grow with k and the run's span comes from its block
+# reduction; "midrun" cuts K inside a run.
+APPLY_CASES = ["near1", "r0.5", "r0.2wide", "r2.0", "shuffled", "F1024",
+               "taps36", "taps100", "midrun", "S3"]
+
+
+@pytest.mark.parametrize("case", APPLY_CASES)
+def test_asrc_apply_kernel_cases_match_plain(case):
+    dev = _card()
+    eng, hist, x, ratios, _, k_max = _asrc_case(
+        "near1" if case == "shuffled" else case, dev, seed=len(case))
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    buf, base, fi, frac, _ = kasrc.apply_prologue(
+        t(hist), t(x), t(eng.offsets, torch.float64),
+        t(ratios, torch.float64), eng.num_samples - eng.input_index,
+        num_taps=eng.num_taps, num_filters=eng.num_filters, k_max=k_max,
+        hist_len=eng.num_samples)
+    run = kasrc.step_geometry(eng.num_taps, eng.num_filters,
+                              torch.float32).outputs_per_block
+    if case == "shuffled":
+        gen = torch.Generator().manual_seed(7)
+        perm = torch.cat([k + torch.randperm(min(run, k_max - k),
+                                             generator=gen)
+                          for k in range(0, k_max, run)]).to(dev)
+        base, fi, frac = (a[:, perm].contiguous() for a in (base, fi, frac))
+        assert not bool((base[:, 1:] >= base[:, :-1]).all())
+    if case == "midrun":        # the apply takes any K: end inside a run
+        k_max -= 1077
+        base, fi, frac = (a[:, :k_max].contiguous() for a in (base, fi, frac))
+        assert k_max > run and k_max % run
+    bank = t(eng.bank)
+    before = kasrc.launches["asrc_apply"]
+    o = kasrc.asrc_apply(buf, bank, base, fi, frac)
+    torch.cuda.synchronize()
+    assert kasrc.launches["asrc_apply"] == before + 1
+    o64 = kasrc.asrc_apply_reference(buf.double(), bank.double(), base, fi,
+                                     frac.double())
+    assert o.shape == (eng.S, k_max)
+    assert float((o.double() - o64).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype,kernel,tol", [
     (np.float32, "auto", 1e-5), (np.float64, "auto", 1e-12),
     (np.float32, "pallas", 1e-5)])
@@ -325,9 +369,10 @@ def test_kernel_tile_refuses_and_names_a_shape_too_large():
     _card()
     with pytest.raises(ValueError, match="M=4000, qn=2"):
         k1.kernel_tile(4000, 2, False)
-    # the main path keeps the 128-block tile and one whole P slice:
-    # (131 rows x 147 + pad) + 147 x 32 floats
-    assert k1.kernel_tile(147, 4, False) == (128, 147, 95856)
+    # the main path keeps the 128-block tile and whole P slices, two
+    # buffers of them: (131 rows x 147 + pad) + 2 x 147 x 32 floats and
+    # the hull's 64-byte reduction
+    assert k1.kernel_tile(147, 4, False) == (128, 147, 114736)
 
 
 @pytest.mark.parametrize("nb_pad", [1024, 37])
@@ -415,3 +460,85 @@ def test_group_forms_bitwise_equal_sequential_on_card(mode, method):
     assert list(Ks_b) == Ks
     assert b.get_position() == a.get_position()
     assert torch.equal(b.hist, a.hist)
+
+
+# K1 skips the rows of P outside each CTA's hull (the first to the last
+# row holding a nonzero in its 32 phases, both banks' when interpolated),
+# found from P's values, and keeps each output's blocks of 32 terms at
+# m = 0, 32, ... of every slice.  Synthetic P with the hull's edges on
+# and off those block edges, an all-zero 32-phase group, a P whose only
+# nonzero row is the last of a slice, interpolated banks whose bands
+# differ, and the large periods whose P passes in pieces.
+HULL_CASES = {   # M, qn, L, interpolated
+    "band-on-edges": (147, 4, 160, False),
+    "band-off-edges": (147, 4, 160, False),
+    "zero-group": (147, 4, 160, False),
+    "last-row-of-slice": (147, 4, 160, False),
+    "interp": (147, 2, 160, True),
+    "M320": (320, 2, 147, False),
+    "M640-interp": (640, 2, 147, True),
+}
+
+
+def _banded(rng, KQ, L, edges):
+    """[KQ, L] with each 32-column group nonzero on one band of rows: its
+    first column starts the band at lo, its last ends it at hi, the others
+    lie inside; on ``edges`` lo and hi are 32-row block edges."""
+    P = np.zeros((KQ, L), np.float32)
+    for n0 in range(0, L, 32):
+        if edges is not None:
+            lo, hi = np.sort(rng.choice(edges, 2, replace=False))
+        else:
+            lo = int(rng.integers(1, KQ // 3))
+            hi = int(rng.integers(2 * KQ // 3, KQ))
+        for l in range(n0, min(n0 + 32, L)):
+            a = lo if l == n0 else lo + int(rng.integers(0, 9))
+            b = hi if l == min(n0 + 32, L) - 1 else hi - int(rng.integers(0, 9))
+            P[a:b, l] = rng.normal(0, 0.05, max(b - a, 0))
+    return P
+
+
+@pytest.mark.parametrize("case", list(HULL_CASES))
+def test_kernel_hull_matches_plain(case):
+    dev = _card()
+    M, qn, L, interp = HULL_CASES[case]
+    KQ = qn * M
+    rng = np.random.default_rng(len(case))
+    edges = [q * M + b for q in range(qn) for b in range(0, M, 32)] + [KQ]
+    if case == "zero-group":
+        P = rng.normal(0, 0.05, (KQ, L)).astype(np.float32)
+        P[:, 32:64] = 0
+    elif case == "last-row-of-slice":
+        P = np.zeros((KQ, L), np.float32)
+        P[2 * M - 1] = rng.normal(0, 0.05, L)
+    else:
+        P = _banded(rng, KQ, L, edges if case in ("band-on-edges", "M320")
+                    else None)
+    fracv = None
+    if interp:      # bank 2's bands reach 3 rows further on both sides
+        P2 = np.zeros_like(P)
+        for l in range(L):
+            rows = np.flatnonzero(P[:, l])
+            if not len(rows):
+                continue
+            lo, hi = max(rows[0] - 3, 0), min(rows[-1] + 4, KQ)
+            P2[lo:hi, l] = rng.normal(0, 0.05, hi - lo)
+        P = np.concatenate([P, P2], axis=1)
+        fracv = torch.from_numpy(rng.random(L).astype(np.float32)).to(dev)
+    nb, start = 40, 3
+    K = nb * L - L // 3
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    hist = t(rng.normal(0, 0.5, (2, KQ)))
+    x = t(rng.normal(0, 0.5, (2, nb * M)))
+    kw = dict(M=M, L=L, nb=nb, qn=qn, hist_len=KQ)
+    acc = torch.zeros((), device=dev)
+    h, o, _ = k1.fixed_step(hist, x, t(P), start, K, acc, fracv=fracv, **kw)
+    torch.cuda.synchronize()
+    d = lambda v: None if v is None else v.double()
+    hr, orf, _ = k1.fixed_step_reference(d(hist), d(x), d(t(P)), start, K,
+                                         acc.double(), fracv=d(fracv), **kw)
+    assert float((o.double() - orf).abs().max()) <= 1e-5
+    assert not o[:, K:].any()
+    assert torch.equal(h, hr.float())
+    if case == "zero-group":
+        assert not o.view(2, nb, L)[:, :, 32:64].any()
