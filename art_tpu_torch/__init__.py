@@ -9,9 +9,9 @@ the phase-anchor matrices and the test signals -- is a copy of
 positions match the JAX engines exactly.  Importing this package imports
 neither jax nor ``art_tpu``.
 
-Ported so far: the reduced float32 fixed-ratio streaming resampler
-(``DeviceStreamResampler``, chunk step on kernel K1, ``ops/fixed_step.py``)
-and the batched drifting-ratio ASRC (``BatchedASRC`` and its artest
+Ported so far: the fixed-ratio streaming resampler, reduced and
+interpolated, in every precision tier (``DeviceStreamResampler``, chunk step
+on kernel K1, ``ops/fixed_step.py``) and the batched drifting-ratio ASRC (``BatchedASRC`` and its artest
 adapter ``ASRCStreamResampler``, on the ASRC kernels of
 ``ops/asrc_step.py``).  See ROADMAP.md for what is still to come.
 """

@@ -31,11 +31,12 @@ _vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ASRC_STEP = [_vp, _ll, _vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp,
               _vp, _vp, _ll, _ll, _vp, _vp]
 _SIGNATURES = {
-    # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, stream
+    # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, kind,
+    # stream
     "art_fixed_step": [_vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _vp, _i, _i, _i,
-                       _ll, _vp, _vp],
-    # M, qn, interp, &blocks per CTA, &P rows per piece, &shared bytes
-    "art_fixed_step_tile": [_i, _i, _i, ctypes.POINTER(_i),
+                       _ll, _vp, _i, _vp],
+    # M, qn, interp, kind, &blocks per CTA, &P rows per piece, &shared bytes
+    "art_fixed_step_tile": [_i, _i, _i, _i, ctypes.POINTER(_i),
                             ctypes.POINTER(_i), ctypes.POINTER(_ll)],
     # hist, H, x, n, S, bank, taps, F, P, X, outputs per block, threads,
     # offsets, ratios, Ks, shift, k_max, out, stream

@@ -41,11 +41,9 @@ from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                           HISTORY_MULTIPLE, SUBSAMPLE_INTERPOLATE,
                           validate_taps_filters)
 from ..ops.asrc_step import apply_prologue, asrc_apply, asrc_step
-from .streams import _not_ported
+from .streams import _TORCH_DTYPES, _not_ported
 
 KERNELS = ("auto", "hankel", "dense", "pallas", "xla")
-_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                 np.dtype(np.float64): torch.float64}
 
 
 class BatchedASRC:
@@ -380,7 +378,11 @@ class ASRCStreamResampler:
 
     def __init__(self, num_channels: int, num_taps: int, num_filters: int,
                  lowpass_ratio: float, flags: int, *, dtype=np.float32,
-                 kernel: str = "auto", device="cuda"):
+                 kernel: str | None = None, device="cuda"):
+        if kernel is None:
+            # JAX's default picks its TPU kernels on a TPU and its XLA step
+            # elsewhere; here the kernel path is "auto" on either device
+            kernel = "auto"
         if not (flags & SUBSAMPLE_INTERPOLATE):
             raise ValueError("ASRCStreamResampler is the interpolated "
                              "runtime-ratio engine; pass "

@@ -1,4 +1,4 @@
-"""The fixed-ratio chunk math as plain PyTorch (single shard, float32).
+"""The fixed-ratio chunk math as plain PyTorch (single shard).
 
 The counterpart of ``art_tpu/parallel/pipeline.py``'s ``_window_and_hist``,
 ``_mask_outputs`` and ``_resample_block`` with the contraction of
@@ -6,7 +6,9 @@ The counterpart of ``art_tpu/parallel/pipeline.py``'s ``_window_and_hist``,
 gather: here ``Tensor.unfold(1, qn*M, M)`` is exactly the overlapping
 ``[ch, nb, qn*M]`` window view, so one matmul does the contraction.  This is
 the plain version kernel K1 (``ops/fixed_step.py``) is held against, and the
-step a CPU tensor takes.
+step a CPU tensor takes.  float64 data runs in float64 throughout;
+``precise`` (float32 data) accumulates each dot in float64 and rounds it
+once, as ``residue_window_dots(precise=True)`` does.
 """
 
 from __future__ import annotations
@@ -45,23 +47,39 @@ def mask_outputs(out, K: int, nb: int, L: int):
 
 
 def window_dots(win, P, K: int, *, M: int, L: int, nb: int, qn: int,
-                fracv=None):
+                fracv=None, precise: bool = False):
     """The contraction over a window: output block i < nb is
     ``win[i*M : i*M + qn*M] @ P``; with ``fracv`` P stacks two phase banks
-    [qn*M, 2L] whose dots are lerped per phase.  Returns out [S, nb*L]
-    zeroed at and beyond K."""
-    d = win[:, :(nb - 1) * M + qn * M].unfold(1, qn * M, M) @ P
+    [qn*M, 2L] whose dots are lerped per phase.  ``precise`` (float32
+    data): each dot is taken in float64 and rounded once to float32, then
+    the banks are lerped in float32 with one rounding of the sum, as JAX's
+    graph does.  Returns out [S, nb*L] zeroed at and beyond K."""
+    u = win[:, :(nb - 1) * M + qn * M].unfold(1, qn * M, M)
+    if precise and win.dtype == torch.float32:
+        d = (u.double() @ P.double()).float()
+        if fracv is not None:
+            # JAX's graph lerps the rounded dots as fma(d1, 1 - f, d2 * f):
+            # XLA contracts it (measured on XLA:CPU, bitwise); d1 * (1 - f)
+            # is exact in float64, so the float64 sum rounded to float32 is
+            # that fma (but where the float64 sum itself rounds onto a
+            # float32 tie)
+            d = (d[:, :, :L].double() * (1.0 - fracv).double()
+                 + (d[:, :, L:] * fracv).double()).float()
+            return mask_outputs(d, K, nb, L)
+    else:
+        d = u @ P
     if fracv is not None:
         d = d[:, :, :L] * (1.0 - fracv) + d[:, :, L:] * fracv
     return mask_outputs(d, K, nb, L)
 
 
 def resample_block(x, hist, P, start: int, K: int, *, M: int, L: int,
-                   nb: int, qn: int, hist_len: int, fracv=None):
+                   nb: int, qn: int, hist_len: int, fracv=None,
+                   precise: bool = False):
     """One chunk's contraction (``window_dots`` over the window of
     history + x at ``start``).  Returns (out [S, nb*L] zeroed beyond K,
     new_hist)."""
     win, new_hist = window_and_hist(x, hist, start, (nb - 1) * M + qn * M,
                                     hist_len)
-    return window_dots(win, P, K, M=M, L=L, nb=nb, qn=qn,
-                       fracv=fracv), new_hist
+    return window_dots(win, P, K, M=M, L=L, nb=nb, qn=qn, fracv=fracv,
+                       precise=precise), new_hist

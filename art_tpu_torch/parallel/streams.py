@@ -1,13 +1,13 @@
 """Device-resident fixed-ratio streaming resampler (PyTorch port).
 
 The counterpart of ``art_tpu/parallel/streams.py::DeviceStreamResampler``
-in its float32 single-device modes: reduced (the planner folded the phases
-into L filters) and interpolated (an exact rational ratio Lp/Mp whose
-phases fall between filters: two banked dots and a per-phase lerp).  Audio
-and history stay on the engine's device; the host does only the scalar
-consume/emit accounting per chunk, with the port's copy of the JAX
-engine's float64 code (``core/accounting.py``), so counts and positions
-match it exactly.  Every chunk is one contraction of kernel K1
+in its single-device modes: reduced (the planner folded the phases into L
+filters) and interpolated (an exact rational ratio Lp/Mp whose phases fall
+between filters: two banked dots and a per-phase lerp), on float32 or
+float64 data, with JAX's precision tiers.  Audio and history stay on the
+engine's device; the host does only the scalar consume/emit accounting per
+chunk, with the port's copy of the JAX engine's float64 code
+(``core/accounting.py``), so counts and positions match it exactly.  Every chunk is one contraction of kernel K1
 (``ops/fixed_step.py``) on a CUDA device, its plain version on the CPU:
 
 - ``process`` is one chunk step (a tie-class interpolated chunk is split);
@@ -22,15 +22,18 @@ match it exactly.  Every chunk is one contraction of kernel K1
   windows are consecutive block rows of the buffer) and the packed form
   quantizes and packs the samples with plain tensor ops.
 
-Every group form is bitwise equal to sequential ``process()`` calls.  Not
-ported yet, and raising ``NotImplementedError`` (ROADMAP.md, "Modules to
-port"): float64 data and the ``precise`` tiers (item 5), and ``mesh=``
+The precision tiers run on their own instances of K1: ``precise=True``
+and ``precise="int8"`` (float32 data) take each dot in float64 and round
+it once, float64 data runs in float64.  Every group form is bitwise equal
+to sequential ``process()`` calls in every tier.  Not ported yet, and
+raising ``NotImplementedError`` (ROADMAP.md, "Modules to port"): ``mesh=``
 (item 11).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -44,6 +47,8 @@ from ..ops import fixed_step as k1
 from ..ops.polyphase import PolyphaseMatrix
 
 _CONTAINERS = {1: torch.uint8, 2: torch.uint16, 4: torch.uint32}
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -77,11 +82,11 @@ def _build_interp_matrix(bank, d, fi, rows: int, L: int, T: int):
 
 
 def _floor_half_up_exact(code):
-    """floor(float64(code) + 0.5) from float32 ops (JAX's rule, reference
-    decimator.c:163): float64(code) + 0.5 is exact for the quantizer's
-    range, so the float64 floor equals floor(code) + (code - floor(code) >=
-    0.5), whose terms are exact in float32.  int64, so that no later step
-    needs an unsigned shift."""
+    """floor(float64(code) + 0.5) from ops in code's type (JAX's rule,
+    reference decimator.c:163): float64(code) + 0.5 is exact for the
+    quantizer's range, so the float64 floor equals floor(code) + (code -
+    floor(code) >= 0.5), whose terms are exact in float32 and float64.
+    int64, so that no later step needs an unsigned shift."""
     f = torch.floor(code)
     return f.to(torch.int64) + (code - f >= 0.5).to(torch.int64)
 
@@ -89,18 +94,23 @@ def _floor_half_up_exact(code):
 def _quantize_pack(out, scaler: float, clips, *, highclip: int,
                    lowclip: int, output_bits: int, output_bytes: int):
     """The ditherless, unshaped quantizer and LE packer of JAX's
-    ``_chunk_group_static_packed`` on float32 samples [ch, n]: scale, round
-    half up, clip (counted into ``clips``, int32), shift, offset and mask
-    into a uint8/16/32 container whose little-endian bytes are the packed
-    stream.  The scaler is rounded to float32; a power of two multiplies in
-    float32 (exact), any other in float64 rounded once to float32 (JAX's
-    ``decimate_device._mul_for``).  Integer steps run in int64 (no unsigned
-    shifts in torch) with shifts as multiplications by powers of two."""
-    sc = float(np.float32(scaler))
-    if float(scaler) > 0 and math.frexp(float(scaler))[0] == 0.5:
-        code = out * torch.tensor(sc, dtype=torch.float32, device=out.device)
+    ``_chunk_group_static_packed`` on samples [ch, n]: scale, round half
+    up, clip (counted into ``clips``, int32), shift, offset and mask into a
+    uint8/16/32 container whose little-endian bytes are the packed stream.
+    The scaler takes the samples' type.  float32: a power of two
+    multiplies in float32 (exact), any other in float64 rounded once to
+    float32 (JAX's ``decimate_device._mul_for``); float64: one float64
+    multiply, as ``_mul_for`` does for float64 data.  Integer steps run in
+    int64 (no unsigned shifts in torch) with shifts as multiplications by
+    powers of two."""
+    if out.dtype == torch.float64:
+        code = out * float(scaler)
+    elif float(scaler) > 0 and math.frexp(float(scaler))[0] == 0.5:
+        code = out * torch.tensor(float(np.float32(scaler)),
+                                  dtype=torch.float32, device=out.device)
     else:
-        code = (out.to(torch.float64) * sc).to(torch.float32)
+        code = (out.to(torch.float64) * float(np.float32(scaler))) \
+            .to(torch.float32)
     ov = _floor_half_up_exact(code)
     clips = clips + ((ov > highclip) | (ov < lowclip)).sum(dtype=torch.int32)
     ov = ov.clamp(lowclip, highclip)
@@ -124,26 +134,57 @@ def _stack_padded(outs):
 class DeviceStreamResampler:
     """Fixed-ratio streaming resampler with device-resident state.
 
-    float32 configurations, reduced (the reference's fast path, filter
-    reduction succeeded) or interpolated with an exact rational ratio of
-    workable period (two banked dots and a per-phase lerp).  ``device``:
-    where audio, history and the phase matrices live; "cuda" raises when no
-    card is usable.  The methods take torch tensors (or arrays) and return
-    device tensors, with the JAX engine's signatures and shapes."""
+    Reduced configurations (the reference's fast path, filter reduction
+    succeeded) or interpolated ones with an exact rational ratio of
+    workable period (two banked dots and a per-phase lerp), on ``dtype``
+    float32 or float64 data.  ``device``: where audio, history and the
+    phase matrices live; "cuda" raises when no card is usable.  The methods
+    take torch tensors (or arrays) and return device tensors, with the JAX
+    engine's signatures and shapes.
+
+    ``precise`` (float32 data; dropped for float64 data, as in JAX):
+    ``True`` takes every contraction dot in float64 and rounds it once to
+    float32 (interpolated: each bank's dot, then the float32 lerp);
+    ``"int8"`` is JAX's int8 fixed-point (Ozaki-split) mode, whose digit
+    dots land at that same single-rounding floor: here it runs the same
+    float64-accumulating K1 instance as ``True``, which computes that
+    function directly with no digit planes.  ``pallas_step`` selects JAX's
+    Pallas body; on a card K1 is the only chunk step, so it changes
+    nothing, and, as in JAX, it refuses a ``precise`` tier."""
 
     def __init__(self, num_channels: int, num_taps: int, max_filters: int,
                  source_rate: float, destin_rate: float, lowpass_freq: float,
                  flags: int, *, dtype=np.float32, mesh=None,
-                 precise: bool = False, device="cuda"):
+                 pallas_step: bool = False, precise: bool = False,
+                 device="cuda"):
         if flags & EXTRAPOLATE_ENDPOINTS:
             raise ValueError("EXTRAPOLATE_ENDPOINTS is not modeled by the "
                              "device engine; use the host Resampler")
-        if np.dtype(dtype) != np.float32:
-            raise _not_ported("dtype=float64 data", 5)
-        if precise:
-            raise _not_ported(f"precise={precise!r}", 5)
+        self.dtype = np.dtype(dtype)
+        if self.dtype not in _TORCH_DTYPES:
+            raise ValueError(f"dtype must be float32 or float64, got "
+                             f"{self.dtype}")
+        self._tdtype = _TORCH_DTYPES[self.dtype]
+        # JAX's gates (art_tpu/parallel/streams.py:604-620)
+        if precise == "int8":
+            if self.dtype != np.float32:
+                raise ValueError("precise='int8' is the f32 data path's "
+                                 "fixed-point mode")
+            if mesh is not None:
+                raise NotImplementedError("precise='int8' is single-shard "
+                                          "(use precise=True under a mesh)")
+            self._precise = "int8"
+        else:
+            self._precise = bool(precise and self.dtype == np.float32)
+        if self._precise and pallas_step:
+            raise ValueError("precise modes are the XLA body only; drop "
+                             "pallas_step")
         if mesh is not None:
             raise _not_ported("mesh=", 11)
+        if pallas_step:
+            warnings.warn("pallas_step selects JAX's Pallas chunk body; K1 "
+                          "is the only chunk step here, so it has no "
+                          "effect", stacklevel=2)
         self.device = resolve_device(device)
         plan = plan_fixed_ratio(num_taps, max_filters, source_rate,
                                 destin_rate, lowpass_freq, flags)
@@ -173,7 +214,7 @@ class DeviceStreamResampler:
         self.bank = make_filter_bank(num_taps, self.num_filters,
                                      lowpass_ratio,
                                      bool(flags & BLACKMAN_HARRIS),
-                                     np.float32)
+                                     self.dtype.type)
         if self.interp:
             self.L, self.M = Lp, Mp
         else:
@@ -188,7 +229,7 @@ class DeviceStreamResampler:
         self.output_offset = float(num_taps // 2)
         self.input_index = num_taps
         self.hist = torch.zeros((num_channels, self.num_samples),
-                                dtype=torch.float32, device=self.device)
+                                dtype=self._tdtype, device=self.device)
         self._mats: dict[int, torch.Tensor] = {}
 
     # ----------------------------------------------------------------- api
@@ -207,7 +248,7 @@ class DeviceStreamResampler:
         and latch FLUSHED: a second flush() or any later process() emits
         nothing and ignores its input (reference resampler.c:438-439)."""
         half = self.num_taps // 2
-        zeros = torch.zeros((self.num_channels, half), dtype=torch.float32,
+        zeros = torch.zeros((self.num_channels, half), dtype=self._tdtype,
                             device=self.device)
         result = self.process(zeros, half)
         self._flushed = True
@@ -231,7 +272,7 @@ class DeviceStreamResampler:
         if m is None:
             pm = PolyphaseMatrix(self.bank, self.L, self.M, j0,
                                  bool(self.flags & INCLUDE_LOWPASS))
-            P = np.zeros((self.qn * self.M, self.L), dtype=np.float32)
+            P = np.zeros((self.qn * self.M, self.L), dtype=self.dtype)
             P[:pm.S, :] = pm.P.T
             m = torch.from_numpy(P).to(self.device)
             self._mats[j0] = m
@@ -334,8 +375,8 @@ class DeviceStreamResampler:
         """Banked interpolated matrices for this chunk's phase pattern (the
         integer pattern is tiled across the chunk's nb periods;
         _interp_pattern verifies the tiling against the ring-coordinate
-        oracle before use): (P2 [qn*M, 2L], fracv [L] float32, d, fi, frac),
-        cached by pattern, 64 entries with one-oldest eviction."""
+        oracle before use): (P2 [qn*M, 2L], fracv [L] in the data's type, d,
+        fi, frac), cached by pattern, 64 entries with one-oldest eviction."""
         d, fi, frac = self._pattern_vals(first_position)
         key = (d.tobytes(), fi.tobytes(), frac.tobytes())
         m = self._interp_cache.get(key)
@@ -346,7 +387,7 @@ class DeviceStreamResampler:
                 self._bank_dev, torch.from_numpy(d).to(self.device),
                 torch.from_numpy(fi).to(self.device), self.qn * self.M,
                 self.L, self.num_taps)
-            m = (P2, torch.from_numpy(frac.astype(np.float32))
+            m = (P2, torch.from_numpy(frac.astype(self.dtype))
                  .to(self.device), d, fi, frac)
             if len(self._interp_cache) > 64:
                 # evict ONE oldest entry (dict preserves insertion order):
@@ -419,7 +460,7 @@ class DeviceStreamResampler:
 
     # ------------------------------------------------------------- process
     def _as_input(self, x):
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(x, dtype=self._tdtype, device=self.device)
 
     def _step(self, x, P, fracv, start: int, K: int, acc):
         """One chunk step on the engine's history: (out [ch, nb*L] zeroed
@@ -427,7 +468,8 @@ class DeviceStreamResampler:
         nb = -(-K // self.L) if K else 1
         self.hist, out, acc = k1.fixed_step(
             self.hist, x, P, start, K, acc, M=self.M, L=self.L, nb=nb,
-            qn=self.qn, hist_len=self.num_samples, fracv=fracv)
+            qn=self.qn, hist_len=self.num_samples, fracv=fracv,
+            precise=bool(self._precise))
         return out, acc
 
     def process(self, x, n_in: int, acc=None):
@@ -437,7 +479,7 @@ class DeviceStreamResampler:
         consumed."""
         if self._flushed:
             out = torch.zeros((self.num_channels, self.L),
-                              dtype=torch.float32, device=self.device)
+                              dtype=self._tdtype, device=self.device)
             return (out, 0) if acc is None else (out, 0, acc)
         x = self._as_input(x)
         if x.shape[1] != n_in:
@@ -458,7 +500,7 @@ class DeviceStreamResampler:
         self.output_offset = plan.new_output_offset
         self.input_index = plan.new_input_index
         acc_in = acc if acc is not None else torch.zeros(
-            (), dtype=torch.float32, device=self.device)
+            (), dtype=self._tdtype, device=self.device)
         out, acc_out = self._step(x, P, fracv, start, K, acc_in)
         if acc is None:
             return out, K
@@ -477,7 +519,7 @@ class DeviceStreamResampler:
         K1, K2 = r1[1], r2[1]
         K = K1 + K2
         nb = max(1, -(-K // self.L))
-        out = torch.zeros((x.shape[0], nb * self.L), dtype=torch.float32,
+        out = torch.zeros((x.shape[0], nb * self.L), dtype=self._tdtype,
                           device=self.device)
         out[:, :K1] = r1[0][:, :K1]
         out[:, K1:K] = r2[0][:, :K2]
@@ -526,7 +568,7 @@ class DeviceStreamResampler:
 
     def _run_scan(self, xs, steps, acc, stats: bool):
         acc_out = acc if acc is not None else torch.zeros(
-            (), dtype=torch.float32, device=self.device)
+            (), dtype=self._tdtype, device=self.device)
         outs, Ks = [], []
         for x, (P, fracv, start, K) in zip(xs, steps):
             out, acc_out = self._step(x, P, fracv, start, K, acc_out)
@@ -637,7 +679,7 @@ class DeviceStreamResampler:
         ValueError otherwise, with no state consumed.  Returns (Ks int
         array [G], acc')."""
         xs_flat = self._as_input(xs_flat)
-        acc = torch.as_tensor(acc, dtype=torch.float32, device=self.device)
+        acc = torch.as_tensor(acc, dtype=self._tdtype, device=self.device)
         G, K0, start0, nb, Pm, fracv, state0 = self._flat_plan(xs_flat,
                                                                n_in)
         if G == 0:
@@ -648,7 +690,8 @@ class DeviceStreamResampler:
             for g in range(G):
                 out = k1.fixed_step_window(
                     buf, Pm, start0 + g * n_in, K0, M=self.M, L=self.L,
-                    nb=nb, qn=self.qn, fracv=fracv)
+                    nb=nb, qn=self.qn, fracv=fracv,
+                    precise=bool(self._precise))
                 acc = acc + torch.sum(out * out)
         except BaseException:
             self.output_offset, self.input_index = state0
@@ -663,7 +706,8 @@ class DeviceStreamResampler:
         K0 = nb*L, so chunk g's blocks are block rows g*nb.. of the group
         buffer and nothing inside the group is masked.  On the CPU the plain
         version chunk by chunk, at process()'s shapes."""
-        kw = dict(M=self.M, L=self.L, qn=self.qn, fracv=fracv)
+        kw = dict(M=self.M, L=self.L, qn=self.qn, fracv=fracv,
+                  precise=bool(self._precise))
         if buf.device.type == "cpu":
             return torch.cat([
                 k1.fixed_step_window(buf, Pm, start0 + g * n_in, K0, nb=nb,
@@ -684,7 +728,7 @@ class DeviceStreamResampler:
         G, K0, start0, nb, Pm, fracv, state0 = self._flat_plan(xs_flat,
                                                                n_in)
         if G == 0:
-            return (torch.zeros((xs_flat.shape[0], 0), dtype=torch.float32,
+            return (torch.zeros((xs_flat.shape[0], 0), dtype=self._tdtype,
                                 device=self.device),
                     np.zeros((xs_flat.shape[1] // n_in,), np.int64))
         try:
@@ -736,16 +780,16 @@ class DeviceStreamResampler:
 
     # ----------------------------------------------------- streaming state
     def state_dict(self) -> dict:
-        """Streaming state as plain host values, with the host engine's keys
-        (engines/resampler.py state_dict): history [ch, num_samples] float32,
-        output_offset, input_index and the FLUSHED latch."""
+        """Streaming state as plain host values: history [ch, num_samples]
+        in the engine's dtype, output_offset, input_index and the FLUSHED
+        latch."""
         return {"history": self.hist.cpu().numpy().copy(),
                 "output_offset": float(self.output_offset),
                 "input_index": int(self.input_index),
                 "flushed": bool(self._flushed)}
 
     def load_state(self, state: dict) -> None:
-        hist = np.asarray(state["history"], dtype=np.float32)
+        hist = np.asarray(state["history"], dtype=self.dtype)
         if hist.shape != (self.num_channels, self.num_samples):
             raise ValueError(f"history shape {hist.shape}, expected "
                              f"{(self.num_channels, self.num_samples)}")

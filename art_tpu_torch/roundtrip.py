@@ -7,7 +7,9 @@ path (``bench._stream_flat_out``: the first chunk through ``process()``,
 M-multiple groups through ``process_flat_out``, the tail through
 ``process()``, then ``flush()``), and the diff RMS against the
 time-aligned source via the display_stats expression
-``10*log10(sumsq / count * 2)`` (reference artest.c:106-114).
+``10*log10(sumsq / count * 2)`` (reference artest.c:106-114).  ``precise``
+selects the engine's precision tier on both legs, as
+``bench._measure_roundtrip_snr(seconds, precise)`` does.
 """
 
 from __future__ import annotations
@@ -78,16 +80,18 @@ def stream(eng: DeviceStreamResampler, x: torch.Tensor,
     return torch.cat(outs, dim=1), calls + 1
 
 
-def roundtrip_diff_db(seconds: float, device, chunk_target: int = 1 << 19):
+def roundtrip_diff_db(seconds: float, device, chunk_target: int = 1 << 19,
+                      precise=False):
     """Forward then inverse resample ``seconds`` of the test signal on
-    ``device``.  Returns a dict: ``diff_db`` (the diff RMS in dB),
+    ``device`` in the ``precise`` tier (False, True or "int8").  Returns a
+    dict: ``diff_db`` (the diff RMS in dB),
     ``calls`` (dispatching calls made on both legs, see ``stream``) and
     ``frames`` (output frames of the forward and the inverse leg)."""
     x = torch.from_numpy(artest_noise(seconds)).to(device)
     legs = []
     for src, dst in ((SOURCE_RATE, DESTIN_RATE), (DESTIN_RATE, SOURCE_RATE)):
         eng = DeviceStreamResampler(CHANNELS, TAPS, TAPS, src, dst, 0, FLAGS,
-                                    device=device)
+                                    precise=precise, device=device)
         eng.advance_position(TAPS // 2)
         legs.append(eng)
     y, calls_fwd = stream(legs[0], x, chunk_target)

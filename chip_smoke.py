@@ -7,19 +7,24 @@
 Drives the port's paths on the card -- the fixed-ratio streaming
 resampler (preset -3, 2 channels, 380 taps, 44.1k<->48k, reduced; and
 BASELINE config 1, preset -1 mono 44.1k->48k, interpolated) in every
-dispatch form, and the batched drifting-ratio ASRC at BASELINE config 5
+dispatch form and precision tier (precise=True and "int8" on the headline
+engine, float64 data at BASELINE config 4's resampler, 5.1 channels
+48k->44.1k), and the batched drifting-ratio ASRC at BASELINE config 5
 (256 streams, 380 taps, 380 filters, 32768-frame chunks, ratios 1 + 0.01
 sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 
 1. device: the card's name, count, and nvidia-smi's name and power limit;
 2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
    per source, in parallel), with ptxas's register and spill lines; no
-   kernel instance (K1's six, the ASRC step's two and the apply) may
-   spill;
+   kernel instance (K1's eighteen: float32, float32 with float64
+   accumulators and float64, reduced and interpolated, three tiles; the
+   ASRC step's two and the apply) may spill;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes (~2^22-frame stereo chunks), its edge cases, BASELINE config 1's
    interpolated chunk and the large input periods (preset -3 192k->44.1k,
-   M=640; preset -1 96k->44.1k interpolated, M=320) with the tile K1 picked
+   M=640; preset -1 96k->44.1k interpolated, M=320; 192k->11.025k, M=2560,
+   reduced and interpolated, whose window K1 stages in column pieces) with
+   the tile K1 picked
    for each and the hull it keeps (the rows of P from the first to the
    last nonzero in a CTA's 32 phases): max abs error vs the float64 plain
    version <= 1e-5, a zero tail past K, the new history bitwise equal;
@@ -47,8 +52,9 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
      the last group replayed on a CPU engine of the port from the card's
      state (counts and positions equal, samples within 1e-5);
    - the headline group forms (G=8 chunks of 4,194,351 frames) against
-     sequential process(): process_flat bitwise in history, power and Ks,
-     process_flat_out bitwise in samples, process_flat_packed's bytes and
+     sequential process(): process_flat and process_scan bitwise in
+     history, power and Ks, process_flat_out and process_scan bitwise in
+     samples, process_flat_packed's bytes and
      clip counts equal to quantizing those samples on the host, with a
      power-of-two and another scaler;
 7. the ASRC paths: BatchedASRC.process() over 256 streams and 32768-frame
@@ -69,7 +75,21 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    loop with kernel "auto" (the step) and "pallas" (the apply), its host
    planning time, and the ASRC step (kernel only, kernel step, plain step)
    and apply in ms per call, in float32 and float64;
-   all kernel times with CUDA events, taken in turns.
+   all kernel times with CUDA events, taken in turns;
+9. the precision tiers' K1 instances against their plain versions at full
+   width, with the tile each picks: float32 data with float64 accumulators
+   (precise=True and "int8") on the preset -3 chunk, config 1's
+   interpolated chunk and the M=2560 shapes, within 1 float32 ulp of the
+   float64 dots rounded once (the count of samples that differ printed);
+   float64 data on config 4's chunk and the M=2560 shapes, within 1e-12;
+10. the tiers' paths, each instance's launches counted: precise="int8"
+   through the headline group forms as in 6 (bench.py's headline engine),
+   config 4's float64 data through the same forms, and the 60 s round trip
+   in precise=True and "int8", each within 0.1 dB of the plain path's
+   reading on the CPU;
+11. the tiers' throughput: each new instance beside the float32 instance
+   at the same shape, with its plain version and one conv1d on float64
+   operands, and process_flat_out's rate in the "int8" and float64 tiers.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound, then, last, the {"ok": true, "device": ...} line.  Without a
@@ -104,6 +124,11 @@ FLAGS = SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS | INCLUDE_LOWPASS
 # 48 filters, no lowpass; 48 filters cannot carry 160 phases, so the
 # engine runs its interpolated mode
 INTERP = (1, 48, 48, 44100, 48000, 0, SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS)
+# BASELINE config 4's resampler (bench.py:303-307): 5.1 channels of float64
+# data, 48k->44.1k, 380 taps, reduced to L=147, M=160, qn=4
+CONFIG4 = (6, 380, 380, 48000, 44100, 0, FLAGS)
+# the headline engine (bench.py:383, 416-417)
+HEAD = (2, 380, 380, 44100, 48000, 0, FLAGS)
 # BASELINE config 5 as bench.py measures it (bench.py:353-365)
 ASRC_S, ASRC_TAPS, ASRC_N = 256, 380, 32768
 # H100 SXM data sheet peaks at 700 W (NVIDIA): HBM3, float32 outside the
@@ -168,25 +193,31 @@ def phase_build():
         if line.startswith("==") or "ptxas" in line or "spill" in line:
             print(f"  {line.strip()}")
     if _build.build_log:        # empty when an earlier process built it
-        # 6 fixed_step_kernel instances, 3 ASRC ones (step float32 and
-        # float64, apply)
+        # 18 fixed_step_kernel instances (float, float-with-double
+        # accumulators and double; reduced and interpolated; 3 tiles), 3
+        # ASRC ones (step float32 and float64, apply)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 9 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 21 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
 
 
-def _interp_chunk(dev, n_target):
-    """BASELINE config 1's steady interpolated chunk: (eng, n, K, start, P2,
-    fracv, kw), from a card engine's real plan."""
-    eng = DeviceStreamResampler(*INTERP, device=dev)
-    eng.advance_position(INTERP[1] // 2)
+def _steady_chunk(ctor, dev, n_target, **opts):
+    """A steady M-multiple chunk of an engine built from ``ctor`` (and
+    ``opts``: dtype, precise): (eng, n, K, start, P, fracv, kw) from the
+    card engine's real plan (BASELINE config 1's interpolated chunk with
+    ``INTERP``)."""
+    eng = DeviceStreamResampler(*ctor, device=dev, **opts)
+    eng.advance_position(ctor[1] // 2)
     n = roundtrip.m_multiple(n_target, eng.M)
     eng._plan(n)
-    K, start, _, pos0, plan = eng._plan_compute(n)
+    K, start, j0, pos0, plan = eng._plan_compute(n)
     kw = _kw(eng, K)
-    P, fracv = eng._interp_pattern(pos0, plan, n, K, kw["nb"])[:2]
+    if eng.interp:
+        P, fracv = eng._interp_pattern(pos0, plan, n, K, kw["nb"])[:2]
+    else:
+        P, fracv = eng._matrix(j0), None
     return eng, n, K, start, P, fracv, kw
 
 
@@ -249,31 +280,32 @@ def _kernel_cases(dev, n_target):
     cases.append(("interp fracv 48/48 taps, dense random P2", noise(2, H),
                   noise(2, n), P2, fracv, 100, K,
                   dict(M=M, L=L, nb=-(-K // L), qn=qn, hist_len=H)))
-    eng, n, K, start, P2, fracv, kw = _interp_chunk(dev, n_target)
+    eng, n, K, start, P2, fracv, kw = _steady_chunk(INTERP, dev, n_target)
     cases.append((f"config 1 (preset -1 mono 44.1k->48k) interpolated steady "
                   f"K={K}", noise(1, eng.num_samples), noise(1, n), P2, fracv,
                   start, K, kw))
     # large input periods, which the 128-block tile did not fit: preset -3
     # 192k->44.1k (reduced, M=640) and preset -1 96k->44.1k (interpolated,
-    # M=320), steady chunks of real engine plans
-    for taps, src in ((380, 192000), (48, 96000)):
-        eng = DeviceStreamResampler(2, taps, taps, src, 44100, 0, FLAGS,
-                                    device=dev)
-        eng.advance_position(taps // 2)
-        n = roundtrip.m_multiple(n_target, eng.M)
-        eng._plan(n)
-        K, start, j0, pos0, plan = eng._plan_compute(n)
-        kw = _kw(eng, K)
-        if eng.interp:
-            P, fracv = eng._interp_pattern(pos0, plan, n, K, kw["nb"])[:2]
-        else:
-            P, fracv = eng._matrix(j0), None
-        cases.append((f"preset {-1 if eng.interp else -3} {src // 1000}k->"
-                      f"44.1k M={eng.M} qn={eng.qn} "
-                      f"{'interpolated' if eng.interp else 'reduced'} steady "
-                      f"K={K}", noise(2, eng.num_samples), noise(2, n), P,
-                      fracv, start, K, kw))
+    # M=320); and those whose whole window fits no tile, so it comes in
+    # column pieces: 192k->11.025k (M=2560) in both modes
+    for taps, src, dst in _LARGE_M:
+        eng, n, K, start, P, fracv, kw = _steady_chunk(
+            (2, taps, taps, src, dst, 0, FLAGS), dev, n_target)
+        cases.append((_large_label(eng, src, dst, K),
+                      noise(2, eng.num_samples), noise(2, n), P, fracv,
+                      start, K, kw))
     return cases
+
+
+# (taps, source rate, destination rate) of the large-input-period cases
+_LARGE_M = ((380, 192000, 44100), (48, 96000, 44100), (380, 192000, 11025),
+            (48, 192000, 11025))
+
+
+def _large_label(eng, src, dst, K):
+    return (f"preset {-1 if eng.interp else -3} {src / 1000:g}k->"
+            f"{dst / 1000:g}k M={eng.M} qn={eng.qn} "
+            f"{'interpolated' if eng.interp else 'reduced'} steady K={K}")
 
 
 def phase_kernel_vs_plain(dev, n_target=1 << 22):
@@ -308,31 +340,40 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
     return worst
 
 
-def phase_roundtrip(dev, seconds=60):
-    """The 60 s round trip through the headline path.  Returns K1's launch
-    count during it."""
+def phase_roundtrip(dev, seconds=60, precise=False):
+    """The 60 s round trip through the headline path in the ``precise``
+    tier.  Returns (K1's launch count during it, the diff RMS in dB)."""
+    inst = k1.instance(torch.float32, bool(precise))
     _reset_launches()
     t0 = time.perf_counter()
-    rt = roundtrip.roundtrip_diff_db(seconds, dev)
+    rt = roundtrip.roundtrip_diff_db(seconds, dev, precise=precise)
     secs = time.perf_counter() - t0
     launches = k1.launches
-    rt_cpu = roundtrip.roundtrip_diff_db(seconds, "cpu")
-    print(f"  round trip {seconds} s stereo: {rt['diff_db']:.2f} dB on "
-          f"{dev} (K1, {secs:.2f} s wall incl. matrix builds), "
-          f"{rt_cpu['diff_db']:.2f} dB on cpu (plain path); output frames "
-          f"{rt['frames']} vs {rt_cpu['frames']}")
-    print(f"  K1 launches {launches}, process()/process_flat_out()/flush() "
-          f"calls {rt['calls']}")
+    mine = k1.instance_launches[inst]
+    rt_cpu = roundtrip.roundtrip_diff_db(seconds, "cpu", precise=precise)
+    print(f"  round trip {seconds} s stereo, precise={precise!r}: "
+          f"{rt['diff_db']:.2f} dB on {dev} (K1 {inst}, {secs:.2f} s wall "
+          f"incl. matrix builds), {rt_cpu['diff_db']:.2f} dB on cpu (plain "
+          f"path); output frames {rt['frames']} vs {rt_cpu['frames']}")
+    print(f"  K1 launches {launches} ({inst}: {mine}), "
+          f"process()/process_flat_out()/flush() calls {rt['calls']}")
     _require(rt["frames"] == rt_cpu["frames"], "output counts differ")
     _require(rt["diff_db"] <= -130.0, "round trip above -130 dB")
-    # one-sided: K1 sums each dot in blocks of 32 terms and lands below the
-    # CPU's sgemm order; the gate catches a kernel path that is worse
-    # (a TF32 leak would land far above -100 dB)
-    _require(rt["diff_db"] <= rt_cpu["diff_db"] + 3.0,
-             "kernel-path round trip more than 3 dB above the plain path")
-    _require(dev.type != "cuda" or launches == rt["calls"] > 0,
+    if precise:
+        # each dot rounded once on both sides: the readings agree
+        _require(abs(rt["diff_db"] - rt_cpu["diff_db"]) <= 0.1,
+                 f"precise={precise!r} round trip more than 0.1 dB from "
+                 "its plain reading")
+    else:
+        # one-sided: K1 sums each dot in blocks of 32 terms and lands below
+        # the CPU's sgemm order; the gate catches a kernel path that is
+        # worse (a TF32 leak would land far above -100 dB)
+        _require(rt["diff_db"] <= rt_cpu["diff_db"] + 3.0,
+                 "kernel-path round trip more than 3 dB above the plain "
+                 "path")
+    _require(dev.type != "cuda" or launches == mine == rt["calls"] > 0,
              "K1 launches != dispatching calls")
-    return launches
+    return launches, rt["diff_db"]
 
 
 def _time_ms(dev, fn, reps):
@@ -479,7 +520,7 @@ def k1_checksum(dev, n_target=1 << 22):
 def k1_checksum_interp(dev, n_target=1 << 22):
     """sha256 of K1's output bytes on BASELINE config 1's steady
     interpolated chunk (mono, 4,194,351 frames in, std-0.5 noise)."""
-    eng, n, K, start, P2, fracv, kw = _interp_chunk(dev, n_target)
+    eng, n, K, start, P2, fracv, kw = _steady_chunk(INTERP, dev, n_target)
     rng = np.random.default_rng(4343)
     buf = torch.from_numpy(rng.normal(0, 0.5, (1, eng.num_samples + n))
                            .astype(np.float32)).to(dev)
@@ -501,9 +542,10 @@ def k1_checksums(dev):
     print(f"K6 main-path call sha256 {k1_checksum_poly(dev)}")
 
 
-def _noise_dev(dev, shape, seed, scale=0.5):
+def _noise_dev(dev, shape, seed, scale=0.5, dtype=torch.float32):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+    return torch.randn(shape, generator=gen, device=dev,
+                       dtype=dtype).mul_(scale)
 
 
 def _sync(dev):
@@ -602,27 +644,41 @@ def phase_interp_path(dev, n_target=1 << 22, G=16):
 
 def _host_quantize(x, scaler, hi, lo):
     """The reference's double rounding on the host: code = fl32(x *
-    fl32(scaler)), floor(float64(code) + 0.5), clip; and the clip count."""
-    code = (x.astype(np.float64) * np.float64(np.float32(scaler))) \
-        .astype(np.float32)
-    ov = np.floor(code.astype(np.float64) + 0.5)
+    fl32(scaler)) for float32 samples, x * scaler for float64 ones, then
+    floor(float64(code) + 0.5), clip; and the clip count."""
+    if x.dtype == np.float64:
+        code = x * np.float64(scaler)
+    else:
+        code = (x.astype(np.float64) * np.float64(np.float32(scaler))) \
+            .astype(np.float32).astype(np.float64)
+    # floor(code + 0.5) with the sum taken exactly (JAX's rule for float64
+    # codes, equal to it for float32 ones)
+    f = np.floor(code)
+    ov = f + (code - f >= 0.5)
     return np.clip(ov, lo, hi).astype(np.int64), int(((ov > hi)
                                                       | (ov < lo)).sum())
 
 
-def phase_group_forms(dev, n_target=1 << 22, G=8):
-    """The headline group forms against sequential process() on the card
-    (preset -3, 2 ch, G=8 chunks of 4,194,351 frames, as bench.py:386-421
-    sets them up).  Returns K1's launches over the five engines' runs."""
-    engs = [_engine(44100, 48000, dev) for _ in range(5)]
+def phase_group_forms(dev, n_target=1 << 22, G=8, ctor=HEAD, **opts):
+    """The group forms against sequential process() on the card, by
+    default the headline's (preset -3, 2 ch, G=8 chunks of 4,194,351
+    frames, as bench.py:386-421 sets them up); ``opts`` (dtype, precise)
+    pick the tier.  Returns K1's launches over the six engines' runs."""
+    engs = []
+    for _ in range(6):
+        eng = DeviceStreamResampler(*ctor, device=dev, **opts)
+        eng.advance_position(ctor[1] // 2)
+        engs.append(eng)
+    ch, tdt = ctor[0], engs[0].hist.dtype
+    inst = k1.instance(tdt, bool(opts.get("precise")))
     n = roundtrip.m_multiple(n_target, engs[0].M)
-    first = _noise_dev(dev, (2, n), 41)
-    xs = _noise_dev(dev, (G, 2, n), 42)
+    first = _noise_dev(dev, (ch, n), 41, dtype=tdt)
+    xs = _noise_dev(dev, (G, ch, n), 42, dtype=tdt)
     flat = torch.cat(list(xs), dim=1)
     for e in engs:
         e.prewarm()
         e.process(first, n)
-    a, b, c, d, e = engs
+    a, b, c, d, e, f = engs
     counts = {}
 
     def run(name, fn):
@@ -630,10 +686,13 @@ def phase_group_forms(dev, n_target=1 << 22, G=8):
         r = fn()
         _sync(dev)
         counts[name] = k1.launches
+        _require(dev.type != "cuda"
+                 or k1.instance_launches[inst] == k1.launches,
+                 f"{name} launched another K1 instance than {inst}")
         return r
 
     def sequential():
-        acc, valid, Ks = torch.zeros((), device=dev), [], []
+        acc, valid, Ks = torch.zeros((), dtype=tdt, device=dev), [], []
         for x in xs:
             o, K, acc = a.process(x, n, acc)
             valid.append(o[:, :K])
@@ -642,9 +701,11 @@ def phase_group_forms(dev, n_target=1 << 22, G=8):
 
     valid, Ks, acc_a = run("process() x G", sequential)
     Ks_b, acc_b = run("process_flat", lambda: b.process_flat(
-        flat, n, torch.zeros((), device=dev)))
+        flat, n, torch.zeros((), dtype=tdt, device=dev)))
     out_c, Ks_c = run("process_flat_out", lambda: c.process_flat_out(
         flat, n))
+    outs_f, Ks_f, acc_f = run("process_scan", lambda: f.process_scan(
+        xs, n, torch.zeros((), dtype=tdt, device=dev)))
     zi = torch.zeros((), dtype=torch.int32, device=dev)
     packed = {}
     for eng, scaler in ((d, 32768.0), (e, 32768.0 * 1.37)):
@@ -657,10 +718,17 @@ def phase_group_forms(dev, n_target=1 << 22, G=8):
                and b.get_position() == a.get_position())
     ok_out = (list(Ks_c) == Ks and torch.equal(out_c, valid)
               and torch.equal(c.hist, a.hist))
-    print(f"  sequential: Ks {Ks[0]} x {G}, acc {float(acc_a):.6e}; "
-          f"process_flat bitwise (hist, acc, Ks, position) {ok_flat}; "
-          f"process_flat_out bitwise {ok_out}")
-    _require(ok_flat and ok_out, "group forms vs sequential process()")
+    ok_scan = (list(Ks_f) == Ks and torch.equal(acc_f, acc_a)
+               and torch.equal(f.hist, a.hist)
+               and torch.equal(torch.cat([o[:, :K] for o, K in zip(outs_f,
+                                                                   Ks)], 1),
+                               valid))
+    print(f"  {inst}, {ch} ch x {n} frames: sequential Ks {Ks[0]} x {G}, acc "
+          f"{float(acc_a):.6e}; process_flat bitwise (hist, acc, Ks, "
+          f"position) {ok_flat}; process_flat_out bitwise {ok_out}; "
+          f"process_scan bitwise (outs, hist, acc) {ok_scan}")
+    _require(ok_flat and ok_out and ok_scan,
+             "group forms vs sequential process()")
     x = out_c.cpu().numpy()
     for scaler, (pk, Ks_p, clips) in packed.items():
         ov, nclip = _host_quantize(x, scaler, 32767, -32768)
@@ -673,8 +741,8 @@ def phase_group_forms(dev, n_target=1 << 22, G=8):
                  f"packed scaler {scaler:g}")
     # one launch per chunk where the power is summed chunk by chunk, one
     # per group where the group's blocks are one launch
-    want = {k: G if k in ("process() x G", "process_flat") else 1
-            for k in counts}
+    want = {k: G if k in ("process() x G", "process_flat", "process_scan")
+            else 1 for k in counts}
     print(f"  K1 launches: {counts} (design: {want})")
     _require(dev.type != "cuda" or counts == want,
              "group-form K1 launches != design")
@@ -697,7 +765,7 @@ def _plan_group_us(eng, flat, n):
 
 
 def _group_rate(dev, tag, label, ctor, n_target, G, form, groups=1,
-                aggregate_rows=False, windows=3):
+                aggregate_rows=False, windows=3, **opts):
     """Output frames/s of a group form as bench._bench_device_fixed
     measures it: the first chunk absorbed by process(), then ``groups``
     groups of G chunks per window ending in one sync, median of
@@ -706,20 +774,22 @@ def _group_rate(dev, tag, label, ctor, n_target, G, form, groups=1,
     process_flat refuses (an interpolated pattern whose float64 drift
     since its last fresh build passed PATTERN_TOL inside the group) runs
     through process_scan(stats=True), as bench.py's mode fallback does;
-    such groups are counted and printed."""
-    eng = DeviceStreamResampler(*ctor, device=dev)
+    such groups are counted and printed.  ``opts`` (dtype, precise) pick
+    the tier."""
+    eng = DeviceStreamResampler(*ctor, device=dev, **opts)
     eng.advance_position(ctor[1] // 2)
     eng.prewarm()
     n = roundtrip.m_multiple(n_target, eng.M)
     ch = ctor[0]
-    flat = _noise_dev(dev, (ch, G * n), 51, 0.25)
+    flat = _noise_dev(dev, (ch, G * n), 51, 0.25, dtype=eng.hist.dtype)
     xs = flat.view(ch, G, n).transpose(0, 1)
     eng.process(flat[:, :n], n)
     zi = torch.zeros((), dtype=torch.int32, device=dev)
     scanned = [0]
 
     def run():
-        produced, acc, clips, out = 0, torch.zeros((), device=dev), zi, None
+        produced, clips, out = 0, zi, None
+        acc = torch.zeros((), dtype=eng.hist.dtype, device=dev)
         for _ in range(groups):
             if form == "stats":
                 try:
@@ -782,7 +852,7 @@ def phase_interp_timing(dev, tag, reps=20):
     """K1 (kernel only) on BASELINE config 1's steady interpolated chunk
     against its plain version, in turns, with its bound.  Returns the
     medians and the bound."""
-    eng, n, K, start, P2, fracv, kw = _interp_chunk(dev, 1 << 22)
+    eng, n, K, start, P2, fracv, kw = _steady_chunk(INTERP, dev, 1 << 22)
     buf = _noise_dev(dev, (1, eng.num_samples + n), 61)
     M, L, nb, qn = kw["M"], kw["L"], kw["nb"], kw["qn"]
     med = _time_in_turns(dev, {
@@ -832,6 +902,180 @@ def phase_polyphase_timing(dev, tag, reps=10):
     print(f"  polyphase_apply bound {med['bound'][0]:.4f} ms "
           f"({med['bound'][1]}-bound)")
     return med
+
+
+# ------------------------------------------------------- precision tiers
+def _ulps(out, ref):
+    """The largest |out - ref| in float32 ulps of ref (ref float32), and
+    how many samples differ at all."""
+    up = torch.nextafter(ref.abs(), torch.tensor(float("inf"),
+                                                 device=ref.device))
+    ulp = (up - ref.abs()).double()
+    d = (out.double() - ref.double()).abs()
+    return float((d / ulp).max()), int((out != ref).sum())
+
+
+def _tier_chunks(dev, n_target):
+    """(label, ctor, n_target, instances) of the tier cases at full width:
+    the preset -3 chunk and config 1's interpolated chunk on the
+    precise instance, config 4's float64 chunk, and the column-piece
+    shapes (M=2560) on the two new instances (phase 3 runs them on the
+    float32 one)."""
+    cases = [("preset -3 44.1k->48k", HEAD, n_target, ("f32_acc64",)),
+             ("config 1 interpolated", INTERP, n_target, ("f32_acc64",)),
+             ("config 4 (5.1 ch, 48k->44.1k)", CONFIG4, 1 << 19, ("f64",))]
+    for taps, src, dst in _LARGE_M[2:]:
+        cases.append((f"preset {-1 if taps == 48 else -3} {src / 1000:g}k->"
+                      f"{dst / 1000:g}k", (2, taps, taps, src, dst, 0, FLAGS),
+                      n_target, ("f32_acc64", "f64")))
+    return cases
+
+
+def phase_tier_kernels(dev, n_target=1 << 22):
+    """Each K1 instance of the precision tiers against its float64 plain
+    version at full width: the precise instance within 1 float32 ulp of
+    the float64 dots rounded once (the count of samples that differ
+    printed; 0 expected), the float64 one within 1e-12, float32 within
+    1e-5; a zero tail past K and the new history bitwise.  Returns the
+    largest error of each instance against its plain version."""
+    rng = np.random.default_rng(6060)
+    worst = {"f32": 0.0, "f32_acc64": 0.0, "f64": 0.0}
+    for label, ctor, n_t, insts in _tier_chunks(dev, n_target):
+        for inst in insts:
+            dt = np.float64 if inst == "f64" else np.float32
+            precise = inst == "f32_acc64"
+            eng, n, K, start, P, fracv, kw = _steady_chunk(
+                ctor, dev, n_t, dtype=dt, precise=precise)
+            ch = ctor[0]
+            hist, x = (torch.from_numpy(rng.normal(0, 0.5, shape).astype(dt))
+                       .to(dev) for shape in ((ch, eng.num_samples),
+                                              (ch, n)))
+            acc = torch.zeros((), dtype=hist.dtype, device=dev)
+            tile = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None,
+                                  dtype=hist.dtype, precise=precise)
+            h, out, _ = k1.fixed_step(hist, x, P, start, K, acc, fracv=fracv,
+                                      precise=precise, **kw)
+            hp, ref, _ = k1.fixed_step_reference(
+                hist, x, P, start, K, acc, fracv=fracv, precise=precise, **kw)
+            _, o64, _ = k1.fixed_step_reference(
+                _f64(hist), _f64(x), _f64(P), start, K, acc.double(),
+                fracv=_f64(fracv), **kw)
+            err = float((out.double() - ref.double()).abs().max())
+            err64 = float((out.double() - o64).abs().max())
+            ok = (bool(torch.isfinite(out).all()) and not out[:, K:].any()
+                  and torch.equal(h, hp))
+            if inst == "f32_acc64":
+                ulps, ndiff = _ulps(out, ref)
+                note = (f"{ulps:.2f} ulp of the float64 dots rounded once, "
+                        f"{ndiff} of {out.numel()} samples differ")
+                ok &= ulps <= 1.0
+            else:
+                note = f"max|K1 - f64 plain| {err64:.3e}"
+                ok &= err64 <= (1e-12 if inst == "f64" else 1e-5)
+            print(f"  {inst} {label} M={kw['M']} qn={kw['qn']}"
+                  f"{' interpolated' if fracv is not None else ''} K={K}: "
+                  f"tile {tile[0]} blocks x P pieces of {tile[1]} rows, "
+                  f"{tile[2]} B shared; {note}; max|K1 - its plain| "
+                  f"{err:.3e}; tail zero and new_hist bitwise {ok}")
+            _require(ok, f"K1 {inst} vs plain, {label}")
+            worst[inst] = max(worst[inst], err)
+    return worst
+
+
+def phase_tier_paths(dev, seconds=60, n_targets=(1 << 22, 1 << 19)):
+    """The tiers' engine paths on the card, the counts set to 0 before
+    each and read after it: precise="int8" through bench.py's headline
+    sequence (the first chunk by process(), then G=8 chunks of 4,194,351
+    frames through process_flat_out, and every other group form, each
+    bitwise equal to sequential process()); config 4's float64 data
+    through process() and every group form, process_flat_packed's bytes
+    equal to quantizing those samples on the host; the 60 s round trip in
+    precise=True and precise="int8" against the plain path's readings.
+    Returns ({instance: launches}, {tier: round-trip dB})."""
+    launches = {"f32_acc64": 0, "f64": 0}
+    launches["f32_acc64"] += phase_group_forms(dev, n_targets[0],
+                                               precise="int8")
+    launches["f64"] += phase_group_forms(dev, n_targets[1], ctor=CONFIG4,
+                                         dtype=np.float64)
+    db = {}
+    for precise in (True, "int8"):
+        n, db[precise] = phase_roundtrip(dev, seconds, precise=precise)
+        launches["f32_acc64"] += n
+    return launches, db
+
+
+def phase_tier_timing(dev, tag, reps=10, n_targets=(1 << 22, 1 << 19)):
+    """Each new instance beside the float32 instance at the same shape,
+    with its plain version and one conv1d on float64 operands (the
+    library yardstick), in turns: the precise instance on the preset -3
+    chunk, the float64 one on config 4's chunk; then process_flat_out's
+    rate in the int8 and the float64 tier.  Returns {instance: (ms,
+    plain_ms, bound, library_ms)}."""
+    result = {}
+    for inst, ctor, n_target in (("f32_acc64", HEAD, n_targets[0]),
+                                 ("f64", CONFIG4, n_targets[1])):
+        dt = np.float64 if inst == "f64" else np.float32
+        precise = inst == "f32_acc64"
+        eng, n, K, start, P, fracv, kw = _steady_chunk(
+            ctor, dev, n_target, dtype=dt, precise=precise)
+        ch = ctor[0]
+        tdt = eng.hist.dtype
+        hist = _noise_dev(dev, (ch, eng.num_samples), 71, dtype=tdt)
+        x = _noise_dev(dev, (ch, n), 72, dtype=tdt)
+        zero = torch.zeros((), dtype=tdt, device=dev)
+        KQ = kw["qn"] * kw["M"]
+        win = window_and_hist(x, hist, start, (kw["nb"] - 1) * kw["M"] + KQ,
+                              kw["hist_len"])[0][:, None, :].double() \
+            .contiguous()
+        weight = P.T[:, None, :].double().contiguous()
+
+        def conv():
+            return torch.nn.functional.conv1d(win, weight, stride=kw["M"])
+
+        ref = k1.fixed_step_reference(hist, x, P, start, K, zero,
+                                      precise=precise, **kw)[1]
+        conv_out = conv().transpose(1, 2).reshape(ref.shape)[:, :K]
+        conv_err = float((conv_out.to(tdt) - ref[:, :K]).abs().max())
+        print(f"  conv1d float64 yardstick vs {inst} plain step: max abs "
+              f"diff {conv_err:.3e}")
+        _require(conv_err <= (1e-12 if inst == "f64" else 1e-6),
+                 "conv1d yardstick computes another function")
+        # the float32 instance on float32 data of the same shape
+        h32, x32, P32 = hist.float(), x.float(), P.float()
+        z32 = zero.float()
+        buf = torch.cat([hist, x], dim=1)
+        variants = {
+            f"K1 step {inst}": lambda: k1.fixed_step(
+                hist, x, P, start, K, zero, precise=precise, **kw),
+            f"K1 step f32, same shape": lambda: k1.fixed_step(
+                h32, x32, P32, start, K, z32, **kw),
+            f"plain step {inst}": lambda: k1.fixed_step_reference(
+                hist, x, P, start, K, zero, precise=precise, **kw),
+            "conv1d float64 library": conv,
+            f"K1 kernel only {inst}": lambda: k1.fixed_step_kernel(
+                buf, P, start, K, M=kw["M"], L=kw["L"], nb=kw["nb"],
+                qn=kw["qn"], precise=precise),
+        }
+        names = list(variants)
+        order = [names[2], names[0], names[4], names[1], names[3], names[3],
+                 names[1], names[4], names[0], names[2]]
+        med = _time_in_turns(dev, variants, order, reps,
+                             f"per {ch} x {n}-frame chunk", tag)
+        w = 8 if inst == "f64" else 4
+        # each output's num_taps FMAs, in float64, on the FP64 rate
+        bound = _bound_ms(
+            w * (2 * ch * eng.num_samples + ch * n + P.numel()
+                 + ch * kw["nb"] * kw["L"]), 2 * ch * K * eng.num_taps,
+            PEAK_F64)
+        print(f"  K1 {inst} bound {bound[0]:.4f} ms ({bound[1]}-bound, "
+              f"FP64 at {PEAK_F64 / 1e12:g} TFLOP/s)")
+        result[inst] = (med.get(names[0]), med[names[2]], bound,
+                        med.get(names[3]))
+    _group_rate(dev, tag, "preset -3 precise='int8' process_flat_out", HEAD,
+                n_targets[0], 8, "delivered", groups=2, precise="int8")
+    _group_rate(dev, tag, "config 4 float64 process_flat_out", CONFIG4,
+                n_targets[1], 8, "delivered", groups=2, dtype=np.float64)
+    return result
 
 
 # ------------------------------------------------------------------ ASRC
@@ -953,6 +1197,8 @@ def phase_asrc_kernels_vs_plain(dev, n=ASRC_N):
 def _reset_launches():
     k1.launches = 0
     k1.polyphase_launches = 0
+    for name in k1.instance_launches:
+        k1.instance_launches[name] = 0
     for name in kasrc.launches:
         kasrc.launches[name] = 0
 
@@ -1155,7 +1401,7 @@ def main(argv) -> int:
     print("phase 6: fixed-ratio paths: the 60 s round trip through the "
           "headline path, BASELINE config 1 through every form, the "
           "headline group forms against sequential process()")
-    fixed = {"round trip": phase_roundtrip(dev),
+    fixed = {"round trip": phase_roundtrip(dev)[0],
              "config 1": phase_interp_path(dev),
              "group forms": phase_group_forms(dev)}
     launches["fixed_step"] = sum(fixed.values())
@@ -1173,6 +1419,20 @@ def main(argv) -> int:
     phase_group_throughput(dev, tag)
     poly = phase_polyphase_timing(dev, tag)
     timed = phase_asrc_throughput(dev, tag)
+    print("phase 9: precision tiers, K1's instances vs plain PyTorch on the "
+          "card")
+    tier_err = phase_tier_kernels(dev)
+    print("phase 10: precision tiers' paths: precise='int8' through the "
+          "headline sequence and every group form, config 4's float64 data, "
+          "the round trip in precise=True and 'int8'")
+    tier_launches, tier_db = phase_tier_paths(dev)
+    print(f"  K1 launches on the tiers' paths: {tier_launches}; round trip "
+          f"precise=True {tier_db[True]:.2f} dB, 'int8' "
+          f"{tier_db['int8']:.2f} dB")
+    _require(dev.type != "cuda" or all(tier_launches.values()),
+             "a tier's K1 instance was not launched on its path")
+    print("phase 11: precision tiers' throughput")
+    tier_timed = phase_tier_timing(dev, tag)
     src = "art_tpu_torch/csrc/"
     pk = "art_tpu/ops/pallas_kernels.py:"
     kernels = [_kernel_entry(
@@ -1191,6 +1451,13 @@ def main(argv) -> int:
         launches["polyphase_apply"], worst["polyphase_apply"],
         poly["K6 kernel"], poly["K6 plain"], poly["bound"],
         poly["conv1d library"]))
+    # JAX computes the tiers as XLA dots (residue_window_dots, precise)
+    for inst in ("f32_acc64", "f64"):
+        ms, plain_ms, bound, lib_ms = tier_timed[inst]
+        kernels.append(_kernel_entry(
+            f"fixed_step_{inst}", src + "fixed_step.cu",
+            "art_tpu/parallel/pipeline.py:39", tier_launches[inst],
+            tier_err[inst], ms, plain_ms, bound, lib_ms))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,9 @@ them they skip.  Run them on the card with
 Tolerance: 1e-5 abs against the plain version evaluated in float64 on the
 same float32 inputs (std-0.5 noise); the kernel's float32 FMA order differs
 from any other, so the bound is the float32 contraction class, not a bit
-pattern.  The new history is a copy and must be bitwise equal."""
+pattern.  The precision tiers' instances: the precise one within 1 float32
+ulp of the float64 dots rounded once, the float64 one within 1e-12.  The
+new history is a copy and must be bitwise equal."""
 
 import numpy as np
 import pytest
@@ -315,21 +317,24 @@ def test_asrc_engine_on_card_matches_cpu_engine(dtype, kernel, tol):
 
 # ------------------------------------------------ K1 at large M, K6, groups
 # K1 picks a smaller row tile and stages P in pieces where the 128-block
-# tile does not fit 227 KB of shared memory (csrc/fixed_step.cu header).
+# tile does not fit 227 KB of shared memory, and the window in column
+# pieces where no whole window tile fits (csrc/fixed_step.cu header).
 WIDE = {   # (taps, filters, src, dst, flags): M, mode
     "p2-96k-44k": (156, 320, 96000, 44100, IB),          # 320, reduced
     "p3-192k-44k": (380, 380, 192000, 44100, IB),        # 640, reduced
     "p1-96k-44k": (48, 48, 96000, 44100, IB),            # 320, interpolated
     "p1-192k-44k": (48, 48, 192000, 44100, IB),          # 640, interpolated
+    "p3-192k-11k": (380, 380, 192000, 11025, IB),        # 2560, reduced
+    "p1-192k-11k": (48, 48, 192000, 11025, IB),          # 2560, interpolated
 }
 
 
-def _wide_case(name, dev, n_periods=40, seed=0):
+def _wide_case(name, dev, n_periods=40, seed=0, dtype=np.float32):
     """A steady chunk of a real engine plan: (hist, x, P, fracv, start, K,
     kw) on ``dev``; the plan and matrices come from a CPU engine."""
     taps, filt, src, dst, flags = WIDE[name]
     eng = DeviceStreamResampler(2, taps, filt, src, dst, 0, flags,
-                                device="cpu")
+                                dtype=dtype, device="cpu")
     eng.advance_position(taps // 2)
     n = n_periods * eng.M
     eng._plan(n)
@@ -340,7 +345,7 @@ def _wide_case(name, dev, n_periods=40, seed=0):
     else:
         P, fracv = eng._matrix(j0), None
     rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    t = lambda a: torch.from_numpy(a.astype(dtype)).to(dev)
     hist = t(rng.normal(0, 0.5, (2, eng.num_samples)))
     x = t(rng.normal(0, 0.5, (2, n)))
     kw = dict(M=eng.M, L=eng.L, nb=nb, qn=eng.qn, hist_len=eng.num_samples)
@@ -352,7 +357,7 @@ def _wide_case(name, dev, n_periods=40, seed=0):
 def test_kernel_large_M_matches_plain(name):
     dev = _card()
     hist, x, P, fracv, start, K, kw = _wide_case(name, dev)
-    assert kw["M"] in (320, 640)
+    assert kw["M"] in (320, 640, 2560)
     bm, pr, smem = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None)
     assert bm in (32, 64, 128) and 0 < pr <= kw["M"] and smem <= 227 * 1024
     acc = torch.zeros((), device=dev)
@@ -366,13 +371,136 @@ def test_kernel_large_M_matches_plain(name):
 
 
 def test_kernel_tile_refuses_and_names_a_shape_too_large():
+    """Every M fits: where no whole window tile does, the window comes in
+    column pieces beside P's (M = 2560 at 192k->11.025k, M = 4000), so
+    kernel_tile refuses, naming it, only a shape no launch takes."""
     _card()
-    with pytest.raises(ValueError, match="M=4000, qn=2"):
-        k1.kernel_tile(4000, 2, False)
+    with pytest.raises(ValueError, match="M=0, qn=2"):
+        k1.kernel_tile(0, 2, False)
+    for M, interp in ((4000, False), (2560, False), (2560, True)):
+        for dtype, precise in ((torch.float32, False), (torch.float32, True),
+                               (torch.float64, False)):
+            bm, pr, smem = k1.kernel_tile(M, 2, interp, dtype=dtype,
+                                          precise=precise)
+            assert bm in (32, 64, 128) and pr % 32 == 0 and 0 < pr < M
+            assert smem <= 227 * 1024
+    # 128 window rows x (352 | 1) + 352 x 32 floats and the reduction
+    assert k1.kernel_tile(2560, 2, False) == (128, 352, 225856)
     # the main path keeps the 128-block tile and whole P slices, two
     # buffers of them: (131 rows x 147 + pad) + 2 x 147 x 32 floats and
-    # the hull's 64-byte reduction
+    # the hull's 64-byte reduction; the precise instance stages the same
     assert k1.kernel_tile(147, 4, False) == (128, 147, 114736)
+    assert k1.kernel_tile(147, 4, False, precise=True) == (128, 147, 114736)
+    # config 4's float64 shape: one buffer of a whole 160-row slice
+    assert k1.kernel_tile(160, 4, False, dtype=torch.float64) == (
+        128, 160, 209760)
+
+
+# the precision tiers' instances: (dtype, precise, name)
+TIER_INSTANCES = {"f32_acc64": (np.float32, True),
+                  "f64": (np.float64, False)}
+
+
+@pytest.mark.parametrize("name", ["p3-192k-11k", "p1-192k-11k",
+                                  "p2-96k-44k", "p1-96k-44k"])
+@pytest.mark.parametrize("inst", list(TIER_INSTANCES))
+def test_kernel_instances_match_plain(inst, name):
+    """The precise instance within 1 float32 ulp of the float64 dots
+    rounded once (its plain version), the float64 one within 1e-12 of its
+    plain version; one launch of that instance, a zero tail past K, the
+    new history bitwise."""
+    dev = _card()
+    dtype, precise = TIER_INSTANCES[inst]
+    hist, x, P, fracv, start, K, kw = _wide_case(name, dev, dtype=dtype)
+    acc = torch.zeros((), dtype=hist.dtype, device=dev)
+    before = dict(k1.instance_launches)
+    h, o, _ = k1.fixed_step(hist, x, P, start, K, acc, fracv=fracv,
+                            precise=precise, **kw)
+    torch.cuda.synchronize()
+    assert k1.instance_launches[inst] == before[inst] + 1
+    assert o.dtype == hist.dtype
+    hr, orf, _ = k1.fixed_step_reference(hist, x, P, start, K, acc,
+                                         fracv=fracv, precise=precise, **kw)
+    if precise:
+        ulp = (torch.nextafter(orf.abs(), torch.full_like(orf, np.inf))
+               - orf.abs()).double()
+        assert float(((o.double() - orf.double()).abs() / ulp).max()) <= 1
+    else:
+        assert float((o - orf).abs().max()) <= 1e-12
+    assert not o[:, K:].any()
+    assert torch.equal(h, hr)
+
+
+@pytest.mark.parametrize("method", ["process_scan", "process_flat",
+                                    "process_flat_out",
+                                    "process_flat_packed"])
+@pytest.mark.parametrize("tier", ["int8", "f64"])
+@pytest.mark.parametrize("mode", ["reduced", "interp"])
+def test_tier_group_forms_bitwise_equal_sequential_on_card(mode, tier,
+                                                           method):
+    """On the card, each group form of a precision tier against sequential
+    process(): Ks, position and history equal, outputs and the power sum
+    bitwise, packed bytes equal to quantizing the sequential samples on
+    the host; the tier's instance launched, no other."""
+    dev = _card()
+    ctor = GROUP_CTORS[mode]
+    opts = dict(precise="int8") if tier == "int8" else dict(dtype=np.float64)
+    inst = "f32_acc64" if tier == "int8" else "f64"
+    a, b = (DeviceStreamResampler(*ctor, device=dev, **opts)
+            for _ in range(2))
+    for e in (a, b):
+        e.advance_position(ctor[1] // 2)
+    G, ch, n = 3, ctor[0], 50 * a.M
+    rng = np.random.default_rng(22)
+    xs = torch.from_numpy(rng.normal(0, 0.7, (G + 1, ch, n))).to(
+        a.hist.dtype).to(dev)
+    for e in (a, b):
+        e.process(xs[0], n)
+    zero = torch.zeros((), dtype=a.hist.dtype, device=dev)
+    acc_a, outs, Ks = zero, [], []
+    for x in xs[1:]:
+        o, K, acc_a = a.process(x, n, acc_a)
+        outs.append(o)
+        Ks.append(K)
+    flat = torch.cat(list(xs[1:]), dim=1)
+    before = dict(k1.instance_launches)
+    if method == "process_scan":
+        o_b, Ks_b, acc_b = b.process_scan(xs[1:], n, zero)
+        assert torch.equal(acc_b, acc_a)
+        for g in range(G):
+            assert torch.equal(o_b[g], outs[g])
+        want = G
+    elif method == "process_flat":
+        Ks_b, acc_b = b.process_flat(flat, n, zero)
+        assert torch.equal(acc_b, acc_a)
+        want = G
+    else:
+        valid = torch.cat([o[:, :K] for o, K in zip(outs, Ks)], dim=1)
+        if method == "process_flat_out":
+            o_b, Ks_b = b.process_flat_out(flat, n)
+            assert torch.equal(o_b, valid)
+        else:
+            sc = 32768.0 * 1.37
+            packed, Ks_b, clips = b.process_flat_packed(
+                flat, n, torch.zeros((), dtype=torch.int32, device=dev),
+                scaler=sc, highclip=32767, lowclip=-32768)
+            v = valid.cpu().numpy()
+            code = v * sc if v.dtype == np.float64 else (
+                v.astype(np.float64) * np.float64(np.float32(sc))).astype(
+                np.float32).astype(np.float64)
+            f = np.floor(code)
+            ov = f + (code - f >= 0.5)
+            want_b = np.clip(ov, -32768, 32767).astype("<i2")
+            assert np.array_equal(packed.cpu().numpy().view(np.uint8),
+                                  want_b.view(np.uint8))
+            assert int(clips) == int(((ov > 32767) | (ov < -32768)).sum())
+        want = 1
+    torch.cuda.synchronize()
+    after = {k: v - before[k] for k, v in k1.instance_launches.items()}
+    assert after == {k: want if k == inst else 0 for k in after}
+    assert list(Ks_b) == Ks
+    assert b.get_position() == a.get_position()
+    assert torch.equal(b.hist, a.hist)
 
 
 @pytest.mark.parametrize("nb_pad", [1024, 37])

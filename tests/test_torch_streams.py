@@ -184,11 +184,20 @@ def test_cuda_request_without_card_raises():
                               device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(dtype=np.float64), dict(precise=True), dict(precise="int8"),
-    dict(mesh=object())])
-def test_out_of_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kwargs,exc,match", [
+    pytest.param(dict(dtype=np.float64, precise="int8"), ValueError, "f32",
+                 id="kwargs0"),
+    pytest.param(dict(precise=True, pallas_step=True), ValueError, "precise",
+                 id="kwargs1"),
+    pytest.param(dict(precise="int8", mesh=object()), NotImplementedError,
+                 "single-shard", id="kwargs2"),
+    pytest.param(dict(mesh=object()), NotImplementedError, "ROADMAP",
+                 id="kwargs3")])
+def test_out_of_slice_options_raise(kwargs, exc, match):
+    """The options the engine refuses: the precision tiers' gates, copied
+    from JAX (int8 is float32-only and single-shard, no tier with the
+    Pallas body), and mesh= (ROADMAP item 11)."""
+    with pytest.raises(exc, match=match):
         DeviceStreamResampler(2, 380, 380, 44100, 48000, 0, IB,
                               device="cpu", **kwargs)
 
