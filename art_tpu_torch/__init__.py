@@ -13,7 +13,11 @@ Ported so far: the fixed-ratio streaming resampler, reduced and
 interpolated, in every precision tier (``DeviceStreamResampler``, chunk step
 on kernel K1, ``ops/fixed_step.py``) and the batched drifting-ratio ASRC (``BatchedASRC`` and its artest
 adapter ``ASRCStreamResampler``, on the ASRC kernels of
-``ops/asrc_step.py``).  See ROADMAP.md for what is still to come.
+``ops/asrc_step.py``), and the command lines ``art`` and ``artest``
+(``python -m art_tpu_torch.cli.art``, ``--backend=cuda``) on the file
+pipeline's ``HybridStreamResampler`` and copies of the host engines
+(``engines/``, ``io/``, ``native/``).  See ROADMAP.md for what is still to
+come.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from .core.flags import *  # noqa: F401,F403
 
 from ._device import pin_ieee_fp32, resolve_device  # noqa: F401
 from .parallel.asrc import ASRCStreamResampler, BatchedASRC  # noqa: F401
-from .parallel.streams import DeviceStreamResampler  # noqa: F401
+from .parallel.streams import (DeviceStreamResampler,  # noqa: F401
+                               HybridStreamResampler)
 
 pin_ieee_fp32()
 

@@ -24,13 +24,9 @@ reference performs in C doubles; the only tolerated divergence is sub-ULP
 (ring slides shift both sides of the reference's comparisons by the same
 exact integer, which can perturb a rounding at an exact tie).
 
-A copy of the part of ``art_tpu/core/accounting.py`` that the port's
-engines need (``ProcessPlan``, ``snap_offset``, ``ring_floor``,
-``_count_emissions``, ``plan_process``, and ``ring_positions`` for the
-interpolated mode's pattern oracle), unchanged, so that the port imports
-nothing of the JAX package and its counts and positions stay bitwise equal
-to the JAX engines' (tests/test_torch_host.py).  The ``simulate_*`` dry
-runs are left out: nothing in the port calls them.
+A copy of ``art_tpu/core/accounting.py``, whole and unchanged, so that the
+port imports nothing of the JAX package and its counts and positions stay
+bitwise equal to the JAX engines' (tests/test_torch_host.py).
 """
 
 from __future__ import annotations
@@ -295,3 +291,188 @@ def ring_positions(*, first_position: float, flush_shift: int,
     x = (o0 - s * S) + q
     ip = np.floor(x)
     return ip.astype(np.int64) + s * S, x - ip
+
+
+def _simulate_required_samples_loop(*, output_offset: float,
+                                    input_index: int, num_samples: int,
+                                    num_taps: int, n_out: int,
+                                    ratio: float) -> int:
+    """Per-sample mirror of the reference loop (resampler.c:853-880); kept
+    as the oracle for the vectorized version below."""
+    half = num_taps // 2
+    offset = output_offset
+    idx = input_index
+    used = 0
+    step = 1.0 / ratio
+    remaining = n_out
+    while remaining > 0:
+        if offset >= idx - half:
+            if idx == num_samples:
+                offset -= num_samples - num_taps
+                idx -= num_samples - num_taps
+            idx += 1
+            used += 1
+        else:
+            offset += step
+            remaining -= 1
+    return used
+
+
+def _check_sequential_cumsum() -> None:
+    """Pin the parity-load-bearing assumption that np.cumsum accumulates
+    float64 strictly left to right (fl(...fl(a0+a1)+a2...)).  True of every
+    NumPy to date but not a documented guarantee — a future pairwise/SIMD
+    accumulate would silently break the 'exact vs C' invariants, so fail
+    loudly at import instead."""
+    rng = np.random.default_rng(0x3141)
+    a = rng.standard_normal(257) * rng.choice([1.0, 1e-9, 1e9], 257)
+    acc, serial = 0.0, np.empty(257)
+    for i, v in enumerate(a):
+        acc += v
+        serial[i] = acc
+    if not np.array_equal(np.cumsum(a), serial):
+        raise RuntimeError(
+            "np.cumsum is no longer strictly sequential in float64; the "
+            "vectorized accounting queries would lose bit-parity with the "
+            "C reference loops — pin NumPy or revert to the loop oracles")
+
+
+_check_sequential_cumsum()
+
+
+def _accum_positions(offset: float, step: float, n: int) -> np.ndarray:
+    """o[j] for j in 0..n = offset after j accumulated ``+= step`` rounds.
+
+    np.add.accumulate applies fl(acc + step) strictly left to right, the
+    same float64 sequence as the reference's serial loop (assumption
+    verified at import by _check_sequential_cumsum)."""
+    o = np.empty(n + 1, dtype=np.float64)
+    o[0] = offset
+    o[1:] = step
+    return np.cumsum(o)
+
+
+def simulate_required_samples(*, output_offset: float, input_index: int,
+                              num_samples: int, num_taps: int,
+                              n_out: int, ratio: float) -> int:
+    """Dry-run: inputs needed for n_out outputs
+    (reference resampler.c:853-880).  Faithful to the reference's accumulated
+    ``offset += 1/ratio`` stepping, which rounds differently from k/ratio.
+
+    Vectorized per ring-slide segment: within a segment the offset sequence
+    is one np.cumsum (bit-identical to the serial loop), the consumption
+    demand before emission j is c_j = floor(o_j) + half + 1 - input_index
+    (monotone), and a slide replays the reference's exact-integer offset
+    shift (the subtraction is exact in float64, so subsequent rounding
+    matches the reference)."""
+    half = num_taps // 2
+    S = num_samples - num_taps
+    step = 1.0 / ratio
+    offset = float(output_offset)
+    idx = int(input_index)
+    used = 0
+    remaining = int(n_out)
+    while remaining > 0:
+        cap = num_samples - idx          # consumptions before a slide fires
+        est = int(min(remaining, max(1, math.ceil((cap + 2) * ratio) + 4)))
+        while True:
+            o = _accum_positions(offset, step, est)
+            c = np.floor(o[:est]).astype(np.int64) + (half + 1 - idx)
+            np.maximum(c, 0, out=c)
+            over = np.nonzero(c > cap)[0]
+            if over.size or est >= remaining:
+                break
+            est = int(min(remaining, est * 2))
+        if over.size and int(over[0]) < remaining:
+            jstar = int(over[0])         # slide fires while consuming for j*
+            used += cap
+            offset = float(o[jstar]) - S
+            idx = num_samples - S
+            remaining -= jstar
+        else:
+            used += int(c[remaining - 1])
+            remaining = 0
+    return used
+
+
+def _simulate_expected_output_loop(*, output_offset: float, input_index: int,
+                                   flags: int, num_samples: int,
+                                   num_taps: int, n_in: int, ratio: float,
+                                   fixed_ratio: float) -> int:
+    """Per-sample mirror of the reference loop (resampler.c:882-918)."""
+    half = num_taps // 2
+    if flags & RESAMPLE_FIXED_RATIO:
+        ratio = fixed_ratio
+    offset = output_offset
+    idx = input_index
+    if flags & RESAMPLER_FLUSHED:
+        n_in = 0
+    elif n_in < 0:
+        idx += half
+        n_in = 0
+    generated = 0
+    step = 1.0 / ratio
+    while True:
+        if offset >= idx - half:
+            if n_in > 0:
+                if idx == num_samples:
+                    offset -= num_samples - num_taps
+                    idx -= num_samples - num_taps
+                idx += 1
+                n_in -= 1
+            else:
+                break
+        else:
+            offset += step
+            generated += 1
+    return generated
+
+
+def simulate_expected_output(*, output_offset: float, input_index: int,
+                             flags: int, num_samples: int, num_taps: int,
+                             n_in: int, ratio: float,
+                             fixed_ratio: float) -> int:
+    """Dry-run: outputs generated from n_in inputs
+    (reference resampler.c:882-918).  Vectorized per ring-slide segment with
+    the same exact-float structure as simulate_required_samples; a slide
+    only fires while inputs remain (the reference breaks first when the
+    input budget is exhausted)."""
+    half = num_taps // 2
+    if flags & RESAMPLE_FIXED_RATIO:
+        ratio = fixed_ratio
+    offset = float(output_offset)
+    idx = int(input_index)
+    if flags & RESAMPLER_FLUSHED:
+        n_in = 0
+    elif n_in < 0:
+        idx += half
+        n_in = 0
+    S = num_samples - num_taps
+    step = 1.0 / ratio
+    generated = 0
+    n_left = int(max(n_in, 0))
+    while True:
+        # the reference loop never slides once the input budget is exhausted
+        # (it breaks first), so cap is clamped at 0: the flush-peek case
+        # (idx = input_index + half > num_samples) must keep the unslid
+        # offset sequence, not take a phantom-slide branch whose re-rounded
+        # offsets could flip a tie at the emit threshold
+        cap = max(num_samples - idx, 0)
+        avail = min(cap, n_left)
+        est = int(max(1, math.ceil((idx + avail - half - offset) * ratio)
+                      + 4))
+        while True:
+            o = _accum_positions(offset, step, est)
+            c = np.floor(o[:est]).astype(np.int64) + (half + 1 - idx)
+            np.maximum(c, 0, out=c)
+            over = np.nonzero(c > avail)[0]
+            if over.size:
+                break
+            est *= 2
+        jstar = int(over[0])
+        generated += jstar
+        if n_left <= cap:                # stopped by input exhaustion
+            return generated
+        n_left -= cap                    # slide: consumed up to the boundary
+        offset = float(o[jstar]) - S
+        idx = num_samples - S

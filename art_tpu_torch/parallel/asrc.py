@@ -29,19 +29,20 @@ from __future__ import annotations
 
 import math
 import warnings
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._roadmap import _not_ported
 from ..core.accounting import ring_floor
 from ..core.filters import make_filter_bank, resolve_lowpass
 from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                           HISTORY_MULTIPLE, SUBSAMPLE_INTERPOLATE,
                           validate_taps_filters)
+from ..engines.resampler import ResampleResult
 from ..ops.asrc_step import apply_prologue, asrc_apply, asrc_step
-from .streams import _TORCH_DTYPES, _not_ported
+from .streams import _TORCH_DTYPES
 
 KERNELS = ("auto", "hankel", "dense", "pallas", "xla")
 
@@ -353,13 +354,6 @@ class BatchedASRC:
         if req_k_max is not None and req_k_max != k_max:
             out = out[:, :req_k_max]
         return new_hist, out
-
-
-@dataclass
-class ResampleResult:
-    """The host engine's per-call result (art_tpu/engines/resampler.py)."""
-    input_used: int
-    output_generated: int
 
 
 class ASRCStreamResampler:

@@ -28,6 +28,11 @@ it once, float64 data runs in float64.  Every group form is bitwise equal
 to sequential ``process()`` calls in every tier.  Not ported yet, and
 raising ``NotImplementedError`` (ROADMAP.md, "Modules to port"): ``mesh=``
 (item 11).
+
+``HybridStreamResampler`` is the file pipeline's engine (``art`` and
+``artest -e`` with ``--backend=cuda``): this engine for the steady blocks,
+the host ``Resampler`` (``engines/resampler.py``) for the prefill block,
+odd tail blocks and the flush, as JAX's class of that name does.
 """
 
 from __future__ import annotations
@@ -39,22 +44,19 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._roadmap import _not_ported
 from ..core import accounting
 from ..core.filters import make_filter_bank, plan_fixed_ratio, resolve_lowpass
 from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
-                          INCLUDE_LOWPASS, SUBSAMPLE_INTERPOLATE)
+                          EXTRAPOLATE_PREFILL, INCLUDE_LOWPASS,
+                          SUBSAMPLE_INTERPOLATE)
+from ..engines.resampler import ResampleResult, Resampler
 from ..ops import fixed_step as k1
 from ..ops.polyphase import PolyphaseMatrix
 
 _CONTAINERS = {1: torch.uint8, 2: torch.uint16, 4: torch.uint32}
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to art_tpu_torch yet "
-                               f"(ROADMAP.md, 'Modules to port', item "
-                               f"{item})")
 
 
 def _group_buf(hist, xs_flat, G: int, n: int, hist_len: int):
@@ -797,3 +799,179 @@ class DeviceStreamResampler:
         self.output_offset = float(state["output_offset"])
         self.input_index = int(state["input_index"])
         self._flushed = bool(state["flushed"])
+
+
+class HybridStreamResampler:
+    """File-pipeline engine: device steady state, host edges.
+
+    The port of ``art_tpu/parallel/streams.py::HybridStreamResampler``.
+    Drives ``DeviceStreamResampler`` for the repeated full-size blocks of a
+    file conversion and hands everything the device engine does not model
+    -- the endpoint extrapolation prefill (reference resampler.c:691-698),
+    odd-sized tail blocks and the flush with its extrapolated postfill
+    (reference resampler.c:663-685) -- to the host ``Resampler``, moving
+    the streaming state between the two exactly: the host keeps its
+    history left-aligned in ``history[:, :input_index]`` and its latch in
+    ``flags``; the device engine keeps the same samples right-aligned in a
+    ``[num_channels, num_samples]`` ring and its own ``flushed`` latch,
+    which stays clear because the flush always runs on the host.  Both run
+    the same float64 accounting, so offsets and indices carry over as they
+    are.
+
+    Exposes the host engine's ``process_interleaved`` contract, so callers
+    (the CLIs) need not know which engine ran a block.  Counts and
+    positions are exact; samples are within the float32 class of the host
+    path.  ``device``: where the steady blocks run; "cuda" raises when no
+    card is usable (nothing falls back to the host engine for that)."""
+
+    def __init__(self, num_channels: int, num_taps: int, max_filters: int,
+                 source_rate: float, destin_rate: float, lowpass_freq: float,
+                 flags: int, *, dtype=np.float32, mesh=None,
+                 precise: bool = False, device="cuda"):
+        self.host = Resampler.fixed_ratio(
+            num_channels, num_taps, max_filters, source_rate, destin_rate,
+            lowpass_freq, flags, dtype=dtype)
+        self.dev = DeviceStreamResampler(
+            num_channels, num_taps, max_filters, source_rate, destin_rate,
+            lowpass_freq, flags & ~EXTRAPOLATE_ENDPOINTS, dtype=dtype,
+            mesh=mesh, precise=precise, device=device)
+        self.dev.prewarm()
+        self._on_device = False
+        self._steady_n = None
+
+    # --------------------------------------------------------- state moves
+    def _push(self) -> None:
+        """Host state -> device engine: the left-aligned history becomes
+        the right end of the device ring."""
+        st = self.host.state_dict()
+        ns, ii = self.dev.num_samples, int(st["input_index"])
+        hist = np.zeros((self.dev.num_channels, ns), self.dev.dtype)
+        hist[:, ns - ii:] = st["history"][:, :ii]
+        self.dev.load_state({"history": hist,
+                             "output_offset": st["output_offset"],
+                             "input_index": ii, "flushed": False})
+        self._on_device = True
+
+    def _pull(self) -> None:
+        """Device engine state -> host: the right end of the ring becomes
+        the host's left-aligned history; the host's ``flags`` and the
+        history past ``input_index`` (which it never reads) stay as they
+        were, so ``_pull`` undoes ``_push`` bitwise."""
+        ds = self.dev.state_dict()
+        ns, ii = self.dev.num_samples, ds["input_index"]
+        st = self.host.state_dict()
+        st["history"][:, :ii] = ds["history"][:, ns - ii:]
+        st["output_offset"] = ds["output_offset"]
+        st["input_index"] = ii
+        self.host.load_state(st)
+        self._on_device = False
+
+    # ----------------------------------------------------------------- api
+    def advance_position(self, delta: float) -> None:
+        # a mid-stream advance (legal in the reference, resampler.c:927-935)
+        # must reach the live state: while steady blocks run on the device
+        # the host copy is stale and the next _pull() would overwrite an
+        # advance applied there
+        if self._on_device:
+            self._pull()
+        self.host.advance_position(delta)
+
+    def get_position(self) -> float:
+        if self._on_device:
+            return self.dev.get_position()
+        return self.host.get_position()
+
+    def get_lowpass_ratio(self) -> float:
+        return self.host.get_lowpass_ratio()
+
+    def get_num_filters(self) -> int:
+        return self.host.get_num_filters()
+
+    def interpolation_used(self) -> int:
+        return self.host.interpolation_used()
+
+    def get_expected_output(self, n_in: int, ratio: float = 0.0) -> int:
+        if self._on_device:
+            # the dry run needs only the two scalar state fields, which
+            # live on the host: no need to fetch the device history
+            return accounting.simulate_expected_output(
+                output_offset=self.dev.output_offset,
+                input_index=int(self.dev.input_index),
+                flags=self.host.flags, num_samples=self.dev.num_samples,
+                num_taps=self.dev.num_taps, n_in=n_in, ratio=ratio,
+                fixed_ratio=self.host.fixed_ratio)
+        return self.host.get_expected_output(n_in, ratio)
+
+    def process_interleaved(self, data, n_in: int, n_out: int,
+                            ratio: float = 0.0):
+        out, res, dev = self.process_interleaved_device(data, n_in, n_out,
+                                                        ratio)
+        if dev is not None:
+            out = np.ascontiguousarray(
+                dev[:, :res.output_generated].cpu().numpy().T)
+        return out, res
+
+    def process(self, data, n_in: int, n_out: int, ratio: float = 0.0):
+        """Planar process (host-engine contract: inputs [ch, n] -> output
+        [ch, K]), routed through the interleaved path."""
+        inter = None if data is None else \
+            np.ascontiguousarray(np.asarray(data).T)
+        out, res = self.process_interleaved(inter, n_in, n_out, ratio)
+        return np.ascontiguousarray(out.T), res
+
+    def process_and_flush_interleaved(self, data, n_in: int, n_out: int,
+                                      ratio: float = 0.0):
+        """Process the final block then flush in one call (reference
+        resampleProcessAndFlushInterleaved, resampler.c:741-758)."""
+        out1, res = self.process_interleaved(data, n_in, n_out, ratio)
+        if res.input_used != n_in or res.output_generated == n_out:
+            return out1, res
+        out2, fres = self.process_interleaved(
+            None, -1, n_out - res.output_generated, ratio)
+        res.output_generated += fres.output_generated
+        return np.concatenate([out1, out2], axis=0), res
+
+    def process_and_flush(self, data, n_in: int, n_out: int,
+                          ratio: float = 0.0):
+        inter = None if data is None else \
+            np.ascontiguousarray(np.asarray(data).T)
+        out, res = self.process_and_flush_interleaved(inter, n_in, n_out,
+                                                      ratio)
+        return np.ascontiguousarray(out.T), res
+
+    def process_interleaved_device(self, data, n_in: int, n_out: int,
+                                   ratio: float = 0.0):
+        """process_interleaved that leaves a steady block's output on the
+        device.
+
+        Returns (host_out | None, ResampleResult, dev_out | None): when the
+        device engine ran the block, dev_out is its [channels, capacity]
+        tensor (the first output_generated columns valid) and host_out is
+        None."""
+        prefill_pending = bool(self.host.flags & EXTRAPOLATE_PREFILL)
+        if n_in < 0 or data is None:
+            # flush: the host engine (extrapolated postfill, FLUSHED latch)
+            if self._on_device:
+                self._pull()
+            return (*self.host.process_interleaved(data, n_in, n_out,
+                                                   ratio), None)
+        if self._steady_n is None:
+            self._steady_n = n_in
+        if n_in != self._steady_n or prefill_pending:
+            # the first block (prefill) and tail blocks run on the host
+            if self._on_device:
+                self._pull()
+            return (*self.host.process_interleaved(data, n_in, n_out,
+                                                   ratio), None)
+        if not self._on_device:
+            self._push()
+        if self.dev.peek_output(n_in) > n_out:
+            # undersized caller buffer: route to the host engine, which has
+            # the partial-consumption semantics, before any state moves
+            self._pull()
+            return (*self.host.process_interleaved(data, n_in, n_out,
+                                                   ratio), None)
+        out_dev, K = self.dev.process(
+            np.ascontiguousarray(np.asarray(data).T), n_in)
+        return None, ResampleResult(input_used=n_in, output_generated=K), \
+            out_dev

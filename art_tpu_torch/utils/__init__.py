@@ -1,1 +1,2 @@
-"""Deterministic test signals, copied from ``art_tpu/utils``."""
+"""Deterministic test signals, stream stats and checksums, copied from
+``art_tpu/utils``."""

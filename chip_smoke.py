@@ -89,7 +89,22 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    reading on the CPU;
 11. the tiers' throughput: each new instance beside the float32 instance
    at the same shape, with its plain version and one conv1d on float64
-   operands, and process_flat_out's rate in the "int8" and float64 tiers.
+   operands, and process_flat_out's rate in the "int8" and float64 tiers;
+12. the CLIs on the card, through their ``main`` as ``python -m
+   art_tpu_torch.cli.art`` / ``.artest`` run them: a 60 s stereo 44.1k
+   float32 WAV of artest noise with fades (written into build/) converted
+   by ``art -3 -r48k`` and ``art -3 -r48k -o16`` with --backend=cuda and
+   --backend=numpy (output frames and clip warnings equal, float32 samples
+   within 1e-5, 16-bit codes within the shaped-noise floor, K1 launched
+   once per steady block); ``artest -3 -s44.1k -d48k -c2 -e -i`` for 60 s
+   (-w5 <= -130 dB, every -w count equal to the numpy backend's), the same
+   with --precise (K1's float32-with-float64-accumulators instance) and
+   ``artest -1 -s44.1k -d48k -c2 -i`` (the ASRC step; counts equal, -w5
+   within 0.5 dB of numpy), each with artest's --timing stage split;
+   wall time and M output frames/s of each command beside its numpy leg;
+   and where an art steady block's time goes on the card: the whole
+   HybridStreamResampler block beside its host plan, upload, K1 step and
+   fetch, and the card's busy share over 50 blocks from torch.profiler.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound, then, last, the {"ok": true, "device": ...} line.  Without a
@@ -98,12 +113,15 @@ usable CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1367,6 +1385,218 @@ def phase_asrc_throughput(dev, tag, n=ASRC_N, S=ASRC_S, windows=3, reps=10):
     return result
 
 
+# ------------------------------------------------------------------ CLIs
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+_STATS = re.compile(r"\(-w(\d)\): count =\s*(\d+), checksum = \w+, range = "
+                    r"\S+ to \S+, RMS = (\S+) dB")
+
+
+def _cli_wav(seconds):
+    """A stereo 44.1k float32 WAV of artest noise with 4096-frame fades in
+    build/: (path, frames)."""
+    from art_tpu_torch.io import wavfile
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    x = np.ascontiguousarray(roundtrip.artest_noise(seconds).T, "<f4")
+    path = CLI_DIR / "in.wav"
+    with open(path, "wb") as f:
+        wavfile.write_wav_header(f, bits=32, num_channels=2,
+                                 num_frames=x.shape[0], sample_rate=44100,
+                                 channel_mask=3)
+        f.write(x.tobytes())
+    return path, x.shape[0]
+
+
+def _wav_samples(path, dtype):
+    from art_tpu_torch.io import wavfile
+    with open(path, "rb") as f:
+        info = wavfile.read_wav_header(f)
+        n = info.num_frames * info.num_channels
+        return np.frombuffer(f.read(n * np.dtype(dtype).itemsize), dtype)
+
+
+def _run_cli(main, args, dev, backend):
+    """One command through the CLI's main: (its stderr, wall seconds, K1's
+    launches by instance, the ASRC kernels' launches).  On the card the
+    command takes its default device, as the command line does."""
+    kw = {"device": dev} if backend == "cuda" and dev.type != "cuda" else {}
+    _reset_launches()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = main([*args, f"--backend={backend}"], **kw)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    _require(rc == 0, f"{' '.join(args)} --backend={backend} exited {rc}: "
+             f"{err.getvalue()}")
+    return (err.getvalue(), secs, dict(k1.instance_launches),
+            dict(kasrc.launches))
+
+
+def _timing(text):
+    return next(line for line in text.splitlines()
+                if line.startswith("timing:"))
+
+
+def _rate_line(cmd, legs, tag):
+    for be, (secs, frames) in legs.items():
+        print(f"  {cmd} --backend={be}: {secs:.3f} s wall, {frames} output "
+              f"frames, {frames / secs / 1e6:.4f} M frames/s {tag}")
+
+
+def _device_busy_ms(dev, fn, calls):
+    """Kernel time on the card during ``calls`` calls of ``fn``, from a
+    torch.profiler trace (None where it records no device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        _sync(dev)
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 if us else None
+
+
+def _cli_block_breakdown(dev, tag, n, steady):
+    """Where an art steady block's time goes on the card: the whole
+    HybridStreamResampler block (plan, upload, K1 step, fetch) beside its
+    parts at the same shape, and the card's busy share over the blocks."""
+    from art_tpu_torch import HybridStreamResampler
+    hyb = HybridStreamResampler(*HEAD, device=dev)
+    hyb.advance_position(190)
+    rng = np.random.default_rng(12)
+    blk = rng.normal(0, 0.5, (n, 2)).astype(np.float32)
+    cap = int((n + 190) * 48000 / 44100 + 100)
+    hyb.process_interleaved(blk, n, cap)
+    _require(hyb._on_device, "the Hybrid's steady block left the card")
+    eng, n1, K, start, P, fracv, kw = _steady_chunk(HEAD, dev, n)
+    x = torch.from_numpy(np.ascontiguousarray(blk[:n1].T)).to(dev)
+    zero = torch.zeros((), device=dev)
+    out = k1.fixed_step(eng.hist, x, P, start, K, zero, **kw)[1]
+    host_blk = np.ascontiguousarray(blk.T)
+    variants = {
+        "Hybrid steady block": lambda: hyb.process_interleaved(blk, n, cap),
+        "host plan": lambda: hyb.dev._plan_compute(n),
+        "upload of the block": lambda: torch.as_tensor(host_blk,
+                                                       device=dev),
+        f"K1 step ({n1} frames)": lambda: k1.fixed_step(
+            eng.hist, x, P, start, K, zero, **kw),
+        "fetch of its output": lambda: out[:, :K].cpu(),
+    }
+    names = list(variants)
+    order = names + names[::-1]
+    med = _time_in_turns(dev, variants, order, 20,
+                         f"per {n}-frame art block", tag)
+    busy = _device_busy_ms(dev, variants[names[0]], 50) if dev.type == \
+        "cuda" else None
+    whole = med[names[0]]
+    share = ("not measured" if busy is None else
+             f"{busy / 50:.4f} ms of kernels per block, idle "
+             f"{1 - busy / 50 / whole:.1%}")
+    print(f"  art steady block on the card: {whole:.4f} ms, {steady} blocks "
+          f"= {whole * steady / 1e3:.3f} s of the command; card busy (torch."
+          f"profiler, 50 blocks): {share} {tag}")
+
+
+def phase_cli(dev, tag, seconds=60):
+    """The art and artest command lines with --backend=cuda beside
+    --backend=numpy.  Returns the CLIs' launches {kernel: count} in the
+    names of the kernels line."""
+    # imported here, so that --checksum still runs from older trees
+    from art_tpu_torch import native
+    from art_tpu_torch.cli import art, artest
+    on_card = dev.type == "cuda"
+    # the host runtime builds with g++ at first use: outside the timings
+    t0 = time.perf_counter()
+    built = native.available()
+    print(f"  host runtime (art_tpu_torch/native): "
+          f"{'loaded' if built else 'no g++: pure-Python paths'} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    wav, n = _cli_wav(seconds)
+    # art feeds BUFFER_SAMPLES-frame blocks: the first (the extrapolation
+    # prefill) and the odd tail run on the host, the rest on the card
+    steady = n // art.BUFFER_SAMPLES - 1
+    total = {"fixed_step": 0, "fixed_step_f32_acc64": 0, "asrc_step": 0}
+    for extra, dtype in (([], "<f4"), (["-o16"], "<i2")):
+        cmd = " ".join(["art -3 -r48k", *extra])
+        got, legs = {}, {}
+        for be in ("cuda", "numpy"):
+            out = CLI_DIR / f"art_{be}.wav"
+            err, secs, kl, al = _run_cli(
+                art.main, ["-q", "-y", "-3", "-r48k", *extra, str(wav),
+                           str(out)], dev, be)
+            got[be] = (_wav_samples(out, dtype), err)
+            legs[be] = (secs, got[be][0].size // 2)
+            if be == "cuda":
+                print(f"  {cmd}: K1 launches {kl}, steady blocks {steady}")
+                _require(not on_card or (kl["f32"] == steady > 0
+                                         and sum(kl.values()) == steady),
+                         f"{cmd}: K1 launches != steady blocks")
+                total["fixed_step"] += kl["f32"]
+        (a, ea), (b, eb) = got["cuda"], got["numpy"]
+        _require(a.size == b.size and ea == eb,
+                 f"{cmd}: output frames or clip warnings differ")
+        diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        print(f"  {cmd}: {a.size // 2} frames each, max abs diff "
+              f"{diff.max():.3e}{' LSB' if extra else ''}, mean "
+              f"{diff.mean():.3e}; stderr {ea.strip() or '(none)'!r}")
+        if extra:
+            _require(diff.max() <= 12 and diff.mean() < 2.0,
+                     f"{cmd}: 16-bit codes beyond the shaped-noise floor")
+        else:
+            _require(diff.max() <= 1e-5, f"{cmd}: samples beyond 1e-5")
+        _rate_line(cmd, legs, tag)
+    _cli_block_breakdown(dev, tag, art.BUFFER_SAMPLES, steady)
+
+    def stats(text):
+        return {m.group(1): (int(m.group(2)), float(m.group(3)))
+                for m in _STATS.finditer(text)}
+
+    base = ["-s44.1k", "-d48k", "-c2", "-i", f"-n{seconds}", "--timing"]
+    ref = {}
+    for preset, extra in (("-3", ["-e"]), ("-3", ["-e", "--precise"]),
+                          ("-1", [])):
+        cmd = " ".join(["artest", preset, *base, *extra])
+        legs = {}
+        err, secs, kl, al = _run_cli(artest.main, [preset, *base, *extra],
+                                     dev, "cuda")
+        got = stats(err)
+        legs["cuda"] = (secs, got["2"][0])
+        key = (preset, "-e" in extra)
+        if key not in ref:
+            nerr, nsecs = _run_cli(artest.main, [preset, *base, *extra[:1]],
+                                   dev, "numpy")[:2]
+            ref[key] = stats(nerr)
+            legs["numpy"] = (nsecs, ref[key]["2"][0])
+        want = ref[key]
+        print(f"  {cmd}: -w5 {got['5'][1]:.2f} dB (numpy {want['5'][1]:.2f}"
+              f" dB), counts {[got[w][0] for w in sorted(got)]}; K1 "
+              f"launches {kl}, ASRC launches {al}")
+        print(f"  {cmd} --backend=cuda {_timing(err)}")
+        if "numpy" in legs:
+            print(f"  {cmd} --backend=numpy {_timing(nerr)}")
+        _require({w: c for w, (c, _) in got.items()}
+                 == {w: c for w, (c, _) in want.items()},
+                 f"{cmd}: -w counts differ from the numpy backend's")
+        if "-e" in extra:
+            _require(got["5"][1] <= -130.0, f"{cmd}: -w5 above -130 dB")
+            inst = "f32_acc64" if "--precise" in extra else "f32"
+            _require(not on_card or (kl[inst] > 0 and kl[inst]
+                                     == sum(kl.values())),
+                     f"{cmd}: K1's {inst} instance not launched alone")
+            total["fixed_step" if inst == "f32"
+                  else "fixed_step_f32_acc64"] += kl[inst]
+        else:
+            _require(abs(got["5"][1] - want["5"][1]) <= 0.5,
+                     f"{cmd}: -w5 more than 0.5 dB from numpy's")
+            _require(not on_card or (al["asrc_step"] > 0
+                                     and sum(kl.values()) == 0),
+                     f"{cmd}: the ASRC step was not launched")
+            total["asrc_step"] += al["asrc_step"]
+        _rate_line(cmd, legs, tag)
+    return total
+
+
 def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                   bound, library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -1433,6 +1663,13 @@ def main(argv) -> int:
              "a tier's K1 instance was not launched on its path")
     print("phase 11: precision tiers' throughput")
     tier_timed = phase_tier_timing(dev, tag)
+    print("phase 12: the CLIs on the card: art and artest --backend=cuda "
+          "beside --backend=numpy")
+    cli = phase_cli(dev, tag)
+    print(f"  the CLIs' launches: {cli}")
+    launches["fixed_step"] += cli["fixed_step"]
+    launches["asrc_step"] += cli["asrc_step"]
+    tier_launches["f32_acc64"] += cli["fixed_step_f32_acc64"]
     src = "art_tpu_torch/csrc/"
     pk = "art_tpu/ops/pallas_kernels.py:"
     kernels = [_kernel_entry(
