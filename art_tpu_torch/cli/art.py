@@ -14,13 +14,15 @@ card) with host edges.
 
 A copy of ``art_tpu/cli/art.py`` for the PyTorch port, run as ``python -m
 art_tpu_torch.cli.art``.  It differs in its backends: ``--backend=cuda``
-takes the place of ``--backend=device`` for the resample stage only (the
-decimate stage and the ``-p`` filters run on the host until ROADMAP items 7
-and 9 port them; the decimator's input is the same float32 stream either
-way), and ``--backend=jax`` and ``--mesh`` exit naming the ROADMAP items
-that port them (10 and 11).  ``main(argv, device=...)`` names the torch
-device of the cuda backend: the command line always runs on the card, and
-tests pass ``device="cpu"``.  Only a configuration the device engine cannot
+takes the place of ``--backend=device``: the resample stage's steady
+blocks run on the card and, for an integer output without noise shaping,
+the decimate stage too (``DeviceDecimator``, JAX's gate); the ``-p``
+filters run on the host until ROADMAP item 9 ports them, so with ``-p``
+the device decimator quantizes the host-filtered samples.
+``--backend=jax`` and ``--mesh`` exit naming the ROADMAP items that port
+them (10 and 11).  ``main(argv, device=...)`` names the torch device of
+the cuda backend: the command line always runs on the card, and tests
+pass ``device="cpu"``.  Only a configuration the device engine cannot
 model (its ``ValueError``) runs on the host engine instead; a missing card
 or a kernel that fails to build or launch ends the command with an error.
 """
@@ -40,10 +42,10 @@ from ..core.flags import (BLACKMAN_HARRIS, DECIMATE_MULTITHREADED,
                           NO_FILTER_REDUCTION, PRESETS,
                           RESAMPLE_MULTITHREADED, SHAPING_1ST_ORDER,
                           SHAPING_2ND_ORDER, SHAPING_3RD_ORDER,
-                          SHAPING_ATH_CURVE, STRETCH_DUAL_FLAG,
-                          SUBSAMPLE_INTERPOLATE)
+                          SHAPING_ATH_CURVE, SHAPING_ENABLED,
+                          STRETCH_DUAL_FLAG, SUBSAMPLE_INTERPOLATE)
 from ..engines.biquad import Biquad, apply_cascade, biquad_lowpass
-from ..engines.decimator import Decimator
+from ..engines.decimator import Decimator, DeviceDecimator
 from ..engines.resampler import Resampler
 from ..engines.stretch import Stretcher
 from ..io import wavfile
@@ -81,8 +83,9 @@ USAGE = """
            --f64       = 64-bit float data path (the reference's ART64)
            --backend=<numpy|cuda>  (cuda = fixed-ratio steady state
                        of the resample stage on the NVIDIA card, host
-                       edges; decimate and -p filters run on the host;
-                       falls back to numpy when the config cannot reduce)
+                       edges; unshaped integer output quantized on the
+                       card too; -p filters run on the host; falls back
+                       to numpy when the config cannot reduce)
 """
 
 
@@ -442,6 +445,20 @@ def process_file(opt: Options, device="cuda") -> int:
                                   1.0, resample_rate, dec_flags, dtype=dt,
                                   backend="native")
 
+        # --backend=cuda with an integer output: the decimate stage also
+        # runs on the card, so steady blocks never fetch float32 samples --
+        # only packed bytes (and the clip count) cross to the host
+        # (reference chains the stages per chunk on host, art.c:933-1130).
+        # Shaped modes stay on the host, as in JAX: the error-feedback
+        # recurrence is a serial loop (PERF.md times it on the card).
+        dev_decimator = None
+        if (decimator is not None and opt.backend == "cuda"
+                and dt == np.float32 and stretcher is None
+                and not (dec_flags & SHAPING_ENABLED)):
+            dev_decimator = DeviceDecimator(
+                num_channels, outbits, (outbits + 7) // 8, 1.0,
+                resample_rate, dec_flags, dtype=dt, device=device)
+
         if resampler is not None:
             resampler.advance_position(opt.num_taps / 2.0 + opt.phase_shift)
 
@@ -474,18 +491,25 @@ def process_file(opt: Options, device="cuda") -> int:
                 print("\rprogress: 0% ", end="", file=sys.stderr,
                       flush=True)
 
-            # -m: a worker pool overlaps host IO with engine compute (the
+            # -m: worker pools overlap host IO with engine compute (the
             # reference's pool parallelizes within a chunk across channels,
             # resampler.c:441-484; with vectorized channel engines the
-            # remaining host-side concurrency is IO overlap).  One
-            # single-worker pool prefetch-decodes the next chunk (JAX's
-            # second pool drains its device decimator's fetches, which the
-            # port does not have yet: ROADMAP item 7).
-            pool = None
+            # remaining host-side concurrency is IO overlap).  Two
+            # single-worker pools: one prefetch-decodes the next chunk,
+            # one drains packed-byte fetches + file writes.  Each pool is
+            # FIFO (write ordering preserved); separating them keeps a
+            # pending fetch from blocking the next read enqueue.
+            pool = wpool = None
             if opt.multithreaded:
                 from ..parallel import workers as _w
                 pool = _w.workers_init(1)
+                if dev_decimator is not None:
+                    # the write pool only ever receives jobs from the
+                    # device-decimator fetch path; host-path writes stay
+                    # on the main thread
+                    wpool = _w.workers_init(1)
 
+            clip_cell = [0]
             io_error = []
 
             def _read_decode(_ctx, slot):
@@ -504,12 +528,22 @@ def process_file(opt: Options, device="cuda") -> int:
                     io_error.append(e)
                 return 0
 
+            def _fetch_write(_ctx, job):
+                try:
+                    packed_dev, clip_dev, k = job
+                    out.write(packed_dev[:k].cpu().numpy().tobytes())
+                    clip_cell[0] += int(clip_dev)
+                except BaseException as e:   # surfaced on the main thread
+                    io_error.append(e)
+                return 0
+
             pending = [remaining, 0, None]
             read_job = pool.enqueue(_read_decode, None, pending) \
                 if pool is not None else 0
 
-            # drain the pool before the with-block closes the files, on
-            # success AND on exception paths
+            # drain both pools before the with-block closes the output
+            # file, on success AND on exception paths (a queued
+            # _fetch_write must never race the file close)
             try:
                 while output_samples < target_output:
                     if pool is not None:
@@ -543,11 +577,23 @@ def process_file(opt: Options, device="cuda") -> int:
                     if pre_filter and stretcher is None and frames.shape[0]:
                         frames = apply_cascade([lowpass1, lowpass2], frames)
 
+                    dev_out = None
                     if resampler is not None:
-                        outbuf, res = resampler.process_interleaved(
-                            frames if frames.shape[0] else None,
-                            frames.shape[0] if frames.shape[0] else -1,
-                            outcap, sample_ratio)
+                        # with -p the post filter runs on the host (ROADMAP
+                        # item 9), so the block takes the host route
+                        if (dev_decimator is not None and not post_filter
+                                and hasattr(resampler,
+                                            "process_interleaved_device")):
+                            outbuf, res, dev_out = \
+                                resampler.process_interleaved_device(
+                                    frames if frames.shape[0] else None,
+                                    frames.shape[0] if frames.shape[0] else -1,
+                                    outcap, sample_ratio)
+                        else:
+                            outbuf, res = resampler.process_interleaved(
+                                frames if frames.shape[0] else None,
+                                frames.shape[0] if frames.shape[0] else -1,
+                                outcap, sample_ratio)
                         generated = res.output_generated
                         if generated == outcap:
                             raise SystemExit("fatal error: outputbuffer too "
@@ -567,12 +613,37 @@ def process_file(opt: Options, device="cuda") -> int:
 
                     if output_samples + generated > target_output:
                         generated = target_output - output_samples
-                    outbuf = outbuf[:generated]
+                    if outbuf is not None:
+                        outbuf = outbuf[:generated]
 
                     if outbits < 32:
-                        packed, c = decimator.process_interleaved(outbuf)
-                        clipped += c
-                        out.write(packed.tobytes())
+                        if dev_decimator is not None:
+                            if dev_out is not None:
+                                # K1's [ch, capacity] output, read in place
+                                # as [capacity, ch]; rows past generated are
+                                # inert, and an oversize engine chunk (nb*L
+                                # past the outcap bucket) is sliced as JAX
+                                # does
+                                dec_rows = -(-outcap // 256) * 256
+                                src = dev_out.T[:dec_rows]
+                            else:
+                                src = outbuf
+                            step = dev_decimator.process_chunk_async(
+                                src, generated)
+                            if step is not None:
+                                job = (step[0], step[1], generated)
+                                if wpool is not None:
+                                    wpool.enqueue(_fetch_write, None, job)
+                                else:
+                                    _fetch_write(None, job)
+                                # fail fast on a failed write (disk full):
+                                # read and dispatch no further blocks
+                                if io_error:
+                                    raise io_error[0]
+                        else:
+                            packed, c = decimator.process_interleaved(outbuf)
+                            clipped += c
+                            out.write(packed.tobytes())
                     else:
                         out.write(wavfile.encode_float_frames(outbuf, outbits))
 
@@ -587,8 +658,12 @@ def process_file(opt: Options, device="cuda") -> int:
                 if pool is not None:
                     pool.wait_all()
                     pool.deinit()
+                if wpool is not None:
+                    wpool.wait_all()
+                    wpool.deinit()
             if io_error:
                 raise io_error[0]
+            clipped += clip_cell[0]
 
             data_bytes = output_samples * num_channels * ((outbits + 7) // 8)
             if data_bytes & 1:

@@ -26,8 +26,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 build_log = ""      # nvcc's output of the build this process made, if any
+library_path = None  # the shared library loaded, once built
 
-_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_vp, _ll, _i, _d = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_double)
 _ASRC_STEP = [_vp, _ll, _vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp,
               _vp, _vp, _ll, _ll, _vp, _vp]
 _SIGNATURES = {
@@ -46,6 +48,17 @@ _SIGNATURES = {
     # frac, K, out, stream
     "art_asrc_apply_f32": [_vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp,
                            _vp, _vp, _ll, _vp, _vp],
+    # x, n, S, x strides (frame, channel), kind, K, scaler, fb, gens,
+    # dithered, dither type, new gens, highclip, lowclip, bits, bytes, out,
+    # out strides (frame, channel), clips, stream
+    "art_decimate_flat": [_vp, _ll, _ll, _ll, _ll, _i, _ll, _d, _vp, _vp, _i,
+                          _i, _vp, _i, _i, _i, _i, _vp, _ll, _ll, _vp, _vp],
+    # x, n, S, x strides, kind, K, scaler, fb, a|b, xh, yh, gens, dithered,
+    # dither type, new gens, new fb, new xh, new yh, highclip, lowclip,
+    # bits, bytes, out, out strides, clips, stream
+    "art_decimate_shaped": [_vp, _ll, _ll, _ll, _ll, _i, _ll, _d, _vp, _vp,
+                            _vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp, _i,
+                            _i, _i, _i, _vp, _ll, _ll, _vp, _vp],
 }
 
 
@@ -96,7 +109,7 @@ def _compile(sources: list[Path], so: Path) -> str:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
-    global _lib, build_log
+    global _lib, build_log, library_path
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
@@ -109,6 +122,7 @@ def library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         build_log = _compile(sources, so)
     lib = ctypes.CDLL(str(so))
+    library_path = so
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

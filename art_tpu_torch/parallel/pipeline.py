@@ -9,6 +9,10 @@ the plain version kernel K1 (``ops/fixed_step.py``) is held against, and the
 step a CPU tensor takes.  float64 data runs in float64 throughout;
 ``precise`` (float32 data) accumulates each dot in float64 and rounds it
 once, as ``residue_window_dots(precise=True)`` does.
+
+``pipeline_chunk`` is the single-device production chunk of
+``art_tpu/parallel/pipeline.py``: the resample on K1, then dither,
+quantize and pack on the decimate kernels (``ops/decimate_device.py``).
 """
 
 from __future__ import annotations
@@ -83,3 +87,55 @@ def resample_block(x, hist, P, start: int, K: int, *, M: int, L: int,
                                     hist_len)
     return window_dots(win, P, K, M=M, L=L, nb=nb, qn=qn, fracv=fracv,
                        precise=precise), new_hist
+
+
+def pipeline_chunk(x, hist, P_local, start, K, gens, fb, xh, yh,
+                   A=None, V0=None, V1=None, *, M: int, L: int, nb: int,
+                   qn_pad: int, qn_local: int, hist_len: int, scaler: float,
+                   highclip: int, lowclip: int, dither_type,
+                   shaper_a, shaper_b, output_bits: int, output_bytes: int,
+                   streams_axis: str | None = None,
+                   taps_axis: str | None = None,
+                   post_bq=None, bq_state=None, post_bq_tables=None,
+                   post_bq_tables32=None, bq_sp_mult: int = 1):
+    """One full production chunk with JAX's arguments: resample ->
+    dither -> (shaped) quantize -> pack, state flowing through.  The
+    resample is one K1 step (``ops/fixed_step.fixed_step``: the masked [S,
+    nb*L] block and the new history) over ``P_local`` [qn_pad*M, L]; the
+    rest one launch of ``decimate_flat_kernel`` (``shaper_a`` None) or
+    ``decimate_shaped_kernel``.  ``gens``: int32 LCG state bits [S] (or
+    uint32 numpy); the dither tables (A, V0, V1) are not read, since the
+    kernels step the LCG themselves.  A CPU tensor takes the plain
+    versions.  Returns (packed u8 [nb*L, S*output_bytes], new_hist,
+    new_gens, fb', xh', yh', clips i32, power); packed rows at and past K
+    hold code 0.  The post filter (ROADMAP item 9) and the mesh axes (item
+    11) are not ported."""
+    from .._roadmap import _not_ported
+    from ..ops import decimate_device as dd
+    from ..ops import fixed_step as k1
+    if post_bq is not None or bq_state is not None:
+        raise _not_ported("pipeline_chunk's post_bq cascade", 9)
+    if streams_axis is not None or taps_axis is not None:
+        raise _not_ported("pipeline_chunk over a mesh (streams_axis, "
+                          "taps_axis)", 11)
+    del A, V0, V1, qn_local, post_bq_tables, post_bq_tables32, bq_sp_mult
+    dev = x.device
+    new_hist, out, power = k1.fixed_step(
+        hist, x, P_local, int(start), int(K),
+        torch.zeros((), dtype=x.dtype, device=dev), M=M, L=L, nb=nb,
+        qn=qn_pad, hist_len=hist_len)
+    gens = dd.states_tensor(gens, dev)
+    fb, xh, yh = (torch.as_tensor(t, dtype=x.dtype, device=dev)
+                  for t in (fb, xh, yh))
+    kw = dict(scaler=scaler, highclip=highclip, lowclip=lowclip,
+              output_bits=output_bits, output_bytes=output_bytes, gens=gens,
+              dither_type=dither_type)
+    samples = out.T                                         # [nb*L, S]
+    if shaper_a is not None:
+        packed, clips, new_gens, fb, xh, yh = dd.decimate_shaped(
+            samples, int(K), a=shaper_a, b=shaper_b, xh=xh, yh=yh,
+            feedback=fb, **kw)
+    else:
+        packed, clips, new_gens = dd.decimate_flat(
+            samples, int(K), feedback=fb, **kw)
+    return packed, new_hist, new_gens, fb, xh, yh, clips, power

@@ -20,7 +20,8 @@ chunk, with the port's copy of the JAX engine's float64 code
   form launches K1 once per chunk and sums the power chunk by chunk, as
   ``process`` does; the delivering forms launch K1 once per group (the G
   windows are consecutive block rows of the buffer) and the packed form
-  quantizes and packs the samples with plain tensor ops.
+  quantizes and packs the samples in one launch of the decimate stage's
+  flat kernel (``ops/decimate_device.py``).
 
 The precision tiers run on their own instances of K1: ``precise=True``
 and ``precise="int8"`` (float32 data) take each dot in float64 and round
@@ -51,10 +52,10 @@ from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                           EXTRAPOLATE_PREFILL, INCLUDE_LOWPASS,
                           SUBSAMPLE_INTERPOLATE)
 from ..engines.resampler import ResampleResult, Resampler
+from ..ops import decimate_device as dd
 from ..ops import fixed_step as k1
 from ..ops.polyphase import PolyphaseMatrix
 
-_CONTAINERS = {1: torch.uint8, 2: torch.uint16, 4: torch.uint32}
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}
 
@@ -99,12 +100,30 @@ def _quantize_pack(out, scaler: float, clips, *, highclip: int,
     ``_chunk_group_static_packed`` on samples [ch, n]: scale, round half
     up, clip (counted into ``clips``, int32), shift, offset and mask into a
     uint8/16/32 container whose little-endian bytes are the packed stream.
-    The scaler takes the samples' type.  float32: a power of two
-    multiplies in float32 (exact), any other in float64 rounded once to
-    float32 (JAX's ``decimate_device._mul_for``); float64: one float64
-    multiply, as ``_mul_for`` does for float64 data.  Integer steps run in
-    int64 (no unsigned shifts in torch) with shifts as multiplications by
-    powers of two."""
+    A CUDA tensor launches ``decimate_flat_kernel`` (no dither, zero
+    feedback, the container layout; it reads ``out`` in place), a CPU
+    tensor takes ``_quantize_pack_reference``."""
+    if out.device.type == "cuda":
+        packed, n_clip, _ = dd.decimate_flat(
+            out.T, out.shape[1], scaler=scaler, highclip=highclip,
+            lowclip=lowclip, output_bits=output_bits,
+            output_bytes=output_bytes, planar=True)
+        return packed, clips + n_clip
+    return _quantize_pack_reference(
+        out, scaler, clips, highclip=highclip, lowclip=lowclip,
+        output_bits=output_bits, output_bytes=output_bytes)
+
+
+def _quantize_pack_reference(out, scaler: float, clips, *, highclip: int,
+                             lowclip: int, output_bits: int,
+                             output_bytes: int):
+    """The plain version of ``_quantize_pack``, on any device.  The scaler
+    takes the samples' type.  float32: a power of two multiplies in
+    float32 (exact), any other in float64 rounded once to float32 (JAX's
+    ``decimate_device._mul_for``); float64: one float64 multiply, as
+    ``_mul_for`` does for float64 data.  Integer steps run in int64 (no
+    unsigned shifts in torch) with shifts as multiplications by powers of
+    two."""
     if out.dtype == torch.float64:
         code = out * float(scaler)
     elif float(scaler) > 0 and math.frexp(float(scaler))[0] == 0.5:
@@ -122,7 +141,7 @@ def _quantize_pack(out, scaler: float, clips, *, highclip: int,
     used_mask = (1 << (8 * ((output_bits + 7) // 8))) - 1
     v = (ov * (1 << leftshift) + offset) & used_mask
     v = v * (1 << (8 * pre_zeros))
-    return v.to(_CONTAINERS[output_bytes]), clips
+    return v.to(dd.CONTAINERS[output_bytes]), clips
 
 
 def _stack_padded(outs):
@@ -764,7 +783,7 @@ class DeviceStreamResampler:
                                                                n_in)
         if G == 0:
             return (torch.zeros((xs_flat.shape[0], 0),
-                                dtype=_CONTAINERS[output_bytes],
+                                dtype=dd.CONTAINERS[output_bytes],
                                 device=self.device),
                     np.zeros((xs_flat.shape[1] // n_in,), np.int64), clips)
         try:

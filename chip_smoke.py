@@ -18,7 +18,9 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    per source, in parallel), with ptxas's register and spill lines; no
    kernel instance (K1's eighteen: float32, float32 with float64
    accumulators and float64, reduced and interpolated, three tiles; the
-   ASRC step's two and the apply) may spill;
+   ASRC step's two and the apply; the decimate stage's flat and shaped
+   kernels in float32 and float64) may spill, and the decimate kernels'
+   SASS (cuobjdump) may hold no FFMA or DFMA;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes (~2^22-frame stereo chunks), its edge cases, BASELINE config 1's
    interpolated chunk and the large input periods (preset -3 192k->44.1k,
@@ -54,9 +56,9 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    - the headline group forms (G=8 chunks of 4,194,351 frames) against
      sequential process(): process_flat and process_scan bitwise in
      history, power and Ks, process_flat_out and process_scan bitwise in
-     samples, process_flat_packed's bytes and
-     clip counts equal to quantizing those samples on the host, with a
-     power-of-two and another scaler;
+     samples, process_flat_packed's bytes and clip counts (its epilogue
+     one decimate_flat_kernel launch) equal to quantizing those samples
+     on the host, with a power-of-two and another scaler;
 7. the ASRC paths: BatchedASRC.process() over 256 streams and 32768-frame
    chunks with the drifting ratios, then staggered flush(mask) calls, in
    float32 (kernel "auto", 30 calls), float64 (8 calls) and with the apply
@@ -71,7 +73,8 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    bench._bench_device_fixed measures them (config 1 and config 1b, 64
    mono rows, by process_flat, G=16; preset -3 by process_flat,
    process_flat_out and process_flat_packed, G=8) with the host's group
-   plan; K6 against its plain version and conv1d; config 5's bench.py
+   plan, the int16 rate beside the delivered one; K6 against its plain
+   version and conv1d; config 5's bench.py
    loop with kernel "auto" (the step) and "pallas" (the apply), its host
    planning time, and the ASRC step (kernel only, kernel step, plain step)
    and apply in ms per call, in float32 and float64;
@@ -96,7 +99,10 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    by ``art -3 -r48k`` and ``art -3 -r48k -o16`` with --backend=cuda and
    --backend=numpy (output frames and clip warnings equal, float32 samples
    within 1e-5, 16-bit codes within the shaped-noise floor, K1 launched
-   once per steady block); ``artest -3 -s44.1k -d48k -c2 -e -i`` for 60 s
+   once per steady block), ``art -3 -r48k -o16 -n0`` (the decimate stage
+   on the card: codes within the same floor, one decimate_flat launch per
+   block) and ``art -3 -o16 -n0`` (no resampler: bytes identical);
+   ``artest -3 -s44.1k -d48k -c2 -e -i`` for 60 s
    (-w5 <= -130 dB, every -w count equal to the numpy backend's), the same
    with --precise (K1's float32-with-float64-accumulators instance) and
    ``artest -1 -s44.1k -d48k -c2 -i`` (the ASRC step; counts equal, -w5
@@ -104,7 +110,25 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    wall time and M output frames/s of each command beside its numpy leg;
    and where an art steady block's time goes on the card: the whole
    HybridStreamResampler block beside its host plan, upload, K1 step and
-   fetch, and the card's busy share over 50 blocks from torch.profiler.
+   fetch, and the card's busy share over 50 blocks from torch.profiler;
+13. the device decimate stage: decimate_flat_kernel and
+   decimate_shaped_kernel against their plain versions on the card,
+   bitwise in packed bytes, clip counts and the new LCG and shaper state:
+   the flat kernel on a 2^22-frame stereo chunk read in K1's [ch,
+   capacity] layout (bits 8, 16, 24 and 24 in 4 bytes, dither types -1,
+   1, 0 and 2 and none, the per-channel container with a power-of-two
+   and another scaler; K = n - 777 with NaN past it), both on the art
+   command's steady block (K1's output of a 16,384-frame preset -3 block;
+   ATH and 2nd-order shaping, dithered and not, float64), and the shaped
+   kernel on the 2^22 chunk against the native host decimator;
+   DeviceDecimator against the native host decimator over a 60 s stereo
+   stream in 16,384-frame blocks (unshaped, ATH-shaped, 24-bit), bitwise;
+   pipeline_chunk at the preset -3 shapes (flat and shaped: history and
+   power K1's, bytes the plain version's or the native host's); then the
+   times in turns with CUDA events: the flat kernel and its plain version
+   with its bound, process_flat_packed's epilogue against its int64 plain
+   version, the shaped kernel per art block and per 2^22 chunk, each
+   beside the native host decimator.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound, then, last, the {"ok": true, "device": ...} line.  Without a
@@ -130,9 +154,17 @@ from art_tpu_torch import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
                            SUBSAMPLE_INTERPOLATE, BatchedASRC,
                            DeviceStreamResampler, roundtrip)
 from art_tpu_torch.core.filters import make_filter_bank
+from art_tpu_torch.core.flags import (DITHER_FLAT, DITHER_HIGHPASS,
+                                      DITHER_LOWPASS, SHAPING_2ND_ORDER,
+                                      SHAPING_ATH_CURVE)
 from art_tpu_torch.ops import _build
 from art_tpu_torch.ops import asrc_step as kasrc
+try:    # an older checkout (--checksum beside it) has no decimate stage
+    from art_tpu_torch.ops import decimate_device as dd
+except ImportError:
+    dd = None
 from art_tpu_torch.ops import fixed_step as k1
+from art_tpu_torch.parallel import streams
 from art_tpu_torch.parallel.pipeline import (window_and_hist, window_at,
                                              window_dots)
 
@@ -213,12 +245,44 @@ def phase_build():
     if _build.build_log:        # empty when an earlier process built it
         # 18 fixed_step_kernel instances (float, float-with-double
         # accumulators and double; reduced and interpolated; 3 tiles), 3
-        # ASRC ones (step float32 and float64, apply)
+        # ASRC ones (step float32 and float64, apply), 4 decimate ones
+        # (flat and shaped, float and double)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 21 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 25 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
+    _require_no_fma("decimate")
+
+
+def _cuobjdump() -> str:
+    path = Path(_build.nvcc()).with_name("cuobjdump")
+    _require(path.exists(), f"cuobjdump not found beside nvcc ({path})")
+    return str(path)
+
+
+def _require_no_fma(tag):
+    """The SASS of every kernel whose name holds ``tag`` has no fused
+    multiply-add (FFMA, DFMA): the decimate stage's bytes are a bit-exact
+    contract, so every product is rounded before its sum."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(_build.library_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if tag in m.group(1) else None
+            if fn:
+                found[fn] = [0, 0]
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            found[fn][0] += 1
+            if re.search(r"\b(FFMA|DFMA)", line):
+                found[fn][1] += 1
+    print(f"  SASS of the {tag} kernels (instructions, FFMA/DFMA): {found}")
+    _require(len(found) == 4 and all(n > 0 and f == 0
+                                     for n, f in found.values()),
+             f"a {tag} kernel holds a fused multiply-add (or is missing)")
 
 
 def _steady_chunk(ctor, dev, n_target, **opts):
@@ -707,6 +771,13 @@ def phase_group_forms(dev, n_target=1 << 22, G=8, ctor=HEAD, **opts):
         _require(dev.type != "cuda"
                  or k1.instance_launches[inst] == k1.launches,
                  f"{name} launched another K1 instance than {inst}")
+        # the packed form's epilogue is one decimate_flat launch
+        want_dec = int("packed" in name)
+        _require(dev.type != "cuda"
+                 or dd.launches == {"decimate_flat": want_dec,
+                                    "decimate_shaped": 0},
+                 f"{name}: decimate launches {dd.launches}")
+        _add_dec_launches()
         return r
 
     def sequential():
@@ -752,9 +823,10 @@ def phase_group_forms(dev, n_target=1 << 22, G=8, ctor=HEAD, **opts):
         ov, nclip = _host_quantize(x, scaler, 32767, -32768)
         same = np.array_equal(pk.cpu().numpy().view(np.uint8),
                               ov.astype("<i2").view(np.uint8))
-        print(f"  process_flat_packed scaler {scaler:g}: {pk.dtype} "
-              f"{tuple(pk.shape)}, bytes equal to the host quantization "
-              f"{same}, clips {int(clips)} (host {nclip})")
+        print(f"  process_flat_packed scaler {scaler:g} (decimate_flat "
+              f"kernel): {pk.dtype} {tuple(pk.shape)}, bytes equal to the "
+              f"host quantization {same}, clips {int(clips)} (host "
+              f"{nclip})")
         _require(same and int(clips) == nclip > 0 and list(Ks_p) == Ks,
                  f"packed scaler {scaler:g}")
     # one launch per chunk where the power is summed chunk by chunk, one
@@ -1219,6 +1291,19 @@ def _reset_launches():
         k1.instance_launches[name] = 0
     for name in kasrc.launches:
         kasrc.launches[name] = 0
+    for name in dd.launches:
+        dd.launches[name] = 0
+
+
+# the decimate kernels' launches on the main paths (process_flat_packed's
+# epilogue, DeviceDecimator, pipeline_chunk, the art command), each read
+# right after its path ran with the counts set to 0 before it
+DEC_PATH_LAUNCHES = {"decimate_flat": 0, "decimate_shaped": 0}
+
+
+def _add_dec_launches():
+    for name, n in dd.launches.items():
+        DEC_PATH_LAUNCHES[name] += n
 
 
 def phase_asrc_path(dev, dtype, kernel, calls, n=ASRC_N, S=ASRC_S,
@@ -1406,6 +1491,11 @@ def _cli_wav(seconds):
     return path, x.shape[0]
 
 
+def _wav_data(wav: bytes) -> bytes:
+    i = wav.index(b"data")
+    return wav[i + 8:i + 8 + int.from_bytes(wav[i + 4:i + 8], "little")]
+
+
 def _wav_samples(path, dtype):
     from art_tpu_torch.io import wavfile
     with open(path, "rb") as f:
@@ -1416,8 +1506,9 @@ def _wav_samples(path, dtype):
 
 def _run_cli(main, args, dev, backend):
     """One command through the CLI's main: (its stderr, wall seconds, K1's
-    launches by instance, the ASRC kernels' launches).  On the card the
-    command takes its default device, as the command line does."""
+    launches by instance, the ASRC kernels' launches, the decimate
+    kernels' launches).  On the card the command takes its default device,
+    as the command line does."""
     kw = {"device": dev} if backend == "cuda" and dev.type != "cuda" else {}
     _reset_launches()
     err = io.StringIO()
@@ -1429,7 +1520,7 @@ def _run_cli(main, args, dev, backend):
     _require(rc == 0, f"{' '.join(args)} --backend={backend} exited {rc}: "
              f"{err.getvalue()}")
     return (err.getvalue(), secs, dict(k1.instance_launches),
-            dict(kasrc.launches))
+            dict(kasrc.launches), dict(dd.launches))
 
 
 def _timing(text):
@@ -1498,6 +1589,53 @@ def _cli_block_breakdown(dev, tag, n, steady):
           f"profiler, 50 blocks): {share} {tag}")
 
 
+def _cli_device_decimate(art, wav, dev, tag, steady, on_card):
+    """The unshaped 16-bit outputs, which --backend=cuda quantizes on the
+    card (DeviceDecimator, decimate_flat_kernel): ``art -3 -r48k -o16
+    -n0`` beside numpy (frames and clip warnings equal, codes within the
+    resample-then-decimate class of PERF.md section 2), and ``art -3 -o16
+    -n0`` with no resampler (bytes identical: the decimator's input is
+    the same)."""
+    for extra in (["-r48k"], []):
+        cmd = " ".join(["art -3", *extra, "-o16 -n0"])
+        got, legs = {}, {}
+        for be in ("cuda", "numpy"):
+            out = CLI_DIR / f"art_dec_{be}.wav"
+            err, secs, kl, al, dl = _run_cli(
+                art.main, ["-q", "-y", "-3", *extra, "-o16", "-n0",
+                           str(wav), str(out)], dev, be)
+            got[be] = (_wav_data(out.read_bytes()), err)
+            legs[be] = (secs, len(got[be][0]) // 4)
+            if be == "cuda":
+                # every block with output is one launch: the steady ones
+                # on K1's output in place, the host's prefill, tail and
+                # flush on their samples
+                print(f"  {cmd}: decimate launches {dl}, K1 launches "
+                      f"{kl}")
+                _require(not on_card or (
+                    dl["decimate_flat"] >= steady + 2
+                    and dl["decimate_shaped"] == 0
+                    and kl["f32"] == (steady if extra else 0)),
+                    f"{cmd}: decimate or K1 launches off the design")
+                for name, n in dl.items():
+                    DEC_PATH_LAUNCHES[name] += n
+        (a, ea), (b, eb) = got["cuda"], got["numpy"]
+        _require(len(a) == len(b) and ea == eb,
+                 f"{cmd}: output length or clip warnings differ")
+        if extra:
+            diff = np.abs(np.frombuffer(a, "<i2").astype(np.int32)
+                          - np.frombuffer(b, "<i2").astype(np.int32))
+            print(f"  {cmd}: {len(a)} bytes each, codes within "
+                  f"{diff.max()} LSB (mean {diff.mean():.3e}); stderr "
+                  f"{ea.strip() or '(none)'!r}")
+            _require(diff.max() <= 12 and diff.mean() < 2.0,
+                     f"{cmd}: 16-bit codes beyond the shaped-noise floor")
+        else:
+            print(f"  {cmd}: {len(a)} bytes each, identical {a == b}")
+            _require(a == b, f"{cmd}: bytes differ from numpy's")
+        _rate_line(cmd, legs, tag)
+
+
 def phase_cli(dev, tag, seconds=60):
     """The art and artest command lines with --backend=cuda beside
     --backend=numpy.  Returns the CLIs' launches {kernel: count} in the
@@ -1522,7 +1660,7 @@ def phase_cli(dev, tag, seconds=60):
         got, legs = {}, {}
         for be in ("cuda", "numpy"):
             out = CLI_DIR / f"art_{be}.wav"
-            err, secs, kl, al = _run_cli(
+            err, secs, kl, al, dl = _run_cli(
                 art.main, ["-q", "-y", "-3", "-r48k", *extra, str(wav),
                            str(out)], dev, be)
             got[be] = (_wav_samples(out, dtype), err)
@@ -1547,6 +1685,7 @@ def phase_cli(dev, tag, seconds=60):
             _require(diff.max() <= 1e-5, f"{cmd}: samples beyond 1e-5")
         _rate_line(cmd, legs, tag)
     _cli_block_breakdown(dev, tag, art.BUFFER_SAMPLES, steady)
+    _cli_device_decimate(art, wav, dev, tag, steady, on_card)
 
     def stats(text):
         return {m.group(1): (int(m.group(2)), float(m.group(3)))
@@ -1558,8 +1697,8 @@ def phase_cli(dev, tag, seconds=60):
                           ("-1", [])):
         cmd = " ".join(["artest", preset, *base, *extra])
         legs = {}
-        err, secs, kl, al = _run_cli(artest.main, [preset, *base, *extra],
-                                     dev, "cuda")
+        err, secs, kl, al, _ = _run_cli(
+            artest.main, [preset, *base, *extra], dev, "cuda")
         got = stats(err)
         legs["cuda"] = (secs, got["2"][0])
         key = (preset, "-e" in extra)
@@ -1597,6 +1736,338 @@ def phase_cli(dev, tag, seconds=60):
     return total
 
 
+# ------------------------------------------------ phase 13: device decimate
+HP, LP, FLAT = DITHER_HIGHPASS, DITHER_LOWPASS, DITHER_FLAT
+ATH, SECOND = SHAPING_ATH_CURVE, SHAPING_2ND_ORDER
+
+
+def _host_decimator(flags, bits=16, nbytes=None, dtype=np.float32):
+    """The host decimator on its native runtime, 2 channels at 48k (the
+    ATH curve of 48k)."""
+    from art_tpu_torch import native
+    from art_tpu_torch.engines.decimator import Decimator
+    _require(native.available(), "the native host runtime did not build")
+    return Decimator(2, bits, nbytes or (bits + 7) // 8, 1.0, 48000, flags,
+                     dtype=dtype, backend="native")
+
+
+def _dec_kw(host, dev, dither_type="host"):
+    """decimate_flat/_shaped keywords from a host decimator's settings and
+    state (``dither_type`` overrides its type)."""
+    dithered = host.tpdf_generators is not None
+    gens = host.tpdf_generators if dithered else np.zeros(2, np.uint32)
+    kw = dict(scaler=float(host.scaler), highclip=host.highclip,
+              lowclip=host.lowclip, output_bits=host.output_bits,
+              output_bytes=host.output_bytes,
+              gens=dd.states_tensor(gens, dev),
+              dither_type=(host.dither_type if dither_type == "host"
+                           else dither_type) if dithered else None)
+    sh = host.noise_shaper
+    if sh is not None:
+        kw.update(a=sh.a, b=sh.b, xh=sh.xh, yh=sh.yh,
+                  feedback=host.feedback)
+    return kw
+
+
+def _bitwise(a, b) -> bool:
+    """Equal bit for bit (floats compared as their bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        a, b = a.contiguous().view(ints[a.dtype]), \
+            b.contiguous().view(ints[b.dtype])
+    return torch.equal(a, b)
+
+
+def _vs_plain(kernel, plain, samples, K, kw):
+    """One decimate kernel against its plain version on the same inputs:
+    (every output bitwise, max |kernel - plain| over the packed bytes)."""
+    got = kernel(samples, K, **kw)
+    want = plain(samples, K, **kw)
+    _sync(samples.device)
+    same = all(_bitwise(g, w) for g, w in zip(got, want))
+    pk = got[0].contiguous().view(torch.uint8).int()
+    pw = want[0].contiguous().view(torch.uint8).int()
+    return same, float((pk - pw).abs().max()) if pk.numel() else 0.0
+
+
+# the flat kernel's cases at the 2^22 chunk: (label, host flags, bits,
+# bytes, dither type ("host": the flags'), container layout, scaler or
+# None for the host's)
+DEC_FLAT_CASES = [
+    ("HP 16", HP, 16, 2, "host", False, None),
+    ("LP 16", LP, 16, 2, "host", False, None),
+    ("flat 16 (type 0)", FLAT, 16, 2, "host", False, None),
+    ("type 2 16", FLAT, 16, 2, 2, False, None),
+    ("no dither 16", 0, 16, 2, "host", False, None),
+    ("HP 8", HP, 8, 1, "host", False, None),
+    ("HP 24", HP, 24, 3, "host", False, None),
+    ("HP 24 in 4", HP, 24, 4, "host", False, None),
+    ("container 16, pow2 scaler", 0, 16, 2, "host", True, None),
+    ("container 16, scaler x1.37", 0, 16, 2, "host", True, 32768.0 * 1.37)]
+
+
+def phase_decimate_kernels(dev, n_target=1 << 22, block=16384):
+    """Both decimate kernels against their plain versions on the card,
+    bitwise (packed bytes, clip count, new LCG and shaper state): the flat
+    kernel at a 2^22-frame stereo chunk in K1's [ch, capacity] layout
+    (bits 8, 16, 24 and 24 in 4 bytes; dither types -1, 1, 0 and 2, and
+    none; the per-channel container with a power-of-two scaler and
+    another) with a ragged K and NaN past it, and at the art command's
+    steady block (K1's output of a 16,384-frame preset -3 block); the
+    shaped kernel at that block (ATH and 2nd order, dithered and not, a
+    float64 case), and at the 2^22 chunk against the native host
+    decimator.  Returns {kernel: max |kernel - plain| over packed
+    bytes}."""
+    worst = {"decimate_flat": 0.0, "decimate_shaped": 0.0}
+    n = n_target
+    buf = _noise_dev(dev, (2, n), 71, 0.6)
+    K = n - 777
+    buf[:, K:] = float("nan")
+    for label, flags, bits, nbytes, dither_type, planar, scaler in \
+            DEC_FLAT_CASES:
+        kw = _dec_kw(_host_decimator(flags, bits, nbytes), dev, dither_type)
+        kw["planar"] = planar
+        if scaler is not None:
+            kw["scaler"] = scaler
+        same, err = _vs_plain(dd.decimate_flat, dd.decimate_flat_reference,
+                              buf.T, K, kw)
+        print(f"  decimate_flat {label} ({n} frames), K = n - 777, NaN past "
+              f"K: bitwise {same}, max|kernel - plain| {err:g}")
+        _require(same, f"decimate_flat vs plain, {label}")
+        worst["decimate_flat"] = max(worst["decimate_flat"], err)
+    # the art command's steady block: K1's output, read in place
+    eng, n1, Kb, start, P, fracv, kw1 = _steady_chunk(HEAD, dev, block)
+    x = _noise_dev(dev, (2, n1), 72, 0.6)
+    out = k1.fixed_step(eng.hist, x, P, start, Kb,
+                        torch.zeros((), device=dev), **kw1)[1]
+    cases = [("decimate_flat", "HP 16", HP, 16, torch.float32),
+             ("decimate_flat", "HP 16 float64", HP, 16, torch.float64),
+             ("decimate_shaped", "ATH HP 16", HP | ATH, 16, torch.float32),
+             ("decimate_shaped", "2nd order flat dither 8", FLAT | SECOND,
+              8, torch.float32),
+             ("decimate_shaped", "ATH no dither 24", ATH, 24,
+              torch.float32),
+             ("decimate_shaped", "ATH HP 16 float64", HP | ATH, 16,
+              torch.float64)]
+    for name, label, flags, bits, tdt in cases:
+        kernel = getattr(dd, name)
+        plain = getattr(dd, f"{name}_reference")
+        host = _host_decimator(flags, bits, dtype=np.float64
+                               if tdt == torch.float64 else np.float32)
+        for K_, tail in ((Kb, "zeros past K"), (Kb - 333, "NaN past K")):
+            samples = out.to(tdt).T
+            if tail.startswith("NaN"):
+                samples = samples.clone()
+                samples[K_:] = float("nan")
+            same, err = _vs_plain(kernel, plain, samples, K_,
+                                  _dec_kw(host, dev))
+            print(f"  {name} {label}, art's steady block ({samples.shape[0]}"
+                  f" rows, K = {K_}, {tail}): bitwise {same}, max|kernel - "
+                  f"plain| {err:g}")
+            _require(same, f"{name} vs plain, {label}")
+            worst[name] = max(worst[name], err)
+    # the shaped kernel at the 2^22 chunk against the native host
+    host = _host_decimator(HP | ATH)
+    kw = _dec_kw(_host_decimator(HP | ATH), dev)
+    packed, clips, gens, fb, xh, yh = dd.decimate_shaped(buf.T, K, **kw)
+    want, wclips = host.process_interleaved(buf[:, :K].T.cpu().numpy())
+    got = packed.cpu().numpy()
+    sh = host.noise_shaper
+    same = (np.array_equal(got[:K], want) and not got[K:].any()
+            and int(clips) == wclips
+            and np.array_equal(dd.states_numpy(gens), host.tpdf_generators)
+            and all(np.array_equal(t.cpu().numpy(), w)
+                    for t, w in ((fb, host.feedback), (xh, sh.xh),
+                                 (yh, sh.yh))))
+    print(f"  decimate_shaped ATH HP 16 ({n} frames, K = n - 777, NaN past "
+          f"K) against the native host decimator: bytes, clips ({wclips}) "
+          f"and state bitwise {same}")
+    _require(same, "decimate_shaped vs the native host at 2^22 frames")
+    return worst
+
+
+def phase_decimate_paths(dev, seconds=60, block=16384, n_target=1 << 22):
+    """The decimate stage's main paths, the counts set to 0 before each
+    and read after it: DeviceDecimator against the native host decimator
+    over a 60 s stereo stream in 16,384-frame blocks (unshaped HP 16-bit,
+    the art command's -n0 mode; ATH-shaped HP 16-bit; LP 24-bit), bytes,
+    clips and final state bitwise; then pipeline_chunk at the preset -3
+    shapes (one ~2^22-frame chunk, HP dither, flat and ATH-shaped): the
+    history and power bitwise K1's, the bytes bitwise the flat plain
+    version's on K1's output, or the native host's for the shaped one."""
+    from art_tpu_torch.engines.decimator import DeviceDecimator
+    from art_tpu_torch.parallel.pipeline import pipeline_chunk
+    # artest's noise peaks at 0.5: at 2.1x some frames clip
+    x = np.ascontiguousarray((roundtrip.artest_noise(seconds) * 2.1).T,
+                             np.float32)
+    for label, flags, bits in (("HP 16 (-n0)", HP, 16),
+                               ("ATH HP 16", HP | ATH, 16),
+                               ("LP 24", LP, 24)):
+        host = _host_decimator(flags, bits)
+        engine = DeviceDecimator(2, bits, (bits + 7) // 8, 1.0, 48000, flags,
+                                 device=dev)
+        _reset_launches()
+        ok, clips, nblk = True, 0, 0
+        for i in range(0, x.shape[0], block):
+            blk = x[i:i + block]
+            got, gc = engine.process_chunk(blk, blk.shape[0])
+            want, wc = host.process_interleaved(blk)
+            ok &= bool(np.array_equal(got, want) and gc == wc)
+            clips += wc
+            nblk += 1
+        _sync(dev)
+        st = engine.state_dict()
+        ok &= bool(np.array_equal(st["gens"], host.tpdf_generators))
+        ok &= bool(np.array_equal(st["feedback"], host.feedback))
+        if host.noise_shaper is not None:
+            ok &= bool(np.array_equal(st["xh"], host.noise_shaper.xh)
+                       and np.array_equal(st["yh"], host.noise_shaper.yh))
+        launches = dict(dd.launches)
+        name = "decimate_shaped" if flags & ATH else "decimate_flat"
+        print(f"  DeviceDecimator {label}: {nblk} blocks of {block} frames "
+              f"({x.shape[0]} in all), bytes, clips ({clips}) and state "
+              f"bitwise the native host's {ok}; launches {launches}")
+        _require(ok and clips > 0,
+                 f"DeviceDecimator {label} vs the native host")
+        _require(dev.type != "cuda" or launches[name] == nblk == sum(
+            launches.values()), f"DeviceDecimator {label}: launches")
+        _add_dec_launches()
+    eng, n, K, start, P, fracv, kw = _steady_chunk(HEAD, dev, n_target)
+    xc = _noise_dev(dev, (2, n), 73, 0.6)
+    hist = eng.hist
+    zero = torch.zeros((), device=dev)
+    ref_hist, ref_out, ref_pow = k1.fixed_step(hist, xc, P, start, K, zero,
+                                               **kw)
+    for label, flags in (("HP flat", HP), ("ATH HP", HP | ATH)):
+        host = _host_decimator(flags)
+        dkw = _dec_kw(host, dev)
+        sh = host.noise_shaper
+        _reset_launches()
+        res = pipeline_chunk(
+            xc, hist, P, start, K, dkw["gens"], host.feedback,
+            np.zeros((4, 2), np.float32) if sh is None else sh.xh,
+            np.zeros((4, 2), np.float32) if sh is None else sh.yh,
+            M=kw["M"], L=kw["L"], nb=kw["nb"], qn_pad=kw["qn"],
+            qn_local=kw["qn"], hist_len=kw["hist_len"],
+            scaler=float(host.scaler), highclip=host.highclip,
+            lowclip=host.lowclip, dither_type=host.dither_type,
+            shaper_a=None if sh is None else sh.a,
+            shaper_b=None if sh is None else sh.b, output_bits=16,
+            output_bytes=2)
+        _sync(dev)
+        launches = (k1.launches, dict(dd.launches))
+        _add_dec_launches()
+        packed, new_hist, new_gens, fb, xh, yh, clips, power = res
+        ok = _bitwise(new_hist, ref_hist) and _bitwise(power, ref_pow)
+        if sh is None:
+            want = dd.decimate_flat_reference(ref_out.T, K, **dkw)
+            ok &= all(_bitwise(g, w) for g, w in
+                      zip((packed, clips, new_gens), want))
+        else:
+            wp, wc = host.process_interleaved(ref_out[:, :K].T.cpu().numpy())
+            ok &= bool(np.array_equal(packed[:K].cpu().numpy(), wp)
+                       and int(clips) == wc
+                       and np.array_equal(yh.cpu().numpy(), sh.yh)
+                       and np.array_equal(dd.states_numpy(new_gens),
+                                          host.tpdf_generators))
+        ref = "the plain version" if sh is None else "the native host"
+        print(f"  pipeline_chunk {label}, preset -3 chunk ({n} frames in, K "
+              f"{K}): history and power bitwise K1's, bytes and state "
+              f"bitwise {ref} {ok}; clips {int(clips)}; launches K1 "
+              f"{launches[0]}, decimate {launches[1]}")
+        _require(ok, f"pipeline_chunk {label}")
+        _require(dev.type != "cuda" or (launches[0] == 1 and sum(
+            launches[1].values()) == 1), f"pipeline_chunk {label} launches")
+
+
+def _host_ms(fn, reps):
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_decimate_timing(dev, tag, n_target=1 << 22, block=16384,
+                          group=8, reps=20):
+    """The decimate kernels' times with CUDA events, in turns with their
+    plain versions, beside the native host decimator on the same samples
+    (host clock): the flat kernel on a 2^22-frame stereo chunk to 16 bits
+    (HP dither, K1's layout) with its bound (samples in plus packed bytes
+    out over the memory rate); process_flat_packed's epilogue on a group
+    of 8 preset -3 chunks, kernel against the int64 plain version; the
+    shaped kernel on the art command's steady block and on the 2^22
+    chunk.  Returns {kernel: (ms, plain ms, bound)}."""
+    res = {}
+    n = n_target
+    buf = _noise_dev(dev, (2, n), 74, 0.6)
+    host = _host_decimator(HP)
+    kw = _dec_kw(host, dev)
+    xnp = np.ascontiguousarray(buf.T.cpu().numpy())
+    variants = {
+        "decimate_flat kernel": lambda: dd.decimate_flat(buf.T, n, **kw),
+        "decimate_flat plain": lambda: dd.decimate_flat_reference(
+            buf.T, n, **kw)}
+    order = ["decimate_flat plain", "decimate_flat kernel",
+             "decimate_flat kernel", "decimate_flat plain"]
+    med = _time_in_turns(dev, variants, order, reps,
+                         f"per {n}-frame stereo chunk, 16 bits, HP", tag)
+    host_ms = _host_ms(lambda: host.process_interleaved(xnp), 3)
+    bound = _bound_ms(n * 2 * (4 + 2), 7 * n * 2, PEAK_F32)
+    kms = med.get("decimate_flat kernel", float("nan"))
+    print(f"  native host decimator, same chunk: {host_ms:.4f} ms (host "
+          f"clock); decimate_flat bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{n * 12 / 1e6:.1f} MB), kernel at {bound[0] / kms:.1%} of it "
+          f"{tag}")
+    res["decimate_flat"] = (kms, med["decimate_flat plain"], bound)
+    # process_flat_packed's epilogue: a group of 8 preset -3 chunks
+    K0 = _steady_chunk(HEAD, dev, n_target)[2]
+    grp = _noise_dev(dev, (2, group * K0), 75, 0.25)
+    zi = torch.zeros((), dtype=torch.int32, device=dev)
+    qkw = dict(highclip=32767, lowclip=-32768, output_bits=16,
+               output_bytes=2)
+    variants = {
+        "epilogue kernel": lambda: streams._quantize_pack(grp, 32768.0, zi,
+                                                          **qkw),
+        "epilogue int64 plain": lambda: streams._quantize_pack_reference(
+            grp, 32768.0, zi, **qkw)}
+    order = ["epilogue int64 plain", "epilogue kernel", "epilogue kernel",
+             "epilogue int64 plain"]
+    _time_in_turns(dev, variants, order, 5,
+                   f"per group of {group} x {K0} stereo frames "
+                   f"(process_flat_packed int16)", tag)
+    # the shaped kernel: the art command's steady block and the 2^22 chunk
+    eng, n1, Kb, start, P, fracv, kw1 = _steady_chunk(HEAD, dev, block)
+    out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), 76, 0.6), P,
+                        start, Kb, torch.zeros((), device=dev), **kw1)[1]
+    host = _host_decimator(HP | ATH)
+    skw = _dec_kw(host, dev)
+    bnp = np.ascontiguousarray(out[:, :Kb].T.cpu().numpy())
+    ms = _time_ms(dev, lambda: dd.decimate_shaped(out.T, Kb, **skw), reps) \
+        if dev.type == "cuda" else float("nan")
+    _sync(dev)
+    t0 = time.perf_counter()
+    dd.decimate_shaped_reference(out.T, Kb, **skw)
+    _sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    block_host = _host_ms(lambda: host.process_interleaved(bnp), reps)
+    bound = _bound_ms(Kb * 2 * (4 + 2), 20 * Kb * 2, PEAK_F32)
+    print(f"  decimate_shaped ATH HP 16, art's steady block ({Kb} frames): "
+          f"kernel {ms:.4f} ms (CUDA events, {reps} calls), plain "
+          f"{plain_ms:.1f} ms (one call, host clock), native host "
+          f"{block_host:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}) "
+          f"{tag}")
+    res["decimate_shaped"] = (ms, plain_ms, bound)
+    if dev.type == "cuda":
+        chunk = _time_ms(dev, lambda: dd.decimate_shaped(buf.T, n, **skw),
+                         2)
+        chunk_host = _host_ms(lambda: host.process_interleaved(xnp), 2)
+        print(f"  decimate_shaped ATH HP 16, {n}-frame stereo chunk: kernel "
+              f"{chunk:.3f} ms, native host {chunk_host:.3f} ms {tag}")
+    return res
+
+
 def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                   bound, library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -1616,7 +2087,7 @@ def main(argv) -> int:
         return 0
     t_start = time.perf_counter()
     print("phase 1: device")
-    name, count, tag = phase_device()
+    kind, count, tag = phase_device()
     print("phase 2: build")
     phase_build()
     print("phase 3: K1 vs plain PyTorch on the card")
@@ -1646,7 +2117,11 @@ def main(argv) -> int:
     print("phase 8: throughput")
     med = phase_throughput(dev, tag)
     phase_interp_timing(dev, tag)
-    phase_group_throughput(dev, tag)
+    rates = phase_group_throughput(dev, tag)
+    print(f"  preset -3 process_flat_packed int16 "
+          f"{rates['preset -3 packed'][0]:.2f} beside process_flat_out "
+          f"delivered {rates['preset -3 delivered'][0]:.2f} M output "
+          f"frames/s {tag}")
     poly = phase_polyphase_timing(dev, tag)
     timed = phase_asrc_throughput(dev, tag)
     print("phase 9: precision tiers, K1's instances vs plain PyTorch on the "
@@ -1670,6 +2145,16 @@ def main(argv) -> int:
     launches["fixed_step"] += cli["fixed_step"]
     launches["asrc_step"] += cli["asrc_step"]
     tier_launches["f32_acc64"] += cli["fixed_step_f32_acc64"]
+    print("phase 13: device decimate: the kernels vs plain PyTorch, "
+          "DeviceDecimator vs the native host over 60 s, pipeline_chunk, "
+          "times")
+    worst.update(phase_decimate_kernels(dev))
+    phase_decimate_paths(dev)
+    print(f"  the decimate kernels' launches on the main paths: "
+          f"{DEC_PATH_LAUNCHES}")
+    _require(dev.type != "cuda" or all(DEC_PATH_LAUNCHES.values()),
+             "a decimate kernel was not launched on its paths")
+    dec_timed = phase_decimate_timing(dev, tag)
     src = "art_tpu_torch/csrc/"
     pk = "art_tpu/ops/pallas_kernels.py:"
     kernels = [_kernel_entry(
@@ -1695,11 +2180,17 @@ def main(argv) -> int:
             f"fixed_step_{inst}", src + "fixed_step.cu",
             "art_tpu/parallel/pipeline.py:39", tier_launches[inst],
             tier_err[inst], ms, plain_ms, bound, lib_ms))
+    for key, line in (("decimate_flat", 113), ("decimate_shaped", 131)):
+        ms, plain_ms, bound = dec_timed[key]
+        kernels.append(_kernel_entry(
+            key, src + "decimate.cu",
+            f"art_tpu/ops/decimate_device.py:{line}",
+            DEC_PATH_LAUNCHES[key], worst[key], ms, plain_ms, bound))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": kind, "count": count}}))
     return 0
 
 

@@ -135,6 +135,91 @@ def test_art_cuda_bytes_equal_jax_device(args, wav_in, tmp_path):
         assert b == _port("numpy", args, wav_in, tmp_path)[0]
 
 
+def _codes(wav: bytes):
+    return np.frombuffer(_data(wav), "<i2").astype(np.int32)
+
+
+@pytest.mark.parametrize("args", [
+    ["-o16", "-n0"], ["-o16", "-n0", "-d1"], ["-o8", "-n0", "-d2"],
+    ["-o24", "-n0", "-d0", "-g3"], ["-o16", "-n0", "-m"]], ids=" ".join)
+def test_art_cuda_device_decimator_bytes_equal_numpy(args, wav_in,
+                                                     tmp_path):
+    """Decimate only, unshaped: the device decimator's input is the
+    numpy backend's, so the bytes are identical (JAX's test_io_cli.py
+    decimate-only check, on the port)."""
+    a, ea = _port("numpy", args, wav_in, tmp_path)
+    b, eb = _port("cuda", args, wav_in, tmp_path)
+    assert a == b and ea == eb
+
+
+def test_art_cuda_device_decimator_after_resample(wav_in, tmp_path):
+    """-r48k -o16 -n0 -m: the device decimator on K1's steady blocks, its
+    fetches drained by the write pool: lengths and clip warnings equal to
+    the numpy backend's, codes within the floor of JAX's own test."""
+    args = ["-r48k", "-o16", "-n0", "-m"]
+    a, ea = _port("numpy", args, wav_in, tmp_path)
+    b, eb = _port("cuda", args, wav_in, tmp_path)
+    assert len(a) == len(b) and ea == eb and "clipped" in ea
+    diff = np.abs(_codes(a) - _codes(b))
+    assert diff.max() <= 12 and diff.mean() < 2.0
+
+
+def _spy_device_decimator(monkeypatch):
+    from art_tpu_torch.engines.decimator import DeviceDecimator
+    rows = []
+    orig = DeviceDecimator.process_chunk_async
+
+    def spy(self, src, generated):
+        rows.append((int(src.shape[0]), isinstance(src, torch.Tensor)))
+        return orig(self, src, generated)
+
+    monkeypatch.setattr(DeviceDecimator, "process_chunk_async", spy)
+    return rows
+
+
+def test_art_cuda_oversize_engine_chunk_is_sliced(monkeypatch, tmp_path):
+    """JAX's test_cli_device_oversize_engine_chunk_single_shape on the
+    port: an engine block longer than the CLI's decimator bucket
+    (ceil(outcap/256)*256) holds invalid padding past it, which is sliced
+    off.  JAX's -t16 -f1024 -r48k pads its block to 18432 rows; the port's
+    K1 block is exactly nb = ceil(K/L) blocks (17920 rows there, inside the
+    bucket), so the port's oversize case is -r32k: 12160 rows against a
+    bucket of 12032.  Output at the floor of the numpy backend."""
+    rng = np.random.default_rng(11)
+    n = 44100
+    x = (rng.standard_normal((n, 2)) * 0.4).astype("<f4")
+    src = tmp_path / "in.wav"
+    with open(src, "wb") as f:
+        wavfile.write_wav_header(f, bits=32, num_channels=2, num_frames=n,
+                                 sample_rate=44100, channel_mask=0x3)
+        f.write(x.tobytes())
+    rows = _spy_device_decimator(monkeypatch)
+    args = ["-t16", "-f1024", "-r32k", "-o16", "-n0"]
+    b, eb = _port("cuda", args, src, tmp_path)
+    outcap = int((tart.BUFFER_SAMPLES + 8) * 32000 / 44100 + 100.0)
+    bucket = -(-outcap // 256) * 256
+    steady = [r for r, on_device in rows if on_device]
+    assert bucket == 12032 and steady and set(steady) == {bucket}
+    assert all(r <= bucket for r, _ in rows)
+    a, ea = _port("numpy", args, src, tmp_path)
+    assert len(a) == len(b) and ea == eb
+    diff = np.abs(_codes(a) - _codes(b))
+    assert diff.max() <= 12 and diff.mean() < 2.0
+
+
+@pytest.mark.parametrize("args,runs", [
+    (["-r48k", "-o16", "-n0"], True), (["-r48k", "-o16"], False),
+    (["-r48k", "-o16", "-n0", "--f64"], False)],
+    ids=["unshaped", "ATH shaping", "f64"])
+def test_art_cuda_device_decimator_gate(args, runs, monkeypatch, wav_in,
+                                        tmp_path):
+    """JAX's gate: the device decimator runs for an unshaped float32
+    integer output, not for the default ATH shaping or the float64 path."""
+    rows = _spy_device_decimator(monkeypatch)
+    _port("cuda", args, wav_in, tmp_path)
+    assert bool(rows) == runs
+
+
 _LINE = re.compile(r"(\w+) \(-w(\d)\): count =\s*(\d+), checksum = (\w+), "
                    r"range = ([-\d.]+) to ([-\d.]+), RMS = ([-\d.]+) dB")
 _DEC = re.compile(r"decimate \(-w3\): count =\s*(\d+), checksum = (\w+), "
@@ -233,6 +318,22 @@ def test_art_cuda_failure_propagates(fault, monkeypatch, wav_in, tmp_path):
     # converted file: the command exits non-zero
     if fault is not _fail_launch:
         assert not dst.exists()
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["", "-m"])
+def test_art_cuda_decimate_failure_propagates(multi, monkeypatch, wav_in,
+                                              tmp_path):
+    """A failed decimate kernel build or launch ends the command with its
+    error, also when the fetches run on the write pool."""
+    from art_tpu_torch.ops import decimate_device as dd
+
+    def decimate_flat(*args, **kwargs):
+        raise RuntimeError("decimate kernel launch failed")
+    monkeypatch.setattr(dd, "decimate_flat", decimate_flat)
+    with pytest.raises(RuntimeError, match="decimate kernel"):
+        tart.main(["-q", "-y", "--backend=cuda", "-r48k", "-o16", "-n0",
+                   *(["-m"] if multi else []), str(wav_in),
+                   str(tmp_path / "out.wav")], device="cpu")
 
 
 def test_artest_cuda_failure_propagates(monkeypatch):

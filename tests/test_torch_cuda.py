@@ -670,3 +670,170 @@ def test_kernel_hull_matches_plain(case):
     assert torch.equal(h, hr.float())
     if case == "zero-group":
         assert not o.view(2, nb, L)[:, :, 32:64].any()
+
+
+# ----------------------------------------------------- the decimate kernels
+# bitwise: the packed bytes, clip counts and states are exact contracts
+DEC_FLAT = [  # (dither type, bits, bytes, dtype, planar, layout, K cut)
+    (-1, 16, 2, torch.float32, False, "k1", 0),
+    (1, 8, 1, torch.float32, False, "interleaved", 777),
+    (0, 24, 3, torch.float32, False, "k1", 777),
+    (2, 24, 4, torch.float32, False, "interleaved", 0),
+    (None, 16, 2, torch.float32, True, "k1", 0),
+    (None, 12, 2, torch.float64, True, "k1", 0),
+    (-1, 20, 3, torch.float64, False, "k1", 31),
+]
+
+
+def _dec_samples(dev, n, dtype, layout, cut, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((2, n)) * 0.6)).to(dev, dtype)
+    samples = x.T if layout == "k1" else x.T.contiguous()
+    K = n - cut
+    if cut:
+        samples = samples.clone()
+        samples[K:] = float("nan")
+    return samples, K
+
+
+def _dec_kw(dev, bits, nbytes, dither_type, seed):
+    from art_tpu_torch.ops import decimate_device as dd
+    hi = (1 << (bits - 1)) - 1
+    gens = np.random.default_rng(seed).integers(0, 1 << 32, 2,
+                                                dtype=np.uint64)
+    return dict(scaler=(hi + 1) * 1.07, highclip=hi, lowclip=~hi,
+                output_bits=bits, output_bytes=nbytes,
+                gens=dd.states_tensor(gens.astype(np.uint32), dev),
+                dither_type=dither_type)
+
+
+def _bits_equal(a, b):
+    if a.is_floating_point():
+        a, b = a.double(), b.double()
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", DEC_FLAT, ids=[
+    f"{c[0]}-{c[1]}in{c[2]}-{str(c[3])[6:]}-{'planar' if c[4] else c[5]}"
+    f"-cut{c[6]}" for c in DEC_FLAT])
+def test_decimate_flat_kernel_matches_plain(case):
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    dither_type, bits, nbytes, dtype, planar, layout, cut = case
+    samples, K = _dec_samples(dev, 100_003, dtype, layout, cut, bits)
+    kw = _dec_kw(dev, bits, nbytes, dither_type, bits + 1)
+    kw["feedback"] = torch.tensor([0.25, -0.5], dtype=dtype, device=dev)
+    kw["planar"] = planar
+    got = dd.decimate_flat(samples, K, **kw)
+    want = dd.decimate_flat_reference(samples, K, **kw)
+    torch.cuda.synchronize()
+    assert int(got[1]) == int(want[1]) > 0
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+DEC_SHAPED = [("ath", -1, 16, torch.float32, 0),
+              ("2nd", 0, 8, torch.float32, 333),
+              ("ath", None, 24, torch.float32, 0),
+              ("ath", 1, 16, torch.float64, 333)]
+
+
+@pytest.mark.parametrize("case", DEC_SHAPED, ids=[
+    f"{c[0]}-{c[1]}-{c[2]}-{str(c[3])[6:]}-cut{c[4]}" for c in DEC_SHAPED])
+def test_decimate_shaped_kernel_matches_plain(case):
+    from art_tpu_torch.core import flags as F
+    from art_tpu_torch.engines.decimator import Decimator
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    curve, dither_type, bits, dtype, cut = case
+    flags = F.SHAPING_ATH_CURVE if curve == "ath" else F.SHAPING_2ND_ORDER
+    sh = Decimator(2, bits, 3, 1.0, 48000, flags,
+                   dtype=np.float64 if dtype == torch.float64
+                   else np.float32).noise_shaper
+    samples, K = _dec_samples(dev, 3001, dtype, "k1", cut, bits)
+    kw = _dec_kw(dev, bits, (bits + 7) // 8, dither_type, bits)
+    kw.update(a=sh.a, b=sh.b, xh=sh.xh + 0.1, yh=sh.yh - 0.1,
+              feedback=np.array([0.3, -0.2]))
+    got = dd.decimate_shaped(samples, K, **kw)
+    want = dd.decimate_shaped_reference(samples, K, **kw)
+    torch.cuda.synchronize()
+    assert int(got[1]) == int(want[1])
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("flags", ["hp", "hp-ath", "lp-2nd"])
+def test_device_decimator_on_card_matches_host(flags):
+    from art_tpu_torch.core import flags as F
+    from art_tpu_torch.engines.decimator import Decimator, DeviceDecimator
+    dev = _card()
+    fl = {"hp": F.DITHER_HIGHPASS,
+          "hp-ath": F.DITHER_HIGHPASS | F.SHAPING_ATH_CURVE,
+          "lp-2nd": F.DITHER_LOWPASS | F.SHAPING_2ND_ORDER}[flags]
+    host = Decimator(2, 16, 2, 1.0, 48000, fl, backend="numpy")
+    engine = DeviceDecimator(2, 16, 2, 1.0, 48000, fl, device=dev)
+    rng = np.random.default_rng(5)
+    for n, K in ((4096, 4096), (4096, 1000), (777, 777)):
+        x = (rng.standard_normal((n, 2)) * 0.7).astype(np.float32)
+        x[K:] = np.nan
+        want, wc = host.process_interleaved(x[:K])
+        got, gc = engine.process_chunk(torch.from_numpy(x).to(dev), K)
+        assert gc == wc and np.array_equal(got, want)
+    assert np.array_equal(engine.state_dict()["gens"], host.tpdf_generators)
+
+
+def test_packed_epilogue_on_card_matches_plain():
+    """process_flat_packed's epilogue: the flat kernel's container
+    against the int64 plain version, on the card."""
+    from art_tpu_torch.parallel import streams
+    dev = _card()
+    out = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 50_000)).astype(np.float32) * 0.6).to(dev)
+    zi = torch.zeros((), dtype=torch.int32, device=dev)
+    for scaler, bits, nbytes in ((32768.0, 16, 2), (32768.0 * 1.37, 16, 2),
+                                 (128.0, 8, 1), (8388608.0, 24, 4)):
+        hi = (1 << (bits - 1)) - 1
+        kw = dict(highclip=hi, lowclip=~hi, output_bits=bits,
+                  output_bytes=nbytes)
+        got, gc = streams._quantize_pack(out, scaler, zi, **kw)
+        want, wc = streams._quantize_pack_reference(out, scaler, zi, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and int(gc) == int(wc) > 0
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["", "-m"])
+def test_art_device_decimator_on_card(multi, tmp_path):
+    """art -r48k -o16 -n0 --backend=cuda on the card (the fetches on the
+    write pool with -m): lengths and clip warnings equal to the numpy
+    backend's, codes within the resample-then-decimate floor."""
+    import io
+    from contextlib import redirect_stderr
+
+    from art_tpu_torch.cli import art
+    from art_tpu_torch.io import wavfile
+    _card()
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((88200, 2)) * 0.4).astype("<f4")
+    src = tmp_path / "in.wav"
+    with open(src, "wb") as f:
+        wavfile.write_wav_header(f, bits=32, num_channels=2,
+                                 num_frames=x.shape[0], sample_rate=44100,
+                                 channel_mask=0x3)
+        f.write(x.tobytes())
+    got = {}
+    for be in ("cuda", "numpy"):
+        dst = tmp_path / f"{be}.wav"
+        err = io.StringIO()
+        with redirect_stderr(err):
+            rc = art.main(["-q", "-y", f"--backend={be}", "-r48k", "-o16",
+                           "-n0", *(["-m"] if multi else []), str(src),
+                           str(dst)])
+        assert rc == 0, err.getvalue()
+        data = dst.read_bytes()
+        got[be] = (data, err.getvalue())
+    (a, ea), (b, eb) = got["cuda"], got["numpy"]
+    assert len(a) == len(b) and ea == eb and "clipped" in ea
+    diff = np.abs(np.frombuffer(a[-40000:], "<i2").astype(np.int32)
+                  - np.frombuffer(b[-40000:], "<i2").astype(np.int32))
+    assert diff.max() <= 12 and diff.mean() < 2.0

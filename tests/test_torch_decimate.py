@@ -1,0 +1,412 @@
+"""The port's device decimate stage against JAX's, on the CPU.
+
+``art_tpu_torch/ops/decimate_device.py``'s plain versions against
+``art_tpu/ops/decimate_device.py`` function by function, the port's
+``DeviceDecimator(device="cpu")`` against JAX's ``DeviceDecimator`` and the
+host ``Decimator``, ``pipeline_chunk`` against JAX's (single device), and
+the packed group form's container layout against its int64 plain version.
+Inputs come from numpy seeds and go to both sides.  Every comparison is
+bitwise -- dither, LCG states, codes, clip flags and counts, shaper states
+and packed bytes are exact contracts -- but one: JAX's float64 shaped scan,
+whose state XLA:CPU computes with FMAs; there the port is held bitwise to
+the host decimator instead (test_quantize_shaped_equal)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from art_tpu.core import flags as JF
+from art_tpu.engines.decimator import DeviceDecimator as JDeviceDecimator
+from art_tpu.ops import decimate_device as jdd
+from art_tpu.parallel.pipeline import pipeline_chunk as jpipeline_chunk
+from art_tpu_torch.engines.decimator import Decimator as TDecimator
+from art_tpu_torch.engines.decimator import DeviceDecimator
+from art_tpu_torch.ops import decimate_device as dd
+from art_tpu_torch.ops import decimate_kernel as dk
+from art_tpu_torch.parallel import streams
+from art_tpu_torch.parallel.pipeline import pipeline_chunk
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _tables(n):
+    return [_t(t.astype(np.int64)) for t in dd.dither_tables(n)]
+
+
+def _gens(S, seed):
+    """S uint32 states, both parities."""
+    g = np.random.default_rng(seed).integers(0, 1 << 32, S, dtype=np.uint64)
+    g[0] &= ~np.uint64(1)
+    g[-1] |= np.uint64(1)
+    return g.astype(np.uint32)
+
+
+# ------------------------------------------------ the plain versions, bitwise
+@pytest.mark.parametrize("n", [1, 7, 700, 4096])
+def test_dither_tables_equal(n):
+    for a, b in zip(dd.dither_tables(n), jdd.dither_tables(n)):
+        assert a.dtype == b.dtype == np.uint32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dither_type", [-1, 0, 1])
+@pytest.mark.parametrize("n", [1, 7, 700])
+def test_tpdf_dither_and_advance_equal(n, dither_type):
+    gens = _gens(5, n + dither_type)
+    jd, jseq = jdd.tpdf_dither_dev(jnp.asarray(gens), *map(
+        jnp.asarray, jdd.dither_tables(n)), dither_type, n)
+    d, seq = dd.tpdf_dither_dev(_t(gens.astype(np.int64)), *_tables(n),
+                                dither_type, n)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(seq.numpy(), np.asarray(jseq))
+    for K in sorted({0, 1, n}):
+        want = jdd.advance_states(jnp.asarray(gens), jseq, jnp.int32(K))
+        got = dd.advance_states(_t(gens.astype(np.int64)), seq, K)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _frames(n, S, seed, dtype, scale=0.7):
+    rng = np.random.default_rng(seed)
+    return np.clip(rng.standard_normal((n, S)) * scale, -1.3,
+                   1.3).astype(dtype)
+
+
+def _dither(n, S, seed):
+    gens = _gens(S, seed)
+    return np.asarray(jdd.tpdf_dither_dev(jnp.asarray(gens), *map(
+        jnp.asarray, jdd.dither_tables(n)), -1, n)[0]).T
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("scaler", [32768.0, 32768.0 * 1.37])
+@pytest.mark.parametrize("dithered", [False, True], ids=["plain", "dither"])
+def test_quantize_flat_equal(dtype, scaler, dithered):
+    n, S = 500, 3
+    x = _frames(n, S, 1, dtype)
+    d = _dither(n, S, 2) if dithered else None
+    fb = (np.random.default_rng(3).standard_normal(S) * 0.3).astype(dtype)
+    s = dtype(scaler)
+    jo, jc = jdd.quantize_flat_dev(jnp.asarray(x), None if d is None else
+                                   jnp.asarray(d), s, jnp.asarray(fb),
+                                   32767, -32768)
+    o, c = dd.quantize_flat_dev(_t(x), None if d is None else _t(d), s,
+                                _t(fb), 32767, -32768)
+    np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    assert c.any()
+
+
+def _shaper(flags, rate, dtype):
+    """A host shaper (engines.biquad.Biquad) with seeded histories."""
+    sh = TDecimator(3, 16, 2, 1.0, rate, flags, dtype=dtype).noise_shaper
+    rng = np.random.default_rng(rate)
+    sh.xh = (rng.standard_normal((4, 3)) * 0.4).astype(dtype)
+    sh.yh = (rng.standard_normal((4, 3)) * 0.4).astype(dtype)
+    return sh
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("curve", ["ath", "2nd"])
+@pytest.mark.parametrize("K", [0, 1, 157, 300])
+def test_quantize_shaped_equal(dtype, curve, K):
+    """float32: bitwise JAX's scan.  float64: bitwise the host decimator's
+    scan (the reference's op order); JAX's float64 scan differs from both
+    by an ulp in its state (XLA:CPU contracts float64 products into FMAs:
+    ``_mul_for``'s barrier covers float32 only), so against JAX the codes
+    and clip flags are exact and the state within 1e-9 (code units: the
+    ulp grows through the resonant ATH shaper, ~8e-12 after 157 frames)."""
+    n, S = 300, 3
+    flags = (JF.SHAPING_ENABLED | JF.SHAPING_ATH_CURVE if curve == "ath"
+             else JF.SHAPING_ENABLED | JF.SHAPING_2ND_ORDER)
+    sh = _shaper(flags, 44100, dtype)
+    a, b = np.asarray(sh.a, dtype), np.asarray(sh.b, dtype)
+    xh, yh = sh.xh.copy(), sh.yh.copy()
+    x = _frames(n, S, 4, dtype)
+    x[K:] = np.nan
+    d = _dither(n, S, 5)
+    fb = (np.random.default_rng(6).standard_normal(S) * 0.2).astype(dtype)
+    s = dtype(32768.0 * 1.37)
+    want = jdd.quantize_shaped_dev(jnp.asarray(x), jnp.asarray(d), s,
+                                   jnp.asarray(fb), a, b, jnp.asarray(xh),
+                                   jnp.asarray(yh), jnp.int32(K), 32767,
+                                   -32768)
+    got = dd.quantize_shaped_dev(_t(x), _t(d), s, _t(fb), _t(a), _t(b),
+                                 _t(xh), _t(yh), K, 32767, -32768)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if dtype == np.float32:
+        for g, w in zip(got[2:], want[2:]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        return
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-9)
+    if K:
+        outv, clipped, hfb = dk.quantize_shaped_numpy(
+            x[:K], d[:K], s, fb, sh, 32767, -32768)
+        np.testing.assert_array_equal(got[0][:K].numpy(), outv)
+        assert int(got[1].sum()) == clipped
+        for g, w in zip(got[2:], (hfb, sh.xh, sh.yh)):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+PACKS = [(bits, nb) for bits in range(4, 25)
+         for nb in range((bits + 7) // 8, 5)]
+
+
+@pytest.mark.parametrize("bits,nbytes", PACKS,
+                         ids=[f"{b}in{n}" for b, n in PACKS])
+def test_pack_bytes_equal(bits, nbytes):
+    hi = (1 << (bits - 1)) - 1
+    outv = np.random.default_rng(bits).integers(~hi, hi + 1, (64, 3)) \
+        .astype(np.int32)
+    outv[0] = [~hi, hi, 0]
+    want = jdd.pack_bytes_dev(jnp.asarray(outv), bits, nbytes)
+    got = dd.pack_bytes_dev(_t(outv), bits, nbytes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# --------------------------------------------------------- DeviceDecimator
+CASES = [
+    (JF.DITHER_HIGHPASS | JF.SHAPING_ATH_CURVE, 16, 2, 44100),
+    (JF.DITHER_FLAT, 16, 2, 48000),
+    (JF.DITHER_LOWPASS | JF.SHAPING_2ND_ORDER, 8, 1, 32000),
+    (0, 24, 3, 96000),
+    (JF.DITHER_HIGHPASS, 20, 4, 44100),
+]
+
+
+@pytest.mark.parametrize("flags,bits,nbytes,rate", CASES,
+                         ids=["hp-ath16", "flat16", "lp-2nd8", "none24",
+                              "hp20in4"])
+def test_device_decimator_equals_jax_and_host(flags, bits, nbytes, rate):
+    """JAX's test_device_decimator_engine_bit_exact, with JAX's engine as
+    a third leg; the ragged tails hold NaN past K."""
+    rng = np.random.default_rng(3)
+    ch = 2
+    host = TDecimator(ch, bits, nbytes, 1.0, rate, flags, backend="numpy")
+    jdev = JDeviceDecimator(ch, bits, nbytes, 1.0, rate, flags)
+    dev = DeviceDecimator(ch, bits, nbytes, 1.0, rate, flags, device="cpu")
+    for n, K in [(256, 256), (256, 100), (64, 64), (64, 0), (300, 1)]:
+        x = (rng.random((n, ch)).astype(np.float32) - 0.5) * 1.7
+        x[K:] = np.nan
+        ph, hc = host.process_interleaved(x[:K])
+        pj, jc = jdev.process_chunk(x, K)
+        pd, tc = dev.process_chunk(x, K)
+        assert tc == jc == hc, (n, K)
+        np.testing.assert_array_equal(pd, pj)
+        np.testing.assert_array_equal(pd, ph.reshape(K, ch * nbytes))
+        for key, v in dev.state_dict().items():
+            np.testing.assert_array_equal(v, jdev.state_dict()[key])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_device_decimator_ragged_chunks_freeze_state(dtype):
+    """JAX's test_device_quantize_ragged_chunks_freeze_state on the
+    engine: two ragged chunks with NaN past K equal one host run over the
+    valid frames."""
+    rng = np.random.default_rng(11)
+    flags = JF.DITHER_HIGHPASS | JF.SHAPING_ATH_CURVE
+    k1, k2, pad = 333, 250, 77
+    x1 = (rng.standard_normal((k1 + pad, 2)) * 0.5).astype(dtype)
+    x2 = (rng.standard_normal((k2 + pad, 2)) * 0.5).astype(dtype)
+    x1[k1:] = np.nan
+    x2[k2:] = np.nan
+    host = TDecimator(2, 16, 2, 1.0, 48000, flags, dtype=dtype)
+    ph, hc = host.process_interleaved(np.concatenate([x1[:k1], x2[:k2]]))
+    dev = DeviceDecimator(2, 16, 2, 1.0, 48000, flags, dtype=dtype,
+                          device="cpu")
+    p1, c1 = dev.process_chunk(_t(x1), k1)
+    p2, c2 = dev.process_chunk(x2, k2)
+    np.testing.assert_array_equal(np.concatenate([p1, p2]), ph)
+    assert c1 + c2 == hc
+
+
+def test_device_decimator_async_reads_a_strided_view():
+    """process_chunk_async takes K1's [ch, capacity] output as its
+    transpose, in place; rows past K pack code 0."""
+    flags = JF.DITHER_HIGHPASS
+    out = _t(_frames(2, 600, 8, np.float32).copy())          # [ch, cap]
+    dev = DeviceDecimator(2, 16, 2, 1.0, 44100, flags, device="cpu")
+    ref = DeviceDecimator(2, 16, 2, 1.0, 44100, flags, device="cpu")
+    packed, clips = dev.process_chunk_async(out.T, 500)
+    want, wc = ref.process_chunk(out.T.contiguous().numpy(), 500)
+    np.testing.assert_array_equal(packed[:500].numpy(), want)
+    assert int(clips) == wc
+    assert not packed[500:].any()
+
+
+@pytest.mark.parametrize("flags", [
+    JF.DITHER_HIGHPASS | JF.SHAPING_ATH_CURVE, JF.DITHER_LOWPASS, 0],
+    ids=["hp-ath", "lp", "none"])
+def test_state_carried_across_both_ways(flags):
+    """A JAX DeviceDecimator's state_dict loads into the port's and the
+    stream continues bitwise, and the reverse."""
+    rng = np.random.default_rng(9)
+    xs = [(rng.random((256, 2)).astype(np.float32) - 0.5) * 1.5
+          for _ in range(3)]
+    ref = JDeviceDecimator(2, 16, 2, 1.0, 44100, flags)
+    want = [ref.process_chunk(x, 200) for x in xs]
+    for first, second in ((JDeviceDecimator, DeviceDecimator),
+                          (DeviceDecimator, JDeviceDecimator)):
+        a = first(2, 16, 2, 1.0, 44100, flags, **(
+            {"device": "cpu"} if first is DeviceDecimator else {}))
+        pa, ca = a.process_chunk(xs[0], 200)
+        b = second(2, 16, 2, 1.0, 44100, flags, **(
+            {"device": "cpu"} if second is DeviceDecimator else {}))
+        b.load_state(a.state_dict())
+        got = [(pa, ca)] + [b.process_chunk(x, 200) for x in xs[1:]]
+        for (pg, cg), (pw, cw) in zip(got, want):
+            assert cg == cw
+            np.testing.assert_array_equal(pg, pw)
+
+
+def test_device_decimator_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        DeviceDecimator(2, 16, 2, 1.0, 44100, JF.DITHER_HIGHPASS)
+
+
+# ----------------------------------------------------------- pipeline_chunk
+def _pipeline_inputs(S=8, M=3, L=2, nb=16, qn=4, hist_len=32, onehot=True,
+                     seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((S, nb * M)) * 0.5).astype(np.float32)
+    hist = (rng.standard_normal((S, hist_len)) * 0.5).astype(np.float32)
+    if onehot:      # JAX's passthrough matrix: the resample is exact
+        P = np.zeros((qn * M, L), np.float32)
+        P[2, 0] = 1.0
+        P[5, 1] = 1.0
+    else:
+        P = (rng.standard_normal((qn * M, L)) * 0.3).astype(np.float32)
+    return x, hist, P
+
+
+def _pipeline_kw(dec, M=3, L=2, nb=16, qn=4, hist_len=32):
+    sh = dec.noise_shaper
+    return dict(M=M, L=L, nb=nb, qn_pad=qn, qn_local=qn, hist_len=hist_len,
+                scaler=float(dec.scaler), highclip=dec.highclip,
+                lowclip=dec.lowclip,
+                dither_type=dec.dither_type if dec.tpdf_generators is not None
+                else None,
+                shaper_a=None if sh is None else sh.a,
+                shaper_b=None if sh is None else sh.b, output_bits=16,
+                output_bytes=2)
+
+
+PIPE = [JF.DITHER_HIGHPASS | JF.SHAPING_ATH_CURVE, JF.DITHER_FLAT,
+        JF.SHAPING_2ND_ORDER | JF.SHAPING_ENABLED, 0]
+
+
+@pytest.mark.parametrize("flags", PIPE, ids=["hp-ath", "flat", "2nd", "none"])
+@pytest.mark.parametrize("K", [32, 23, 0])
+def test_pipeline_chunk_equals_jax(flags, K):
+    """The passthrough matrix (the resample exact on both sides): every
+    output of the chunk bitwise, JAX's tuple order, power to the float32
+    summation class."""
+    S, nK = 8, 32
+    dec = TDecimator(S, 16, 2, 1.0, 44100, flags)
+    kw = _pipeline_kw(dec)
+    x, hist, P = _pipeline_inputs(S)
+    gens = dk.seed_generators(S)
+    fb = np.zeros(S, np.float32)
+    xh = yh = np.zeros((4, S), np.float32)
+    want = jpipeline_chunk(
+        jnp.asarray(x), jnp.asarray(hist), jnp.asarray(P), jnp.int32(8),
+        jnp.int32(K), jnp.asarray(gens), jnp.asarray(fb), jnp.asarray(xh),
+        jnp.asarray(yh), *map(jnp.asarray, jdd.dither_tables(nK)), **kw)
+    got = pipeline_chunk(_t(x), _t(hist), _t(P), 8, K, gens, _t(fb),
+                         _t(xh), _t(yh), **kw)
+    names = ["packed", "hist", "gens", "fb", "xh", "yh", "clips"]
+    for name, g, w in zip(names, got, want):
+        g = dd.states_numpy(g) if name == "gens" else g.numpy()
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
+    np.testing.assert_allclose(float(got[7]), float(want[7]), rtol=1e-6)
+
+
+def test_pipeline_chunk_decimate_stage_equals_jax_chain():
+    """A dense random matrix: the resampled samples differ from JAX's at
+    the float32 contraction floor, so the new history and LCG states are
+    held bitwise against JAX's chunk, and the decimate stage bitwise
+    against JAX's stages run on the port's own resampled samples."""
+    from art_tpu_torch.ops import fixed_step as k1
+    S, nK, K = 8, 32, 29
+    flags = JF.DITHER_HIGHPASS | JF.SHAPING_ATH_CURVE
+    dec = TDecimator(S, 16, 2, 1.0, 44100, flags)
+    kw = _pipeline_kw(dec)
+    x, hist, P = _pipeline_inputs(S, onehot=False, seed=4)
+    gens = dk.seed_generators(S)
+    z = np.zeros((4, S), np.float32)
+    want = jpipeline_chunk(
+        jnp.asarray(x), jnp.asarray(hist), jnp.asarray(P), jnp.int32(5),
+        jnp.int32(K), jnp.asarray(gens), jnp.zeros(S, jnp.float32),
+        jnp.asarray(z), jnp.asarray(z),
+        *map(jnp.asarray, jdd.dither_tables(nK)), **kw)
+    got = pipeline_chunk(_t(x), _t(hist), _t(P), 5, K, gens,
+                         torch.zeros(S), _t(z), _t(z), **kw)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(dd.states_numpy(got[2]),
+                                  np.asarray(want[2]))
+    out = k1.fixed_step(_t(hist), _t(x), _t(P), 5, K, torch.zeros(()),
+                        M=3, L=2, nb=16, qn=4, hist_len=32)[1]
+    samples = jnp.asarray(out.T.numpy())
+    d, seq = jdd.tpdf_dither_dev(jnp.asarray(gens), *map(
+        jnp.asarray, jdd.dither_tables(nK)), -1, nK)
+    sh = dec.noise_shaper
+    outv, clipf, fb, xh, yh = jdd.quantize_shaped_dev(
+        samples, d.T, kw["scaler"], jnp.zeros(S, jnp.float32), sh.a, sh.b,
+        jnp.asarray(z), jnp.asarray(z), jnp.int32(K), 32767, -32768)
+    np.testing.assert_array_equal(
+        got[0].numpy(), np.asarray(jdd.pack_bytes_dev(outv, 16, 2)))
+    assert int(got[6]) == int(jnp.sum(clipf))
+    for g, w in zip(got[3:6], (fb, xh, yh)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_pipeline_chunk_refuses_what_is_not_ported():
+    S = 8
+    dec = TDecimator(S, 16, 2, 1.0, 44100, 0)
+    x, hist, P = _pipeline_inputs(S)
+    args = (_t(x), _t(hist), _t(P), 8, 32, dk.seed_generators(S),
+            torch.zeros(S), torch.zeros(4, S), torch.zeros(4, S))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pipeline_chunk(*args, **_pipeline_kw(dec), post_bq=((0, 0), (0, 0)))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pipeline_chunk(*args, **_pipeline_kw(dec), taps_axis="taps")
+
+
+# ------------------------------------------- the packed group form's layout
+def _int64_quantize_pack(out, scaler, bits, nbytes):
+    hi = (1 << (bits - 1)) - 1
+    return streams._quantize_pack(
+        out, scaler, torch.zeros((), dtype=torch.int32), highclip=hi,
+        lowclip=~hi, output_bits=bits, output_bytes=nbytes)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("gain", [1.0, 1.37], ids=["pow2", "other"])
+@pytest.mark.parametrize("bits,nbytes", [(16, 2), (8, 1), (24, 4), (12, 2)])
+def test_container_layout_equals_int64_quantize_pack(dtype, gain, bits,
+                                                     nbytes):
+    """decimate_flat's per-channel container (what process_flat_packed's
+    kernel writes on a card) against _quantize_pack's int64 plain version,
+    bytes and clip counts, with a power-of-two scaler and another."""
+    scaler = gain * (1 << (bits - 1))
+    out = _t(_frames(1000, 3, bits, dtype, 0.8).T.copy())        # [ch, n]
+    want, wc = _int64_quantize_pack(out, scaler, bits, nbytes)
+    hi = (1 << (bits - 1)) - 1
+    got, gc, _ = dd.decimate_flat(out.T, out.shape[1], scaler=scaler,
+                                  highclip=hi, lowclip=~hi, output_bits=bits,
+                                  output_bytes=nbytes, planar=True)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert int(gc) == int(wc) > 0
+    # and the interleaved layout is the same bytes frame by frame
+    inter, ic, _ = dd.decimate_flat(out.T, out.shape[1], scaler=scaler,
+                                    highclip=hi, lowclip=~hi,
+                                    output_bits=bits, output_bytes=nbytes)
+    assert torch.equal(inter.view(-1, 3, nbytes).transpose(0, 1)
+                       .reshape(3, -1), got.view(torch.uint8))
