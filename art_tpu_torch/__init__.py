@@ -16,8 +16,10 @@ adapter ``ASRCStreamResampler``, on the ASRC kernels of
 ``ops/asrc_step.py``), and the command lines ``art`` and ``artest``
 (``python -m art_tpu_torch.cli.art``, ``--backend=cuda``) on the file
 pipeline's ``HybridStreamResampler`` and copies of the host engines
-(``engines/``, ``io/``, ``native/``).  See ROADMAP.md for what is still to
-come.
+(``engines/``, ``io/``, ``native/``), with the device decimate stage
+(``ops/decimate_device.py``) and the biquad cascade
+(``ops/biquad_kernel.py``) on their own kernels.  See ROADMAP.md for what
+is still to come.
 """
 
 from __future__ import annotations

@@ -16,9 +16,8 @@ A copy of ``art_tpu/cli/art.py`` for the PyTorch port, run as ``python -m
 art_tpu_torch.cli.art``.  It differs in its backends: ``--backend=cuda``
 takes the place of ``--backend=device``: the resample stage's steady
 blocks run on the card and, for an integer output without noise shaping,
-the decimate stage too (``DeviceDecimator``, JAX's gate); the ``-p``
-filters run on the host until ROADMAP item 9 ports them, so with ``-p``
-the device decimator quantizes the host-filtered samples.
+the decimate stage too (``DeviceDecimator``, JAX's gate), with an
+upsampling ``-p`` post filter between them (``DeviceBiquadCascade``).
 ``--backend=jax`` and ``--mesh`` exit naming the ROADMAP items that port
 them (10 and 11).  ``main(argv, device=...)`` names the torch device of
 the cuda backend: the command line always runs on the card, and tests
@@ -459,6 +458,22 @@ def process_file(opt: Options, device="cuda") -> int:
                 num_channels, outbits, (outbits + 7) // 8, 1.0,
                 resample_rate, dec_flags, dtype=dt, device=device)
 
+        # -p upsampling with --backend=cuda: the post filter runs on the
+        # card as the masked block-IIR cascade between the device resample
+        # and decimate stages, with exact filter-state handoff to the host
+        # Biquads at chunk edges (reference chains these on host,
+        # art.c:1052-1058; here the chain stays on the card)
+        dev_post = None
+        dev_post_active = False
+        if (post_filter and opt.backend == "cuda"
+                and dev_decimator is not None
+                and hasattr(resampler, "process_interleaved_device")):
+            # gate mirrors the device-output consumer: without a device
+            # decimator no chunk ever takes the device output path, so a
+            # cascade built here could never run
+            from ..ops.biquad_kernel import DeviceBiquadCascade
+            dev_post = DeviceBiquadCascade(lowpass1, lowpass2, device=device)
+
         if resampler is not None:
             resampler.advance_position(opt.num_taps / 2.0 + opt.phase_shift)
 
@@ -579,9 +594,8 @@ def process_file(opt: Options, device="cuda") -> int:
 
                     dev_out = None
                     if resampler is not None:
-                        # with -p the post filter runs on the host (ROADMAP
-                        # item 9), so the block takes the host route
-                        if (dev_decimator is not None and not post_filter
+                        if (dev_decimator is not None
+                                and (not post_filter or dev_post is not None)
                                 and hasattr(resampler,
                                             "process_interleaved_device")):
                             outbuf, res, dev_out = \
@@ -608,8 +622,19 @@ def process_file(opt: Options, device="cuda") -> int:
                         outbuf = np.zeros((generated, num_channels), dt)
 
                     if post_filter and generated:
-                        outbuf = apply_cascade([lowpass1, lowpass2],
-                                               outbuf[:generated])
+                        if dev_out is not None:
+                            # device chunk: filter on the card, adopting the
+                            # host filters' streaming state on first use
+                            if not dev_post_active:
+                                dev_post.push_from(lowpass1, lowpass2)
+                                dev_post_active = True
+                            dev_out = dev_post.process(dev_out, generated)
+                        else:
+                            if dev_post_active:
+                                dev_post.pull_to(lowpass1, lowpass2)
+                                dev_post_active = False
+                            outbuf = apply_cascade([lowpass1, lowpass2],
+                                                   outbuf[:generated])
 
                     if output_samples + generated > target_output:
                         generated = target_output - output_samples

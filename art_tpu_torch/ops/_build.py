@@ -59,6 +59,11 @@ _SIGNATURES = {
     "art_decimate_shaped": [_vp, _ll, _ll, _ll, _ll, _i, _ll, _d, _vp, _vp,
                             _vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp, _i,
                             _i, _i, _i, _vp, _ll, _ll, _vp, _vp],
+    # x, n, S, x strides (frame, channel), kind, K, a|b, AB, ABQ, B, Q, xh,
+    # yh, work, new xh, new yh, y, y strides (frame, channel), stream
+    "art_biquad_section": [_vp, _ll, _ll, _ll, _ll, _i, _ll, _vp, _vp, _vp,
+                           _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
+                           _vp],
 }
 
 

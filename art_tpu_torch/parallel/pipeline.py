@@ -11,8 +11,10 @@ step a CPU tensor takes.  float64 data runs in float64 throughout;
 once, as ``residue_window_dots(precise=True)`` does.
 
 ``pipeline_chunk`` is the single-device production chunk of
-``art_tpu/parallel/pipeline.py``: the resample on K1, then dither,
-quantize and pack on the decimate kernels (``ops/decimate_device.py``).
+``art_tpu/parallel/pipeline.py``: the resample on K1, the optional post
+filter cascade on the biquad kernel (``ops/biquad_kernel.py``), then
+dither, quantize and pack on the decimate kernels
+(``ops/decimate_device.py``).
 """
 
 from __future__ import annotations
@@ -99,31 +101,43 @@ def pipeline_chunk(x, hist, P_local, start, K, gens, fb, xh, yh,
                    post_bq=None, bq_state=None, post_bq_tables=None,
                    post_bq_tables32=None, bq_sp_mult: int = 1):
     """One full production chunk with JAX's arguments: resample ->
-    dither -> (shaped) quantize -> pack, state flowing through.  The
-    resample is one K1 step (``ops/fixed_step.fixed_step``: the masked [S,
-    nb*L] block and the new history) over ``P_local`` [qn_pad*M, L]; the
-    rest one launch of ``decimate_flat_kernel`` (``shaper_a`` None) or
+    [biquad post-filter cascade] -> dither -> (shaped) quantize -> pack,
+    state flowing through.  The resample is one K1 step
+    (``ops/fixed_step.fixed_step``: the masked [S, nb*L] block and the new
+    history) over ``P_local`` [qn_pad*M, L]; ``post_bq`` ((a1, b1), (a2,
+    b2)) with ``bq_state`` (xh1, yh1, xh2, yh2), each [4, S], filters K1's
+    output, read in place, through two sections of the biquad kernel
+    (masked at K; ``post_bq_tables``: their iir_tables, else built at the
+    kernel's block), and the power is taken after the filter; the rest is
+    one launch of ``decimate_flat_kernel`` (``shaper_a`` None) or
     ``decimate_shaped_kernel``.  ``gens``: int32 LCG state bits [S] (or
     uint32 numpy); the dither tables (A, V0, V1) are not read, since the
-    kernels step the LCG themselves.  A CPU tensor takes the plain
-    versions.  Returns (packed u8 [nb*L, S*output_bytes], new_hist,
-    new_gens, fb', xh', yh', clips i32, power); packed rows at and past K
-    hold code 0.  The post filter (ROADMAP item 9) and the mesh axes (item
-    11) are not ported."""
+    kernels step the LCG themselves; ``post_bq_tables32`` and
+    ``bq_sp_mult`` change nothing (the solve is exact and needs no lane
+    padding).  A CPU tensor takes the plain versions.  Returns (packed u8
+    [nb*L, S*output_bytes], new_hist, new_gens, fb', xh', yh', clips i32,
+    power[, bq_state']); packed rows at and past K hold code 0.  The mesh
+    axes (ROADMAP item 11) are not ported."""
     from .._roadmap import _not_ported
+    from ..ops import biquad_kernel as bk
     from ..ops import decimate_device as dd
     from ..ops import fixed_step as k1
-    if post_bq is not None or bq_state is not None:
-        raise _not_ported("pipeline_chunk's post_bq cascade", 9)
     if streams_axis is not None or taps_axis is not None:
         raise _not_ported("pipeline_chunk over a mesh (streams_axis, "
                           "taps_axis)", 11)
-    del A, V0, V1, qn_local, post_bq_tables, post_bq_tables32, bq_sp_mult
+    del A, V0, V1, qn_local, post_bq_tables32, bq_sp_mult
     dev = x.device
     new_hist, out, power = k1.fixed_step(
         hist, x, P_local, int(start), int(K),
         torch.zeros((), dtype=x.dtype, device=dev), M=M, L=L, nb=nb,
         qn=qn_pad, hist_len=hist_len)
+    if post_bq is not None:
+        (a1, b1), (a2, b2) = post_bq
+        t1, t2 = post_bq_tables or (None, None)
+        out, *new_bq_state = bk._cascade2_step_T(
+            out, a1, b1, bq_state[0], bq_state[1], a2, b2, bq_state[2],
+            bq_state[3], int(K), t1, t2)
+        power = torch.sum(out * out)
     gens = dd.states_tensor(gens, dev)
     fb, xh, yh = (torch.as_tensor(t, dtype=x.dtype, device=dev)
                   for t in (fb, xh, yh))
@@ -138,4 +152,7 @@ def pipeline_chunk(x, hist, P_local, start, K, gens, fb, xh, yh,
     else:
         packed, clips, new_gens = dd.decimate_flat(
             samples, int(K), feedback=fb, **kw)
+    if post_bq is not None:
+        return (packed, new_hist, new_gens, fb, xh, yh, clips, power,
+                tuple(new_bq_state))
     return packed, new_hist, new_gens, fb, xh, yh, clips, power

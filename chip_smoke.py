@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py               # every phase; needs one card
     python3 chip_smoke.py --checksum    # only K1's output hashes (3 lines)
+    python3 chip_smoke.py --profile-biquad  # the biquad kernels' device times
 
 Drives the port's paths on the card -- the fixed-ratio streaming
 resampler (preset -3, 2 channels, 380 taps, 44.1k<->48k, reduced; and
 BASELINE config 1, preset -1 mono 44.1k->48k, interpolated) in every
 dispatch form and precision tier (precise=True and "int8" on the headline
 engine, float64 data at BASELINE config 4's resampler, 5.1 channels
-48k->44.1k), and the batched drifting-ratio ASRC at BASELINE config 5
+48k->44.1k, and config 4b's chain with its biquad cascade), and the
+batched drifting-ratio ASRC at BASELINE config 5
 (256 streams, 380 taps, 380 filters, 32768-frame chunks, ratios 1 + 0.01
 sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 
@@ -19,8 +21,9 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    kernel instance (K1's eighteen: float32, float32 with float64
    accumulators and float64, reduced and interpolated, three tiles; the
    ASRC step's two and the apply; the decimate stage's flat and shaped
-   kernels in float32 and float64) may spill, and the decimate kernels'
-   SASS (cuobjdump) may hold no FFMA or DFMA;
+   kernels in float32 and float64; the biquad section's block and apply
+   kernels in float32 and float64 and its carry) may spill, and the
+   decimate kernels' SASS (cuobjdump) may hold no FFMA or DFMA;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes (~2^22-frame stereo chunks), its edge cases, BASELINE config 1's
    interpolated chunk and the large input periods (preset -3 192k->44.1k,
@@ -128,7 +131,25 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    times in turns with CUDA events: the flat kernel and its plain version
    with its bound, process_flat_packed's epilogue against its int64 plain
    version, the shaped kernel per art block and per 2^22 chunk, each
-   beside the native host decimator.
+   beside the native host decimator;
+14. the biquad cascade (csrc/biquad.cu, three launches a section): the
+   kernel against its float64 plain version at BASELINE config 4b's chunk
+   (6 x 524,320 float64; the combined section and the cascade's two) and
+   at art -3 -r96k -p's steady block (float32, 2 channels), at K = n, n -
+   777 with NaN past it, 0, 3 and 256 (float64 within 1e-12 of scale,
+   float32 within 1 ulp, zero past K, xh' bitwise, yh' within 1e-12);
+   DeviceBiquadCascade against the native host pair over a 60 s 5.1
+   float64 stream with a mid-stream pull_to / push_from (within 1e-12);
+   config 4b's chain (the combined cascade into the float64 resampler,
+   bench.py:297-335) for windows of 8 chunks, M output frames/s, 3
+   launches a process() and K1's float64 instance once a chunk;
+   pipeline_chunk with the -p post filter at the preset -3 shapes against
+   the plain chain; art -3 -r96k -p -o16 -n0 with --backend=cuda beside
+   numpy (codes within the floor, one cascade per steady block); then the
+   times in turns: one section and the cascade at config 4b's chunk, the
+   plain version, one torch.matmul of JAX's Toeplitz product (the library
+   yardstick), the native host cascade, the bound, and the cascade on the
+   art block beside the host pair.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound, then, last, the {"ok": true, "device": ...} line.  Without a
@@ -163,6 +184,10 @@ try:    # an older checkout (--checksum beside it) has no decimate stage
     from art_tpu_torch.ops import decimate_device as dd
 except ImportError:
     dd = None
+try:    # nor a biquad cascade
+    from art_tpu_torch.ops import biquad_kernel as bk
+except ImportError:
+    bk = None
 from art_tpu_torch.ops import fixed_step as k1
 from art_tpu_torch.parallel import streams
 from art_tpu_torch.parallel.pipeline import (window_and_hist, window_at,
@@ -246,11 +271,12 @@ def phase_build():
         # 18 fixed_step_kernel instances (float, float-with-double
         # accumulators and double; reduced and interpolated; 3 tiles), 3
         # ASRC ones (step float32 and float64, apply), 4 decimate ones
-        # (flat and shaped, float and double)
+        # (flat and shaped, float and double), 5 biquad ones (block and
+        # apply, float and double; carry)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 25 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 30 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
     _require_no_fma("decimate")
 
@@ -1293,6 +1319,8 @@ def _reset_launches():
         kasrc.launches[name] = 0
     for name in dd.launches:
         dd.launches[name] = 0
+    if bk is not None:
+        bk.launches["biquad"] = 0
 
 
 # the decimate kernels' launches on the main paths (process_flat_packed's
@@ -2068,6 +2096,412 @@ def phase_decimate_timing(dev, tag, n_target=1 << 22, block=16384,
     return res
 
 
+# ------------------------------------------------ phase 14: biquad cascade
+# the -p lowpass of art -r48k and of BASELINE config 4 (bench.py:281); art
+# -r96k's post filter (art.py: sample_rate * 0.45 / resample_rate)
+BQ_C4, BQ_R96 = 0.45 * 44100 / 48000, 44100 * 0.45 / 96000
+R96 = (2, 380, 380, 44100, 96000, 0, FLAGS)
+C4_CHUNK = 1 << 19          # bench.py's _mult_chunk(1 << 19, M = 160)
+BIQUAD_PATH_LAUNCHES = {"biquad": 0}
+
+
+def _bq_pair(freq, ch, dtype=np.float64):
+    from art_tpu_torch.engines.biquad import Biquad, biquad_lowpass
+    c = biquad_lowpass(freq)
+    return [Biquad.init(c, 1.0, ch, dtype) for _ in range(2)]
+
+
+def _bq_sections(freq, combined):
+    """[(a, b)] of the -p cascade's sections, or of its combined one."""
+    q1, q2 = _bq_pair(freq, 1)
+    if combined:
+        return [bk.combine_biquads(q1, q2)]
+    return [(np.asarray(q.a, np.float64), np.asarray(q.b, np.float64))
+            for q in (q1, q2)]
+
+
+def _bq_within(got, want):
+    """(max |got - want|, within the class): float64 within 1e-12 of the
+    plain version's scale, float32 within one float32 ulp."""
+    g, w = got.double(), want.double()
+    if not g.numel():
+        return 0.0, True
+    err = float((g - w).abs().max())
+    if got.dtype == torch.float64:
+        return err, err <= 1e-12 * max(float(w.abs().max()), 1e-300)
+    ulp = torch.maximum(g.abs(), w.abs()).float()
+    ulp = (torch.nextafter(ulp, torch.full_like(ulp, float("inf"))) - ulp)
+    return err, bool(((g - w).abs() <= ulp.double()).all())
+
+
+def _bq_cases(label, x, sections, dev, seed):
+    """Each section of ``sections`` by the kernel and by its plain version
+    on the same input (at K = n section 2 reads the kernel's section 1
+    output on both sides, at the other K the same input as section 1), at
+    K = n, n - 777 with NaN past it, 0, 3 and 256, from
+    random states: outputs within the class, zero past K, xh' bitwise, yh'
+    within 1e-12.  Returns the largest |kernel - plain|."""
+    S, n = x.shape
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for K in (n, n - 777, 0, 3, 256):
+        inp = x
+        if K < n:
+            inp = x.clone()
+            inp[:, K:] = float("nan")
+        for i, (a, b) in enumerate(sections):
+            t = bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev)
+            xh, yh = (torch.from_numpy(rng.standard_normal((4, S)) * 0.1)
+                      .to(dev) for _ in range(2))
+            got = bk.assoc_core_masked_T(inp, a, b, xh, yh, K, t)
+            want = bk.assoc_core_masked_reference(inp.T, a, b, xh, yh, K, t)
+            _sync(dev)
+            err, within = _bq_within(got[0][:, :K], want[0].T[:, :K])
+            zero = not got[0][:, K:].any()
+            xh_ok = _bitwise(got[1], want[1])
+            yh_err = float((got[2] - want[2]).abs().max())
+            print(f"  biquad {label}, section {i + 1} of {len(sections)}, "
+                  f"K = {K}{' (NaN past K)' if K < n else ''}: max|kernel - "
+                  f"plain| {err:.3e} (within the class {within}), zero past "
+                  f"K {zero}, xh' bitwise {xh_ok}, |yh' - plain| "
+                  f"{yh_err:.3e}")
+            _require(within and zero and xh_ok and yh_err <= 1e-12,
+                     f"biquad {label} vs plain, section {i + 1}, K = {K}")
+            worst = max(worst, err)
+            inp = got[0] if K == n else inp
+    return worst
+
+
+def phase_biquad_kernels(dev, n_c4=C4_CHUNK, block=16384):
+    """The biquad kernel against its plain version on the card: BASELINE
+    config 4b's chunk (6 x 524,320 float64; the combined section and the
+    cascade's two) and the steady block of art -3 -r96k -p (K1's float32
+    output of a 16,384-frame preset -3 block, 2 channels, the cascade).
+    Returns the largest |kernel - plain|."""
+    n = roundtrip.m_multiple(n_c4, 160)
+    x = _noise_dev(dev, (6, n), 81, 0.25, torch.float64)
+    worst = 0.0
+    for combined in (True, False):
+        worst = max(worst, _bq_cases(
+            f"config 4b ({'combined' if combined else 'cascade'}, 6 x {n} "
+            f"float64)", x, _bq_sections(BQ_C4, combined), dev, 82))
+    eng, n1, K, start, P, fracv, kw = _steady_chunk(R96, dev, block)
+    out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), 83, 0.6), P,
+                        start, K, torch.zeros((), device=dev), **kw)[1]
+    worst = max(worst, _bq_cases(
+        f"art -3 -r96k -p steady block ({out.shape[1]} rows, K {K}, "
+        f"float32)", out[:, :K].contiguous(),
+        _bq_sections(BQ_R96, False), dev, 84))
+    return worst
+
+
+def phase_biquad_paths(dev, seconds=60, block=1 << 17, n_c4=C4_CHUNK,
+                       nchunks=8, windows=3, n_head=1 << 22):
+    """The cascade's main paths, the counts set to 0 before each and read
+    after it: DeviceBiquadCascade against the native host pair over a 60 s
+    5.1 float64 stream at 48k (blocks of 2^17 frames, a ragged last one,
+    two blocks handed to the host mid-stream by pull_to / push_from);
+    BASELINE config 4b's chain (the combined cascade into the float64
+    DeviceStreamResampler, bench.py:297-335) for windows of 8 chunks of
+    524,320 frames, M output frames/s; pipeline_chunk with the -p post
+    filter at the preset -3 shapes against K1, the plain cascade and the
+    plain decimate stage.  Returns the CLI-free launch count."""
+    from art_tpu_torch.engines.biquad import apply_cascade
+    from art_tpu_torch.parallel.pipeline import pipeline_chunk
+    # 1. a 60 s 5.1 stream against the native host pair
+    rng = np.random.default_rng(85)
+    n = seconds * 48000
+    x = rng.standard_normal((n, 6)) * 0.25
+    host = _bq_pair(BQ_C4, 6)
+    t0 = time.perf_counter()
+    want = apply_cascade(host, x)
+    host_s = time.perf_counter() - t0
+    mixed = _bq_pair(BQ_C4, 6)
+    cas = bk.DeviceBiquadCascade(*mixed, device=dev)
+    _reset_launches()
+    out, on_card, nblk = [], False, 0
+    for i, lo in enumerate(range(0, n, block)):
+        hi = min(lo + block, n)
+        if i in (5, 6):                       # two blocks on the host
+            if on_card:
+                cas.pull_to(*mixed)
+                on_card = False
+            out.append(apply_cascade(mixed, x[lo:hi]))
+            continue
+        if not on_card:
+            cas.push_from(*mixed)
+            on_card = True
+        blk = torch.zeros((6, block), dtype=torch.float64, device=dev)
+        blk[:, :hi - lo] = torch.from_numpy(x[lo:hi].T).to(dev)
+        out.append(cas.process(blk, hi - lo)[:, :hi - lo].T.cpu().numpy())
+        nblk += 1
+    got = np.concatenate(out)
+    err = float(np.abs(got - want).max())
+    launches = bk.launches["biquad"]
+    BIQUAD_PATH_LAUNCHES["biquad"] += launches
+    print(f"  DeviceBiquadCascade vs the native host pair, 60 s 5.1 float64 "
+          f"({n} frames, {nblk} blocks of {block} on the card, 2 on the "
+          f"host): max |card - host| {err:.3e}; launches {launches}; host "
+          f"pair alone {host_s:.3f} s (host clock)")
+    _require(err <= 1e-12, "DeviceBiquadCascade vs the native host pair")
+    _require(dev.type != "cuda" or launches == 6 * nblk,
+             "DeviceBiquadCascade: launches != 6 per block")
+    # 2. BASELINE config 4b's chain
+    eng = DeviceStreamResampler(*CONFIG4, dtype=np.float64, device=dev)
+    eng.advance_position(190)
+    eng.prewarm()
+    nc = roundtrip.m_multiple(n_c4, eng.M)
+    cas = bk.DeviceBiquadCascade(*_bq_pair(BQ_C4, 1), combined=True,
+                                 device=dev)
+    cas.push_from(*_bq_pair(BQ_C4, 6))
+    x4 = _noise_dev(dev, (6, nc), 86, 0.25, torch.float64)
+    first = cas._state
+    y = cas.process(x4, nc)
+    (a, b), = _bq_sections(BQ_C4, True)
+    ref = bk.assoc_core_masked_reference(
+        x4.T, a, b, *first, nc, cas._sections[0].tables)[0].T
+    err4, within = _bq_within(y, ref)
+    print(f"  config 4b chain: the combined cascade's first chunk vs its "
+          f"plain version: max abs {err4:.3e}, within 1e-12 of scale "
+          f"{within}")
+    _require(within, "config 4b's cascade vs its plain version")
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    eng.process(y, nc, acc)                       # the first chunk
+    _reset_launches()
+    rates = []
+    for w in range(windows):
+        _sync(dev)
+        t0 = time.perf_counter()
+        produced = 0
+        for _ in range(nchunks):
+            y = cas.process(x4, nc)
+            _, K, acc = eng.process(y, nc, acc)
+            produced += K
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        rates.append(produced / dt / 1e6)
+        print(f"  config 4b chain window {w}: {nchunks} chunks x 6 x {nc} "
+              f"float64 frames -> {produced} output frames in "
+              f"{dt * 1e3:.3f} ms = {rates[-1]:.2f} M output frames/s")
+    bl, kl = bk.launches["biquad"], k1.instance_launches["f64"]
+    BIQUAD_PATH_LAUNCHES["biquad"] += bl
+    print(f"  config 4b chain: median {sorted(rates)[len(rates) // 2]:.2f} M "
+          f"output frames/s; launches biquad {bl} (design: 3 a section, 1 "
+          f"section a chunk), K1 float64 {kl}; power {float(acc):.6e}")
+    _require(bool(torch.isfinite(acc)) and float(acc) > 0,
+             "config 4b chain: power not finite")
+    _require(dev.type != "cuda" or (bl == 3 * nchunks * windows
+                                    and kl == nchunks * windows),
+             "config 4b chain: launches off the design")
+    # 3. pipeline_chunk with the post filter, preset -3 shapes
+    eng, n, K, start, P, fracv, kw = _steady_chunk(HEAD, dev, n_head)
+    xc = _noise_dev(dev, (2, n), 87, 0.6)
+    hist = eng.hist
+    host = _host_decimator(HP)
+    dkw = _dec_kw(host, dev)
+    secs = _bq_sections(BQ_C4, False)
+    state = tuple(torch.from_numpy(rng.standard_normal((4, 2)) * 0.1).to(dev)
+                  for _ in range(4))
+    _reset_launches()
+    res = pipeline_chunk(
+        xc, hist, P, start, K, dkw["gens"], host.feedback,
+        np.zeros((4, 2), np.float32), np.zeros((4, 2), np.float32),
+        M=kw["M"], L=kw["L"], nb=kw["nb"], qn_pad=kw["qn"],
+        qn_local=kw["qn"], hist_len=kw["hist_len"],
+        scaler=float(host.scaler), highclip=host.highclip,
+        lowclip=host.lowclip, dither_type=host.dither_type, shaper_a=None,
+        shaper_b=None, output_bits=16, output_bytes=2,
+        post_bq=tuple(secs), bq_state=state)
+    _sync(dev)
+    launches = (k1.launches, bk.launches["biquad"], dict(dd.launches))
+    BIQUAD_PATH_LAUNCHES["biquad"] += launches[1]
+    _add_dec_launches()
+    packed, new_hist, new_gens, _, _, _, clips, power, bq_state = res
+    ref_hist, ref_out = k1.fixed_step(hist, xc, P, start, K,
+                                      torch.zeros((), device=dev), **kw)[:2]
+    y, st = ref_out, []
+    for i, (a, b) in enumerate(secs):
+        t = bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev)
+        y, xh_, yh_ = bk.assoc_core_masked_reference(
+            y.T, a, b, state[2 * i], state[2 * i + 1], K, t)
+        y = y.T
+        st += [xh_, yh_]
+    wp, wc, _ = dd.decimate_flat_reference(y.T, K, **dkw)
+    codes = [t.view(torch.int16).int().cpu() for t in (packed, wp)]
+    diff = (codes[0] - codes[1]).abs()
+    st_err = max(float((g - w).abs().max()) for g, w in zip(bq_state, st))
+    pw_err = abs(float(power) - float(torch.sum(y * y))) / float(power)
+    ok = (_bitwise(new_hist, ref_hist) and int(diff.max()) <= 1
+          and int(clips) == int(wc) and st_err <= 1e-12 and pw_err <= 1e-6)
+    print(f"  pipeline_chunk with the -p post filter, preset -3 chunk ({n} "
+          f"frames in, K {K}): history bitwise K1's, codes within "
+          f"{int(diff.max())} LSB of the plain chain ({int((diff > 0).sum())}"
+          f" differ), clips {int(clips)} (plain {int(wc)}), |bq_state' - "
+          f"plain| {st_err:.3e}, power after the filter within {pw_err:.2e}"
+          f": {ok}; launches K1 {launches[0]}, biquad {launches[1]}, "
+          f"decimate {launches[2]}")
+    _require(ok, "pipeline_chunk with the post filter")
+    _require(dev.type != "cuda" or (launches[0] == 1 and launches[1] == 6
+                                    and sum(launches[2].values()) == 1),
+             "pipeline_chunk with the post filter: launches")
+
+
+def _cli_post_filter(dev, tag, seconds=60):
+    """art -3 -r96k -p -o16 -n0 with --backend=cuda beside --backend=numpy
+    on the 60 s file: the post filter on the card between K1 and the
+    decimate kernel, one cascade (6 launches) per steady block; lengths
+    and clip warnings equal, codes within the resample-then-decimate
+    floor."""
+    from art_tpu_torch.cli import art
+    wav, n = _cli_wav(seconds)
+    steady = n // art.BUFFER_SAMPLES - 1
+    cmd = "art -3 -r96k -p -o16 -n0"
+    got, legs = {}, {}
+    for be in ("cuda", "numpy"):
+        out = CLI_DIR / f"art_p_{be}.wav"
+        err, secs, kl, al, dl = _run_cli(
+            art.main, ["-q", "-y", "-3", "-r96k", "-p", "-o16", "-n0",
+                       str(wav), str(out)], dev, be)
+        got[be] = (_wav_data(out.read_bytes()), err)
+        legs[be] = (secs, len(got[be][0]) // 4)
+        if be == "cuda":
+            bl = bk.launches["biquad"]
+            print(f"  {cmd}: biquad launches {bl}, K1 launches {kl}, "
+                  f"decimate launches {dl}, steady blocks {steady}")
+            _require(dev.type != "cuda" or (
+                bl == 6 * steady and kl["f32"] == steady
+                and dl["decimate_flat"] >= steady + 2),
+                f"{cmd}: launches off the design")
+            BIQUAD_PATH_LAUNCHES["biquad"] += bl
+            for name, c in dl.items():
+                DEC_PATH_LAUNCHES[name] += c
+    (a, ea), (b, eb) = got["cuda"], got["numpy"]
+    _require(len(a) == len(b) and ea == eb,
+             f"{cmd}: output length or clip warnings differ")
+    diff = np.abs(np.frombuffer(a, "<i2").astype(np.int32)
+                  - np.frombuffer(b, "<i2").astype(np.int32))
+    print(f"  {cmd}: {len(a)} bytes each, codes within {diff.max()} LSB "
+          f"(mean {diff.mean():.3e}); stderr {ea.strip() or '(none)'!r}")
+    _require(diff.max() <= 12 and diff.mean() < 2.0,
+             f"{cmd}: 16-bit codes beyond the shaped-noise floor")
+    _rate_line(cmd, legs, tag)
+
+
+def _kernel_times_us(fn, calls):
+    """{kernel: device us per call} of the biquad kernels over ``calls``
+    calls of ``fn`` (torch.profiler; empty where it records none)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(biquad_\w+_kernel)", e.key)
+        t = getattr(e, "self_device_time_total", 0)
+        if m and t:
+            out[m.group(1)] = round(t / calls, 2)
+    return out
+
+
+def profile_biquad(dev, n_c4=C4_CHUNK, blocks=(64, 32, 128)):
+    """``--profile-biquad``: one section at config 4b's chunk (the combined
+    one) with tables of each block size B, its three kernels' device time
+    per call (torch.profiler) and the CUDA-event time of 20 calls; also
+    from an older checkout, as ``--checksum`` is."""
+    n = roundtrip.m_multiple(n_c4, 160)
+    x = _noise_dev(dev, (6, n), 88, 0.25, torch.float64)
+    (ac, bc), = _bq_sections(BQ_C4, True)
+    z = torch.zeros((4, 6), dtype=torch.float64, device=dev)
+    for B in blocks:
+        sec = bk._prepare(ac, bc, bk.iir_tables(bc, B=B, device=dev), dev)
+
+        def call():
+            return bk._solve(x.T, sec, z, z, n, True)
+
+        for _ in range(3):
+            call()
+        _sync(dev)
+        print(f"B={B}: device us per call {_kernel_times_us(call, 20)}; "
+              f"{_time_ms(dev, call, 20):.4f} ms a call (CUDA events)")
+
+
+def phase_biquad_timing(dev, tag, n_c4=C4_CHUNK, block=16384, reps=20):
+    """The kernel's times with CUDA events, in turns: one section at
+    BASELINE config 4b's chunk (the combined one, what the chain runs),
+    the cascade's two, the plain version, and the library yardstick (one
+    torch.matmul of JAX's [B, B+4] x [B+4, nb*S] float64 Toeplitz product,
+    B = 256, at the same shape: cuBLAS DGEMM); the native host cascade on
+    the same chunk (host clock); the bound.  Then DeviceBiquadCascade on
+    art -3 -r96k -p's steady block beside the native host pair on it.
+    Returns (ms, plain ms, bound, library ms)."""
+    from art_tpu_torch.engines.biquad import apply_cascade
+    n = roundtrip.m_multiple(n_c4, 160)
+    S = 6
+    x = _noise_dev(dev, (S, n), 88, 0.25, torch.float64)
+    (ac, bc), = _bq_sections(BQ_C4, True)
+    sec = bk._prepare(ac, bc, bk.iir_tables(bc, B=bk.KERNEL_BLOCK,
+                                            device=dev), dev)
+    (a, b), _ = _bq_sections(BQ_C4, False)
+    sec2 = bk._prepare(a, b, bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev),
+                       dev)
+    z = torch.zeros((4, S), dtype=torch.float64, device=dev)
+    B = 256
+    nb = -(-n // B)
+    TG = torch.randn((B, B + 4), dtype=torch.float64, device=dev)
+    FS = torch.randn((B + 4, nb * S), dtype=torch.float64, device=dev)
+
+    def cascade():
+        y = bk._solve(x.T, sec2, z, z, n, True)[0]
+        return bk._solve(y.T, sec2, z, z, n, True)
+
+    variants = {
+        "biquad kernel, one section": lambda: bk._solve(x.T, sec, z, z, n,
+                                                        True),
+        "biquad kernel, cascade of two": cascade,
+        "biquad plain, one section": lambda: bk.assoc_core_masked_reference(
+            x.T, ac, bc, z, z, n, sec.tables),
+        "torch.matmul library (DGEMM, B = 256)": lambda: TG @ FS,
+    }
+    names = list(variants)
+    order = [names[2], names[0], names[1], names[3], names[3], names[1],
+             names[0], names[2]]
+    med = _time_in_turns(dev, variants, order, reps,
+                         f"per {S} x {n}-frame float64 chunk", tag)
+    if dev.type == "cuda":
+        # each of the section's three kernels on the card (torch.profiler):
+        # where the calls above outpace the host, their time is the host's
+        busy = _kernel_times_us(variants[names[0]], 20)
+        print(f"  biquad kernel, one section, device time per call "
+              f"(torch.profiler): {busy or 'not measured'} {tag}")
+    xnp = np.ascontiguousarray(x.T.cpu().numpy())
+    host = _bq_pair(BQ_C4, S)
+    host_ms = _host_ms(lambda: apply_cascade(host, xnp), 3)
+    # each sample read once and written once, float64; 9 multiply-adds a
+    # sample a section (5 FIR taps, 4 feedback) on the FP64 rate
+    bound = _bound_ms(2 * 8 * S * n + 4 * 8 * 4 * S, 18 * S * n, PEAK_F64)
+    kms = med.get(names[0], float("nan"))
+    print(f"  native host cascade (two sections), same chunk: {host_ms:.4f} "
+          f"ms (host clock); one section's bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {2 * 8 * S * n / 1e6:.1f} MB), kernel at "
+          f"{bound[0] / kms:.1%} of it {tag}")
+    eng, n1, K, start, P, fracv, kw = _steady_chunk(R96, dev, block)
+    out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), 89, 0.6), P,
+                        start, K, torch.zeros((), device=dev), **kw)[1]
+    pair = _bq_pair(BQ_R96, 2, np.float32)
+    cas = bk.DeviceBiquadCascade(*pair, device=dev)
+    cas.push_from(*pair)
+    bnp = np.ascontiguousarray(out[:, :K].T.cpu().numpy())
+    if dev.type == "cuda":
+        ms = _time_ms(dev, lambda: cas.process(out, K), reps)
+        hms = _host_ms(lambda: apply_cascade(pair, bnp), reps)
+        print(f"  DeviceBiquadCascade, art -3 -r96k -p steady block (2 x "
+              f"{out.shape[1]} float32, K {K}): {ms:.4f} ms (CUDA events); "
+              f"native host pair {hms:.4f} ms (host clock) {tag}")
+    return kms, med[names[2]], bound, med.get(names[3])
+
+
 def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                   bound, library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -2084,6 +2518,10 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     if argv[1:] == ["--checksum"]:
         k1_checksums(dev)
+        return 0
+    if argv[1:] == ["--profile-biquad"]:
+        print(phase_device()[2])
+        profile_biquad(dev)
         return 0
     t_start = time.perf_counter()
     print("phase 1: device")
@@ -2155,6 +2593,17 @@ def main(argv) -> int:
     _require(dev.type != "cuda" or all(DEC_PATH_LAUNCHES.values()),
              "a decimate kernel was not launched on its paths")
     dec_timed = phase_decimate_timing(dev, tag)
+    print("phase 14: the biquad cascade: the kernel vs plain PyTorch, "
+          "DeviceBiquadCascade vs the native host over 60 s, BASELINE "
+          "config 4b's chain, pipeline_chunk with -p, art -r96k -p, times")
+    worst["biquad"] = phase_biquad_kernels(dev)
+    phase_biquad_paths(dev)
+    _cli_post_filter(dev, tag)
+    print(f"  the biquad kernel's launches on the main paths: "
+          f"{BIQUAD_PATH_LAUNCHES}")
+    _require(dev.type != "cuda" or BIQUAD_PATH_LAUNCHES["biquad"] > 0,
+             "the biquad kernel was not launched on its paths")
+    bq_timed = phase_biquad_timing(dev, tag)
     src = "art_tpu_torch/csrc/"
     pk = "art_tpu/ops/pallas_kernels.py:"
     kernels = [_kernel_entry(
@@ -2186,6 +2635,11 @@ def main(argv) -> int:
             key, src + "decimate.cu",
             f"art_tpu/ops/decimate_device.py:{line}",
             DEC_PATH_LAUNCHES[key], worst[key], ms, plain_ms, bound))
+    ms, plain_ms, bound, lib_ms = bq_timed
+    kernels.append(_kernel_entry(
+        "biquad", src + "biquad.cu", "art_tpu/ops/biquad_kernel.py:206",
+        BIQUAD_PATH_LAUNCHES["biquad"], worst["biquad"], ms, plain_ms, bound,
+        lib_ms))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -108,16 +108,36 @@ def test_art_cuda_float_samples_match_jax_device(args, wav_in, tmp_path):
     ["-r48k", "-o16", "-n0", "-p"], ["-r22050", "-o16", "-n0", "-p"]],
     ids=" ".join)
 def test_art_cuda_resample_decimate_within_noise_floor(args, wav_in,
-                                                       tmp_path):
-    """Resample then decimate (the -p post filter on the host here, on
-    the device in JAX): lengths and clip warnings exact, 16-bit codes
-    within the shaped-noise floor of JAX's own device test."""
+                                                       tmp_path,
+                                                       monkeypatch):
+    """Resample then decimate: lengths and clip warnings exact, 16-bit
+    codes within the shaped-noise floor of JAX's own device test.  The
+    upsampling -p post filter runs on the device route in both
+    (DeviceBiquadCascade between the resample and the decimate stage):
+    here on its plain version, one cascade of two sections per steady
+    block; the downsampling -p pre filter stays on the host."""
+    from art_tpu_torch.ops import biquad_kernel as bk
+    calls = []
+    orig = bk.DeviceBiquadCascade.process
+
+    def spy(self, dev_out, K):
+        calls.append(K)
+        return orig(self, dev_out, K)
+
+    monkeypatch.setattr(bk.DeviceBiquadCascade, "process", spy)
     a, ea = _jax("device", args, wav_in, tmp_path)
+    before = dict(bk.plain_calls)
     b, eb = _port("cuda", args, wav_in, tmp_path)
     assert len(a) == len(b) and ea == eb
     diff = np.abs(np.frombuffer(_data(a), "<i2").astype(np.int32)
                   - np.frombuffer(_data(b), "<i2").astype(np.int32))
     assert diff.max() <= 12 and diff.mean() < 2.0
+    # 44,100 frames in 16,384-frame blocks: the prefill and the tail on
+    # the host, one steady block on the device route
+    steady = 44100 // tart.BUFFER_SAMPLES - 1
+    post = args[0] == "-r48k" and "-p" in args
+    assert len(calls) == (steady if post else 0)
+    assert bk.plain_calls["biquad"] - before["biquad"] == 2 * len(calls)
 
 
 @pytest.mark.parametrize("args", [

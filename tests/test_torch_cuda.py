@@ -837,3 +837,112 @@ def test_art_device_decimator_on_card(multi, tmp_path):
     diff = np.abs(np.frombuffer(a[-40000:], "<i2").astype(np.int32)
                   - np.frombuffer(b[-40000:], "<i2").astype(np.int32))
     assert diff.max() <= 12 and diff.mean() < 2.0
+
+
+# --------------------------------------------- the biquad cascade's kernel
+BQ_CASES = [  # (dtype, layout, combined, K)
+    (torch.float64, "sn", True, "n"), (torch.float64, "ns", False, "n"),
+    (torch.float64, "sn", False, "cut"), (torch.float32, "sn", False, "n"),
+    (torch.float32, "ns", True, "cut"), (torch.float32, "sn", True, 0),
+    (torch.float64, "sn", True, 3), (torch.float64, "ns", True, 256),
+    (torch.float32, "sn", False, 4097)]
+
+
+def _bq_section(combined):
+    from art_tpu_torch.engines.biquad import Biquad, biquad_lowpass
+    from art_tpu_torch.ops import biquad_kernel as bk
+    q = Biquad.init(biquad_lowpass(0.45 * 44100 / 48000), 1.0, 1)
+    if combined:
+        return bk.combine_biquads(q, q)
+    return np.asarray(q.a, np.float64), np.asarray(q.b, np.float64)
+
+
+def _bq_case(dev, dtype, layout, K, S=6, n=100_003, seed=0):
+    """x [n, S] in the layout given ("sn": a transposed [S, n] tensor, as
+    K1 writes it; "ns": contiguous [n, S]), NaN past a ragged K."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((S, n)) * 0.5).to(dev, dtype)
+    x = x.T if layout == "sn" else x.T.contiguous()
+    K = {"n": n, "cut": n - 777}.get(K, K)
+    if K < n:
+        x = x.clone()
+        x[K:] = float("nan")
+    xh = torch.from_numpy(rng.standard_normal((4, S)) * 0.1).to(dev)
+    yh = torch.from_numpy(rng.standard_normal((4, S)) * 0.1).to(dev)
+    return x, K, xh, yh
+
+
+def _within_class(got, want):
+    """float64 within 1e-12 of the plain version's scale; float32 within
+    one float32 ulp of it (both round a float64 solve once)."""
+    g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
+    if got.dtype == torch.float64:
+        return np.abs(g - w).max() <= 1e-12 * max(np.abs(w).max(), 1e-300)
+    ulp = np.spacing(np.maximum(np.abs(g), np.abs(w)).astype(np.float32))
+    return bool(np.all(np.abs(g - w) <= ulp))
+
+
+@pytest.mark.parametrize("case", BQ_CASES, ids=[
+    f"{str(c[0])[6:]}-{c[1]}-{'comb' if c[2] else 'biquad'}-K{c[3]}"
+    for c in BQ_CASES])
+def test_biquad_kernel_matches_plain(case):
+    from art_tpu_torch.ops import biquad_kernel as bk
+    dev = _card()
+    dtype, layout, combined, K = case
+    a, b = _bq_section(combined)
+    x, K, xh, yh = _bq_case(dev, dtype, layout, K)
+    t = bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev)
+    before = bk.launches["biquad"]
+    got = bk.assoc_core_masked(x, a, b, xh, yh, K, t)
+    assert bk.launches["biquad"] == before + 3
+    want = bk.assoc_core_masked_reference(x, a, b, xh, yh, K, t)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and _within_class(got[0], want[0])
+    assert not got[0][K:].any() and torch.isfinite(got[0]).all()
+    assert torch.equal(got[1], want[1])                 # xh' is a copy
+    assert np.abs((got[2] - want[2]).cpu().numpy()).max() <= 1e-12
+
+
+def test_biquad_kernel_bitwise_independent_of_batch_width():
+    from art_tpu_torch.ops import biquad_kernel as bk
+    dev = _card()
+    a, b = _bq_section(True)
+    t = bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        x, K, xh, yh = _bq_case(dev, dtype, "sn", "cut")
+        y6, xh6, yh6 = bk.assoc_core_masked(x, a, b, xh, yh, K, t)
+        for s in range(6):
+            y1, xh1, yh1 = bk.assoc_core_masked(x[:, s:s + 1], a, b,
+                                                xh[:, s:s + 1],
+                                                yh[:, s:s + 1], K, t)
+            assert torch.equal(y1[:, 0], y6[:, s])
+            assert torch.equal(xh1[:, 0], xh6[:, s])
+            assert torch.equal(yh1[:, 0], yh6[:, s])
+
+
+def test_device_biquad_cascade_on_card_matches_host_pair():
+    """push_from, ragged blocks on the card, pull_to, the host again: the
+    float64 stream of the host pair alone within 1e-13."""
+    from art_tpu_torch.engines.biquad import (Biquad, apply_cascade,
+                                              biquad_lowpass)
+    from art_tpu_torch.ops import biquad_kernel as bk
+    dev = _card()
+    c = biquad_lowpass(0.45 * 44100 / 48000)
+
+    def pair():
+        return [Biquad.init(c, 1.0, 6, np.float64) for _ in range(2)]
+
+    x = np.random.default_rng(3).standard_normal((300_000, 6)) * 0.5
+    want = apply_cascade(pair(), x)
+    mixed = pair()
+    cas = bk.DeviceBiquadCascade(*mixed, device=dev)
+    out = [apply_cascade(mixed, x[:1000])]
+    cas.push_from(*mixed)
+    for lo, hi, cap in ((1000, 150_000, 150_000), (150_000, 200_001,
+                                                   60_000)):
+        blk = torch.zeros((6, cap), dtype=torch.float64, device=dev)
+        blk[:, :hi - lo] = torch.from_numpy(x[lo:hi].T).to(dev)
+        out.append(cas.process(blk, hi - lo)[:, :hi - lo].T.cpu().numpy())
+    cas.pull_to(*mixed)
+    out.append(apply_cascade(mixed, x[200_001:]))
+    assert np.abs(np.concatenate(out) - want).max() < 1e-13

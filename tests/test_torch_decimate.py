@@ -3,7 +3,8 @@
 ``art_tpu_torch/ops/decimate_device.py``'s plain versions against
 ``art_tpu/ops/decimate_device.py`` function by function, the port's
 ``DeviceDecimator(device="cpu")`` against JAX's ``DeviceDecimator`` and the
-host ``Decimator``, ``pipeline_chunk`` against JAX's (single device), and
+host ``Decimator``, ``pipeline_chunk`` against JAX's (single device; with
+the post filter cascade at its own bounds), and
 the packed group form's container layout against its int64 plain version.
 Inputs come from numpy seeds and go to both sides.  Every comparison is
 bitwise -- dither, LCG states, codes, clip flags and counts, shaper states
@@ -372,10 +373,77 @@ def test_pipeline_chunk_refuses_what_is_not_ported():
     x, hist, P = _pipeline_inputs(S)
     args = (_t(x), _t(hist), _t(P), 8, 32, dk.seed_generators(S),
             torch.zeros(S), torch.zeros(4, S), torch.zeros(4, S))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipeline_chunk(*args, **_pipeline_kw(dec), post_bq=((0, 0), (0, 0)))
     with pytest.raises(NotImplementedError, match="item 11"):
         pipeline_chunk(*args, **_pipeline_kw(dec), taps_axis="taps")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pipeline_chunk(*args, **_pipeline_kw(dec), streams_axis="streams")
+
+
+@pytest.mark.parametrize("flags", [JF.DITHER_HIGHPASS,
+                                   JF.DITHER_HIGHPASS | JF.SHAPING_ATH_CURVE],
+                         ids=["hp", "hp-ath"])
+@pytest.mark.parametrize("K", [1024, 700, 3, 0])
+def test_pipeline_chunk_post_filter_matches_jax(flags, K):
+    """The -p post filter between the resample and the decimate stage
+    (the passthrough matrix, so both sides filter the same samples): the
+    history and LCG states bitwise, the 16-bit codes within the
+    shaped-noise floor of the port's other device tests (the two float64
+    solves round a sample to its other float32 neighbour now and then),
+    clip counts equal, the filter state within 1e-12 and the power taken
+    after the filter."""
+    from art_tpu.ops import biquad_kernel as jbk
+    from art_tpu_torch.engines.biquad import Biquad, biquad_lowpass
+    from art_tpu_torch.ops import biquad_kernel as bk
+    S, M, L, nb = 6, 3, 2, 512
+    nK = nb * L
+    dec = TDecimator(S, 16, 2, 1.0, 48000, flags)
+    kw = _pipeline_kw(dec, M=M, L=L, nb=nb)
+    x, hist, P = _pipeline_inputs(S, M=M, L=L, nb=nb, seed=9)
+    x *= 2.2                                  # some frames clip
+    q = Biquad.init(biquad_lowpass(0.45 * 44100 / 48000), 1.0, S)
+    a, b = np.asarray(q.a, np.float64), np.asarray(q.b, np.float64)
+    rng = np.random.default_rng(10)
+    state = tuple(rng.standard_normal((4, S)) * 0.1 for _ in range(4))
+    gens = dk.seed_generators(S)
+    sh = dec.noise_shaper
+    z = np.zeros((4, S), np.float32)
+    xh, yh = (z, z) if sh is None else (sh.xh, sh.yh)
+    fb = np.zeros(S, np.float32)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    jt = jbk.iir_tables(b)
+    want = jpipeline_chunk(
+        jnp.asarray(x), jnp.asarray(hist), jnp.asarray(P), jnp.int32(8),
+        jnp.int32(K), jnp.asarray(gens), jnp.asarray(fb), jnp.asarray(xh),
+        jnp.asarray(yh), *map(jnp.asarray, jdd.dither_tables(nK)),
+        post_bq=((ja, jb), (ja, jb)),
+        bq_state=tuple(jnp.asarray(v) for v in state),
+        post_bq_tables=(jt, jt), **kw)
+    got = pipeline_chunk(_t(x), _t(hist), _t(P), 8, K, gens, _t(fb), _t(xh),
+                         _t(yh), post_bq=((a, b), (a, b)), bq_state=state,
+                         **kw)
+    assert len(got) == len(want) == 9
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(dd.states_numpy(got[2]),
+                                  np.asarray(want[2]))
+    codes = [np.asarray(p).view("<i2").astype(np.int32)
+             for p in (got[0].numpy(), want[0])]
+    diff = np.abs(codes[0] - codes[1])
+    assert diff.max() <= 12 and diff.mean() < 2.0
+    assert not codes[0][K:].any()
+    assert int(got[6]) == int(want[6])
+    assert K < 700 or int(got[6]) > 0
+    for g, w in zip(got[8], want[8]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-12)
+    np.testing.assert_allclose(float(got[7]), float(want[7]), rtol=1e-6)
+    # the power of the filtered samples, not of the resampled ones
+    from art_tpu_torch.ops import fixed_step as k1
+    out = k1.fixed_step(_t(hist), _t(x), _t(P), 8, K, torch.zeros(()), M=M,
+                        L=L, nb=nb, qn=4, hist_len=32)[1]
+    t = bk.iir_tables(b, B=bk.KERNEL_BLOCK)
+    y = bk._cascade2_step_T(out, a, b, *state[:2], a, b, *state[2:], K, t,
+                            t)[0]
+    assert torch.equal(got[7], torch.sum(y * y))
 
 
 # ------------------------------------------- the packed group form's layout

@@ -14,7 +14,9 @@ and its copies of the host modules equal the originals bit for bit.
   host ``Resampler``'s outputs and state, ``Decimator`` bytes and clip
   counts on both backends, biquad cascades, the extrapolator, the
   stretcher, WAV headers and decoding, and the port's own build of the
-  native library, entry point by entry point."""
+  native library, entry point by entry point.
+- So are the numpy parts of ``ops/biquad_kernel.py``: the block-IIR tables
+  and ``combine_biquads`` with its refusal of order-3/4 sections."""
 
 import ast
 import dataclasses
@@ -347,6 +349,46 @@ def test_biquad_cascade_bitwise(dtype):
             outs.append((y, y2, q1.xh, q1.yh))
         for u, v in zip(*outs):
             _bitwise(u, v)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("B,Q", [(256, 64), (64, 64), (16, 8)])
+@pytest.mark.parametrize("design,freq", [("lowpass", 0.41), ("lowpass", 0.2),
+                                         ("highpass", 0.05)])
+def test_biquad_iir_tables_bitwise(design, freq, B, Q, dtype):
+    """The block-IIR tables of ops/biquad_kernel.py (iir_tables' numpy body
+    and _carry_power_tables), for a biquad and the combined order-4 pair."""
+    import art_tpu.ops.biquad_kernel as j_bk
+    import art_tpu_torch.ops.biquad_kernel as t_bk
+    c = getattr(j_biquad, f"biquad_{design}")(freq)
+    q = j_biquad.Biquad.init(c, 1.0, 2)
+    for b in (q.b, j_bk.combine_biquads(q, q)[1]):
+        AB = np.asarray(j_bk.iir_tables(b, B=B, Q=Q)[3], np.float64)
+        for u, v in zip(j_bk._carry_power_tables(AB, Q),
+                        t_bk._carry_power_tables(AB, Q)):
+            _bitwise(u, v)
+        for u, v in zip(j_bk.iir_tables(b, B=B, Q=Q, dtype=dtype),
+                        t_bk.iir_tables(b, B=B, Q=Q, dtype=dtype)):
+            _bitwise(np.asarray(u), v.numpy())
+
+
+def test_combine_biquads_bitwise_and_refusal():
+    import art_tpu.ops.biquad_kernel as j_bk
+    import art_tpu_torch.ops.biquad_kernel as t_bk
+    pairs = [(j_biquad.biquad_lowpass(0.41), j_biquad.biquad_lowpass(0.41)),
+             (j_biquad.biquad_lowpass(0.2), j_biquad.biquad_highpass(0.05))]
+    for c1, c2 in pairs:
+        q1, q2 = (j_biquad.Biquad.init(c, 1.0, 2) for c in (c1, c2))
+        for u, v in zip(j_bk.combine_biquads(q1, q2),
+                        t_bk.combine_biquads(q1, q2)):
+            _bitwise(u, v)
+    order4 = j_biquad.Biquad.init(j_biquad.BiquadCoefficients(
+        a0=2.2061, a1=0.606, a2=-0.2524, a3=-0.0737, b1=1.0587, b2=0.0676,
+        b3=-0.6054, b4=-0.2738), 1.0, 1)
+    q = j_biquad.Biquad.init(j_biquad.biquad_lowpass(0.3), 1.0, 1)
+    for mod in (j_bk, t_bk):
+        with pytest.raises(ValueError, match="order<=2"):
+            mod.combine_biquads(q, order4)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
