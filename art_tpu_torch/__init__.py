@@ -18,13 +18,24 @@ adapter ``ASRCStreamResampler``, on the ASRC kernels of
 pipeline's ``HybridStreamResampler`` and copies of the host engines
 (``engines/``, ``io/``, ``native/``), with the device decimate stage
 (``ops/decimate_device.py``) and the biquad cascade
-(``ops/biquad_kernel.py``) on their own kernels.  See ROADMAP.md for what
-is still to come.
+(``ops/biquad_kernel.py``) on their own kernels, and the host engines of
+``art_tpu``'s top level (``Resampler``, ``Decimator``, ``Biquad``, the
+extrapolators, ``Stretcher``), whose accelerator backend ``"torch"``
+(``backend="jax"`` in JAX) runs the resampler's calls on kernels K1 and K5
+and the shaped decimator on the shaped decimate kernel.  See ROADMAP.md for
+what is still to come.
 """
 
 from __future__ import annotations
 
+from .core import flags  # noqa: F401
 from .core.flags import *  # noqa: F401,F403
+from .engines.biquad import Biquad, BiquadCoefficients  # noqa: F401
+from .engines.decimator import Decimator  # noqa: F401
+from .engines.extrapolator import (extrapolate_forward,  # noqa: F401
+                                   extrapolate_reverse)
+from .engines.resampler import Resampler, ResampleResult  # noqa: F401
+from .engines.stretch import Stretcher  # noqa: F401
 
 from ._device import pin_ieee_fp32, resolve_device  # noqa: F401
 from .parallel.asrc import ASRCStreamResampler, BatchedASRC  # noqa: F401

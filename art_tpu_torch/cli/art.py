@@ -8,9 +8,10 @@ behaviors.  The numeric width switch is `-o64`-style output plus `--f64`
 for the full 64-bit data path (the reference's ART64 build).
 
 The compute backend defaults to host numpy (bit-careful parity path); pass
-`--backend=cuda` to stream fixed-ratio conversions through the
-device-resident chunk engine (parallel/streams.py, kernel K1 on an NVIDIA
-card) with host edges.
+`--backend=torch` to run the per-call resampling kernels on an NVIDIA card,
+or `--backend=cuda` to stream fixed-ratio conversions through the
+device-resident chunk engine (parallel/streams.py, kernel K1) with host
+edges.
 
 A copy of ``art_tpu/cli/art.py`` for the PyTorch port, run as ``python -m
 art_tpu_torch.cli.art``.  It differs in its backends: ``--backend=cuda``
@@ -18,10 +19,14 @@ takes the place of ``--backend=device``: the resample stage's steady
 blocks run on the card and, for an integer output without noise shaping,
 the decimate stage too (``DeviceDecimator``, JAX's gate), with an
 upsampling ``-p`` post filter between them (``DeviceBiquadCascade``).
-``--backend=jax`` and ``--mesh`` exit naming the ROADMAP items that port
-them (10 and 11).  ``main(argv, device=...)`` names the torch device of
-the cuda backend: the command line always runs on the card, and tests
-pass ``device="cpu"``.  Only a configuration the device engine cannot
+``--backend=torch`` takes the place of ``--backend=jax``: the host
+``Resampler(backend="torch")`` (its polyphase calls on K1, the others on
+the ASRC apply kernel), with the decimator native and the filters and the
+stretcher on the host, as JAX's does.  ``--backend=jax`` exits naming
+``--backend=torch``, and ``--mesh`` naming the ROADMAP item that ports it
+(11).  ``main(argv, device=...)`` names the torch device of the cuda and
+torch backends: the command line always runs on the card, and tests pass
+``device="cpu"``.  Only a configuration the device engine cannot
 model (its ``ValueError``) runs on the host engine instead; a missing card
 or a kernel that fails to build or launch ends the command with an error.
 """
@@ -80,11 +85,13 @@ USAGE = """
            --pitch=<cents>   --tempo=<ratio>
            --duration=<[+|-][[hh:]mm:]ss.ss>
            --f64       = 64-bit float data path (the reference's ART64)
-           --backend=<numpy|cuda>  (cuda = fixed-ratio steady state
-                       of the resample stage on the NVIDIA card, host
-                       edges; unshaped integer output quantized on the
-                       card too; -p filters run on the host; falls back
-                       to numpy when the config cannot reduce)
+           --backend=<numpy|torch|cuda>  (torch = the resampler's
+                       per-call kernels on the NVIDIA card; cuda =
+                       fixed-ratio steady state of the resample stage on
+                       the card, host edges; unshaped integer output
+                       quantized and the upsampling -p post filter run on
+                       the card too; falls back to numpy when the config
+                       cannot reduce)
 """
 
 
@@ -165,9 +172,11 @@ def parse_args(argv, opt: Options):
                 opt.dtype = np.float64
             elif name == "backend":
                 if val == "jax":
-                    raise SystemExit(str(_not_ported("--backend=jax", 10)))
-                if val not in ("numpy", "cuda"):
-                    raise SystemExit("--backend must be numpy or cuda!")
+                    raise SystemExit("--backend=jax is the JAX package's; "
+                                     "this port runs it as --backend=torch!")
+                if val not in ("numpy", "torch", "cuda"):
+                    raise SystemExit("--backend must be numpy, torch or "
+                                     "cuda!")
                 opt.backend = val
             elif name == "mesh":
                 raise SystemExit(str(_not_ported("--mesh", 11)))
@@ -274,7 +283,8 @@ def parse_args(argv, opt: Options):
 
 def process_file(opt: Options, device="cuda") -> int:
     """The wav_process + process_audio pipeline (reference art.c:473-1155);
-    ``device``: where ``--backend=cuda`` runs its steady blocks."""
+    ``device``: where ``--backend=cuda`` runs its steady blocks and
+    ``--backend=torch`` its resampler's kernels."""
     dt = np.dtype(opt.dtype)
     with open(opt.infile, "rb") as f:
         info = wavfile.read_wav_header(f)
@@ -380,7 +390,9 @@ def process_file(opt: Options, device="cuda") -> int:
                     resampler = Resampler.fixed_ratio(
                         num_channels, opt.num_taps, opt.num_filters,
                         sample_rate * opt.pitch_ratio, resample_rate,
-                        opt.lowpass_freq, flags, dtype=dt)
+                        opt.lowpass_freq, flags, dtype=dt,
+                        backend="torch" if opt.backend == "torch"
+                        else "numpy", device=device)
                 except ValueError as e:
                     # the reference lib prints its reason to stderr and
                     # returns NULL; art adds its own line and exits
@@ -714,7 +726,7 @@ def process_file(opt: Options, device="cuda") -> int:
 
 def main(argv=None, *, device="cuda") -> int:
     """The command line; ``device``: the torch device of ``--backend=cuda``
-    (the command always runs on the card)."""
+    and ``--backend=torch`` (the command always runs on the card)."""
     opt = parse_args(argv if argv is not None else sys.argv[1:], Options())
     if opt.verbosity >= 0:
         bits = np.dtype(opt.dtype).itemsize * 8

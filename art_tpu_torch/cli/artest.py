@@ -12,10 +12,12 @@ A copy of ``art_tpu/cli/artest.py`` for the PyTorch port, run as ``python
 -m art_tpu_torch.cli.artest``.  ``--backend=cuda`` takes the place of
 ``--backend=device``: the fixed-ratio ``HybridStreamResampler`` with
 ``-e`` (``--precise`` on it), the runtime-ratio ``ASRCStreamResampler``
-without; ``--backend=jax`` exits naming ROADMAP item 10, and
-``--profile=DIR`` writes a ``torch.profiler`` trace.  ``main(argv,
-device=...)`` names the torch device of the cuda backend: the command line
-always runs on the card, and tests pass ``device="cpu"``.
+without; ``--backend=torch`` takes the place of ``--backend=jax`` (the
+host ``Resampler(backend="torch")`` in both modes, the decimator native),
+``--backend=jax`` exits naming ``--backend=torch``, and ``--profile=DIR``
+writes a ``torch.profiler`` trace.  ``main(argv, device=...)`` names the
+torch device of the cuda and torch backends: the command line always runs
+on the card, and tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import sys
 
 import numpy as np
 
-from .._roadmap import _not_ported
 from ..core.flags import (BLACKMAN_HARRIS, DITHER_HIGHPASS,
                           EXTRAPOLATE_ENDPOINTS, INCLUDE_LOWPASS, PRESETS,
                           SHAPING_ATH_CURVE, SUBSAMPLE_INTERPOLATE)
@@ -57,9 +58,10 @@ USAGE = """
            -p          = precise (doubles) convolution
            -v          = test non-interleaved (planar) API path
            --f64       = 64-bit data path
-           --backend=<numpy|cuda> (cuda = the NVIDIA card's engines:
-                         the fixed-ratio streaming engine with -e, the
-                         runtime-ratio BatchedASRC without)
+           --backend=<numpy|torch|cuda> (torch = the resampler's
+                         per-call kernels on the NVIDIA card; cuda = the
+                         card's engines: the fixed-ratio streaming engine
+                         with -e, the runtime-ratio BatchedASRC without)
            --precise   = cuda backend: f64-accumulated contraction
                          dots (the within-0.1-dB-of-C operating point)
            --timing    = per-stage wall-clock summary
@@ -69,7 +71,7 @@ USAGE = """
 
 def main(argv=None, *, device="cuda") -> int:
     """The command line; ``device``: the torch device of ``--backend=cuda``
-    (the command always runs on the card)."""
+    and ``--backend=torch`` (the command always runs on the card)."""
     argv = argv if argv is not None else sys.argv[1:]
     inbuffer_samples = 4096
     chans, taps, filters, seconds = 2, 380, 380, 60
@@ -103,9 +105,11 @@ def main(argv=None, *, device="cuda") -> int:
                 dtype = np.float64
             elif name == "backend":
                 if val == "jax":
-                    raise SystemExit(str(_not_ported("--backend=jax", 10)))
-                if val not in ("numpy", "cuda"):
-                    raise SystemExit("--backend must be numpy or cuda!")
+                    raise SystemExit("--backend=jax is the JAX package's; "
+                                     "this port runs it as --backend=torch!")
+                if val not in ("numpy", "torch", "cuda"):
+                    raise SystemExit("--backend must be numpy, torch or "
+                                     "cuda!")
                 backend = val
             elif name == "precise":
                 precise = True
@@ -254,7 +258,8 @@ def main(argv=None, *, device="cuda") -> int:
                                          lowpass_freq, flags, dtype=dtype,
                                          precise=precise, device=device)
         return Resampler.fixed_ratio(chans, taps, filters, src, dst,
-                                     lowpass_freq, flags, dtype=dtype)
+                                     lowpass_freq, flags, dtype=dtype,
+                                     backend=backend, device=device)
 
     resampler = inv_resampler = None
     try:
@@ -279,7 +284,8 @@ def main(argv=None, *, device="cuda") -> int:
                                                    lp_ratio, flags,
                                                    dtype=dtype, device=device)
                     return Resampler(chans, taps, filters, lp_ratio,
-                                     flags, dtype=dtype)
+                                     flags, dtype=dtype, backend=backend,
+                                     device=device)
 
                 resampler = make_interp(lowpass_freq * 2.0 / source_rate)
                 describe(resampler, source_rate, destin_rate, "w1 --> w2")

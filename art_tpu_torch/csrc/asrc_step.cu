@@ -9,8 +9,12 @@
 // which asrc_step<float> / asrc_step<double> serve (H100 has native FP64),
 // and
 //   K5 asrc_apply_pallas   (_asrc_kernel, the windowed two-phase dot from
-//                           precomputed base/fi/frac), served by asrc_apply.
-// All three are instances of one template, asrc_step_kernel<T, kTwo>,
+//                           precomputed base/fi/frac), served by asrc_apply
+//                           in float32, and in float64 for the float64
+//                           host Resampler(backend="torch"), whose JAX
+//                           counterpart runs ops/resample_kernel.py::
+//                           apply_jax's gather and dot in float64.
+// All four are instances of one template, asrc_step_kernel<T, kTwo>,
 // whose positions are computed (the step) or given (kTwo, the apply).
 //
 // What asrc_step computes (the body of art_tpu/parallel/asrc.py::_asrc_step),
@@ -61,7 +65,7 @@
 //     piece p + 1 copied with cp.async while piece p is used.  At config 5
 //     P = X = 32 in float32 and 16 in float64: 97.5 KB a buffer.  The host
 //     picks P and X from (taps, F, dtype) (ops/asrc_step.py::step_geometry;
-//     asrc_apply takes the float32 geometry).
+//     asrc_apply takes the geometry of its type).
 //   - A block owns a run of consecutive outputs of one stream, 8 per thread
 //     in float32 and 6 in float64 (384 threads: runs of 3072 and 2304), each
 //     thread keeping its outputs' phase row, window start and sum (step: and
@@ -294,7 +298,7 @@ __device__ __forceinline__ long long position(long long k, double off,
 
 // asrc_step (!kTwo: positions computed from offsets, ratios and shift,
 // masked at Ks) and asrc_apply (kTwo: positions given as base, fi and frac
-// [S, k_max], unmasked; T = float, buf as hist, n = 0): see the header.
+// [S, k_max], unmasked; buf as hist, n = 0): see the header.
 template <typename T, bool kTwo>
 __global__ void __launch_bounds__(kStepThreads, 1)
 asrc_step_kernel(const T* __restrict__ hist, long long H,
@@ -600,4 +604,17 @@ extern "C" int art_asrc_apply_f32(const float* buf, long long S, long long B,
     return launch<float, true>(buf, B, buf, 0, S, bank, taps, F, P, X,
                                threads, run, nullptr, nullptr, nullptr, 0,
                                base, fi, frac, K, out, stream);
+}
+
+// The float64 apply: buf, bank, frac and out double, the geometry from
+// step_geometry(taps, F, float64).  Returns as above.
+extern "C" int art_asrc_apply_f64(const double* buf, long long S,
+                                  long long B, const double* bank, int taps,
+                                  int F, int P, int X, int run, int threads,
+                                  const int* base, const int* fi,
+                                  const double* frac, long long K,
+                                  double* out, void* stream) {
+    return launch<double, true>(buf, B, buf, 0, S, bank, taps, F, P, X,
+                                threads, run, nullptr, nullptr, nullptr, 0,
+                                base, fi, frac, K, out, stream);
 }

@@ -17,12 +17,16 @@ Compute paths: the dither sequence is always precomputed in closed form
 scan (host numpy for parity / lax.scan on device); unshaped quantization is
 one fused elementwise pass.
 
-A copy of ``art_tpu/engines/decimator.py``, unchanged but for its device
-halves: ``DeviceDecimator`` and its fused step ``_device_decimate_step``
-run on the port's CUDA kernels (``ops/decimate_device.py``), and only
-``backend="jax"`` still raises ``NotImplementedError`` at construction
-(ROADMAP.md, 'Modules to port', item 10); the ``numpy`` and ``native``
-backends are the original's.
+A copy of ``art_tpu/engines/decimator.py`` but for its device halves:
+``DeviceDecimator`` and its fused step ``_device_decimate_step`` run on
+the port's CUDA kernels (``ops/decimate_device.py``), and
+``backend="torch"`` (with ``device=``: None is "cuda", which raises when
+no card is usable; a CPU device runs the plain version) takes the place
+of JAX's ``backend="jax"``: its shaped modes dither, quantize, count clips
+and pack in one launch of the shaped decimate kernel, where JAX dithers on
+the host and scans on the device; the flat modes stay the host's, as in
+JAX.  ``backend="jax"`` raises a ValueError naming "torch"; the ``numpy``
+and ``native`` backends are the original's.
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ from ..core.flags import (DITHER_ENABLED, DITHER_FLAT, DITHER_HIGHPASS,
                           DITHER_LOWPASS, SHAPING_1ST_ORDER,
                           SHAPING_2ND_ORDER, SHAPING_3RD_ORDER,
                           SHAPING_ATH_CURVE, SHAPING_ENABLED)
-from .._roadmap import _not_ported
 from ..ops import decimate_device as dd
 from ..ops import decimate_kernel as dk
 from .biquad import Biquad, BiquadCoefficients
@@ -70,9 +73,14 @@ class Decimator:
 
     def __init__(self, num_channels: int, output_bits: int, output_bytes: int,
                  output_gain: float, sample_rate: int, flags: int, *,
-                 dtype=np.float32, backend: str = "numpy"):
+                 dtype=np.float32, backend: str = "numpy", device=None):
         if backend == "jax":
-            raise _not_ported("Decimator(backend='jax')", 10)
+            raise ValueError("backend='jax' is the JAX package's; the "
+                             "port's accelerator backend is "
+                             "backend='torch'")
+        if backend == "torch":
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
         self.num_channels = num_channels
         self.output_bits = output_bits
         self.output_bytes = output_bytes
@@ -163,6 +171,9 @@ class Decimator:
                                         self.output_bytes)
                 return packed.reshape(n, -1), clipped
 
+        if self.backend == "torch" and self.noise_shaper is not None and n:
+            return self._run_shaped_torch(frames)
+
         dither = None
         if self.flags & DITHER_ENABLED and n:
             dither, self.tpdf_generators = dk.tpdf_dither_block(
@@ -177,6 +188,30 @@ class Decimator:
                 self.highclip, self.lowclip)
         packed = dk.pack_bytes(outv, self.output_bits, self.output_bytes)
         return packed, clipped
+
+    def _run_shaped_torch(self, frames: np.ndarray) -> tuple[np.ndarray, int]:
+        """The shaped modes on one launch of the shaped decimate kernel
+        (``ops/decimate_device.decimate_shaped``): the LCG steps, the
+        error-feedback loop, the clip count and the packing; the new
+        generators, feedback and shaper histories come back to the host
+        state."""
+        dev = self.device
+        sh = self.noise_shaper
+        dithered = bool(self.flags & DITHER_ENABLED)
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+        packed, clips, gens, fb, xh, yh = dd.decimate_shaped(
+            x, x.shape[0], scaler=self.scaler, a=sh.a, b=sh.b, xh=sh.xh,
+            yh=sh.yh, feedback=self.feedback, highclip=self.highclip,
+            lowclip=self.lowclip, output_bits=self.output_bits,
+            output_bytes=self.output_bytes,
+            gens=dd.states_tensor(self.tpdf_generators, dev)
+            if dithered else None,
+            dither_type=self.dither_type if dithered else None)
+        if dithered:
+            self.tpdf_generators = dd.states_numpy(gens)
+        self.feedback = fb.cpu().numpy()
+        sh.xh, sh.yh = xh.cpu().numpy(), yh.cpu().numpy()
+        return packed.cpu().numpy(), int(clips)
 
 
 def float_integers(data, gain: float, input_bits: int, input_bytes: int,

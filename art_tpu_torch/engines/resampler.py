@@ -24,10 +24,15 @@ Flush semantics (RESAMPLER_FLUSHED latch), LPC endpoint extrapolation
 reduced non-power-of-two filter banks all follow the reference
 (reference resampler.c:383-397, 663-698, 533-535).
 
-A copy of ``art_tpu/engines/resampler.py``, unchanged but for its JAX
-backend: ``backend="jax"`` raises ``NotImplementedError`` at construction
-(ROADMAP.md, 'Modules to port', item 10), so the branches that served it
-(the polyphase fast path and ``apply_jax``) are left out.
+A copy of ``art_tpu/engines/resampler.py`` but for its accelerator
+backend: ``backend="torch"`` takes the place of JAX's ``backend="jax"``,
+on the same branches (the polyphase fast path on kernel K1, every other
+call on the ASRC apply kernel K5 through ``apply_torch``), with a
+``device=`` keyword (None: "cuda", which raises when no card is usable; a
+CPU device runs the kernels' plain versions).  The phase bank is uploaded
+once, at construction; counts, positions, flush, extrapolation and the
+state stay the host's, so a ``state_dict`` resumes under either backend.
+``backend="jax"`` raises a ValueError naming "torch".
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..core import accounting
 from ..core.filters import make_filter_bank, plan_fixed_ratio, resolve_lowpass
@@ -43,7 +49,7 @@ from ..core.flags import (
     INCLUDE_LOWPASS, RESAMPLE_FIXED_RATIO, RESAMPLER_FLUSHED,
     SUBSAMPLE_INTERPOLATE, validate_taps_filters,
 )
-from .._roadmap import _not_ported
+from .._device import resolve_device
 from ..ops import resample_kernel
 from . import extrapolator
 
@@ -59,9 +65,11 @@ class Resampler:
 
     def __init__(self, num_channels: int, num_taps: int, num_filters: int,
                  lowpass_ratio: float, flags: int, *, dtype=np.float32,
-                 backend: str = "numpy"):
+                 backend: str = "numpy", device=None):
         if backend == "jax":
-            raise _not_ported("Resampler(backend='jax')", 10)
+            raise ValueError("backend='jax' is the JAX package's; the "
+                             "port's accelerator backend is "
+                             "backend='torch'")
         validate_taps_filters(num_taps, num_filters)
         lowpass_ratio, flags = resolve_lowpass(lowpass_ratio, flags)
 
@@ -87,19 +95,25 @@ class Resampler:
         self.output_offset = float(num_taps // 2)
         self.input_index = num_taps
         self._period = None        # (Lp, Mp) exact rational period, if any
+        self._bank_dev = None
+        self._poly = None
+        if backend == "torch":
+            self.device = resolve_device("cuda" if device is None
+                                         else device)
+            self._bank_dev = torch.from_numpy(self.bank).to(self.device)
 
     # ------------------------------------------------------------------ init
     @classmethod
     def fixed_ratio(cls, num_channels: int, num_taps: int, max_filters: int,
                     source_rate: float, destin_rate: float,
                     lowpass_freq: float, flags: int, *, dtype=np.float32,
-                    backend: str = "numpy") -> "Resampler":
+                    backend: str = "numpy", device=None) -> "Resampler":
         """Fixed-ratio constructor (reference resampler.c:310-356)."""
         plan = plan_fixed_ratio(num_taps, max_filters, source_rate,
                                 destin_rate, lowpass_freq, flags)
         self = cls(num_channels, num_taps, plan.num_filters,
                    plan.lowpass_ratio, plan.flags, dtype=dtype,
-                   backend=backend)
+                   backend=backend, device=device)
         self.fixed_ratio = plan.fixed_ratio
         if float(source_rate).is_integer() and float(destin_rate).is_integer():
             import math as _math
@@ -233,6 +247,11 @@ class Resampler:
     def _compute(self, L: np.ndarray, plan, ratio: float) -> np.ndarray:
         interp = bool(self.flags & SUBSAMPLE_INTERPOLATE)
         K = plan.output_generated
+        if (self.backend == "torch" and not interp
+                and (self.flags & RESAMPLE_FIXED_RATIO) and K):
+            poly = self._polyphase()
+            if poly is not None and poly.eligible(plan.first_position, K):
+                return poly.apply(L, plan.first_position, K, self.dtype)
         # reconstruct the emission positions with the reference's exact
         # ring-coordinate rounding (fl((o - slides) + fl(k/ratio)); see
         # accounting.ring_positions — the linear sum loses sub-ulp fraction
@@ -273,6 +292,9 @@ class Resampler:
                 axis=1)
             parts["base"] = parts["base"] - lo
             parts["pass_idx"] = parts["pass_idx"] - lo
+        if self.backend == "torch":
+            return resample_kernel.apply_torch(L, self._bank_dev, parts,
+                                               interp, self.dtype)
         if (self.flags & RESAMPLE_FIXED_RATIO) and self._period is not None:
             out = resample_kernel.apply_numpy_periodic(
                 L, self.bank, parts, interp, self.dtype, *self._period)
@@ -280,6 +302,18 @@ class Resampler:
                 return out
         return resample_kernel.apply_numpy(L, self.bank, parts, interp,
                                            self.dtype)
+
+    def _polyphase(self):
+        """Lazy K1 fast path (ops/polyphase.py) for reduced fixed ratios."""
+        if self._poly is None and self.fixed_ratio:
+            from ..ops.polyphase import PolyphaseKernel
+            M = self.num_filters / self.fixed_ratio
+            if abs(M - round(M)) < 1e-9 and round(M) >= 1:
+                self._poly = PolyphaseKernel(
+                    self.bank, self.num_filters,
+                    bool(self.flags & INCLUDE_LOWPASS), self.fixed_ratio,
+                    device=self.device)
+        return self._poly
 
     def process_interleaved(self, inputs, n_in: int, n_out: int,
                             ratio: float) -> tuple[np.ndarray, ResampleResult]:

@@ -32,6 +32,8 @@ _vp, _ll, _i, _d = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_double)
 _ASRC_STEP = [_vp, _ll, _vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp,
               _vp, _vp, _ll, _ll, _vp, _vp]
+_ASRC_APPLY = [_vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp,
+               _ll, _vp, _vp]
 _SIGNATURES = {
     # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, kind,
     # stream
@@ -46,8 +48,8 @@ _SIGNATURES = {
     "art_asrc_step_f64": _ASRC_STEP,
     # buf, S, B, bank, taps, F, P, X, outputs per block, threads, base, fi,
     # frac, K, out, stream
-    "art_asrc_apply_f32": [_vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp,
-                           _vp, _vp, _ll, _vp, _vp],
+    "art_asrc_apply_f32": _ASRC_APPLY,
+    "art_asrc_apply_f64": _ASRC_APPLY,
     # x, n, S, x strides (frame, channel), kind, K, scaler, fb, gens,
     # dithered, dither type, new gens, highclip, lowclip, bits, bytes, out,
     # out strides (frame, channel), clips, stream

@@ -11,8 +11,11 @@ laid out):
 - ``asrc_step``: positions, phases and the masked two-phase windowed dot in
   one launch; float32 (K2, K3) and float64 (K4) instances;
 - ``asrc_apply``: the unmasked two-phase dot from precomputed base/fi/frac
-  (K5, float32); its prologue ``apply_prologue`` is plain PyTorch on the
-  device, as ``_pallas_prologue`` is XLA code outside the ``pallas_call``.
+  (K5): float32 (the ASRC engine's ``kernel="pallas"``) and float64 (the
+  float64 host ``Resampler(backend="torch")``,
+  ``ops/resample_kernel.py::apply_torch``) instances; its prologue
+  ``apply_prologue`` is plain PyTorch on the device, as
+  ``_pallas_prologue`` is XLA code outside the ``pallas_call``.
 
 A CPU tensor takes the plain version (``asrc_step_reference``,
 ``asrc_apply_reference``); a CUDA tensor launches the kernel or raises.
@@ -27,7 +30,8 @@ import torch
 
 from . import _build
 
-launches = {"asrc_step": 0, "asrc_step_f64": 0, "asrc_apply": 0}
+launches = {"asrc_step": 0, "asrc_step_f64": 0, "asrc_apply": 0,
+            "asrc_apply_f64": 0}
 
 TILE = 128      # outputs per gather tile of the plain versions
 
@@ -255,40 +259,49 @@ def asrc_step(hist, x, bank, offsets, ratios, Ks, shift: int, *,
 
 
 def asrc_apply_kernel(buf, bank, base, fi, frac):
-    """Launch the two-phase apply kernel (float32; the step kernel's
-    template with given positions, on ``step_geometry``'s float32 bank
-    pieces and runs): out [S, K], unmasked."""
+    """Launch the two-phase apply kernel (the step kernel's template with
+    given positions, on ``step_geometry``'s bank pieces and runs for its
+    type), float32 or float64 by ``buf``'s type: out [S, K], unmasked.
+    Phase rows are read at fi and fi + 1, so fi must lie in [0, F - 1]
+    for a bank of F + 1 rows."""
     dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"the ASRC apply kernel runs on CUDA tensors, got "
                          f"{dev}")
+    dt = buf.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"the ASRC apply kernel takes float32 or float64, "
+                         f"got {dt}")
     S, B = buf.shape
     K = base.shape[1]
     num_taps = bank.shape[1]
-    _check("buf", buf, dev, torch.float32, (S, B))
-    _check("bank", bank, dev, torch.float32, (bank.shape[0], num_taps))
+    _check("buf", buf, dev, dt, (S, B))
+    _check("bank", bank, dev, dt, (bank.shape[0], num_taps))
     _check_bank(bank, num_taps)
     _check("base", base, dev, torch.int32, (S, K))
     _check("fi", fi, dev, torch.int32, (S, K))
-    _check("frac", frac, dev, torch.float32, (S, K))
+    _check("frac", frac, dev, dt, (S, K))
     if K <= 0 or not num_taps <= B < 2**31:
         raise ValueError(f"bad apply: K={K}, B={B}, bank "
                          f"{tuple(bank.shape)} (the kernel takes taps <= B "
                          f"< 2**31)")
-    # the float32 step's bank pieces and runs
-    geo = step_geometry(num_taps, bank.shape[0] - 1, torch.float32)
+    # the step's bank pieces and runs of this type
+    geo = step_geometry(num_taps, bank.shape[0] - 1, dt)
+    f64 = dt == torch.float64
+    name = "asrc_apply_f64" if f64 else "asrc_apply"
     lib = _build.library()
-    out = torch.empty((S, K), dtype=torch.float32, device=dev)
+    fn = lib.art_asrc_apply_f64 if f64 else lib.art_asrc_apply_f32
+    out = torch.empty((S, K), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.art_asrc_apply_f32(
-            buf.data_ptr(), S, B, bank.data_ptr(), num_taps,
-            bank.shape[0] - 1, geo.piece_taps, geo.lane_span,
-            geo.outputs_per_block, geo.threads, base.data_ptr(),
-            fi.data_ptr(), frac.data_ptr(), K, out.data_ptr(), _stream(dev))
+        rc = fn(buf.data_ptr(), S, B, bank.data_ptr(), num_taps,
+                bank.shape[0] - 1, geo.piece_taps, geo.lane_span,
+                geo.outputs_per_block, geo.threads, base.data_ptr(),
+                fi.data_ptr(), frac.data_ptr(), K, out.data_ptr(),
+                _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"art_asrc_apply_f32 launch failed: cudaError "
-                           f"{rc}")
-    launches["asrc_apply"] += 1
+        raise RuntimeError(f"art_asrc_apply_{'f64' if f64 else 'f32'} "
+                           f"launch failed: cudaError {rc}")
+    launches[name] += 1
     return out
 
 

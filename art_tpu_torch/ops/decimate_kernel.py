@@ -17,16 +17,16 @@ byte-pack.  Re-architected for wide hardware:
   - Byte packing/unpacking is vectorized integer math (and is also provided
     by the native C++ runtime for the file CLI hot path).
 
-A copy of ``art_tpu/ops/decimate_kernel.py``, unchanged but for its
-JAX half: ``quantize_shaped_jax`` raises ``NotImplementedError``
-(ROADMAP.md, 'Modules to port', item 10).
+A copy of ``art_tpu/ops/decimate_kernel.py`` but for its JAX half:
+``quantize_shaped_jax`` (the shaped loop as a lax.scan) is left out; the
+port's device form of the shaped path is the shaped decimate kernel
+(``ops/decimate_device.py::decimate_shaped``), which the host
+``Decimator(backend="torch")`` calls.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from .._roadmap import _not_ported
 
 _INV15_32 = pow(15, -1, 1 << 32)
 _M32 = np.uint32(0xFFFFFFFF)
@@ -143,17 +143,6 @@ def quantize_shaped_numpy(samples: np.ndarray, dither: np.ndarray | None,
         clipped += int((ov > highclip).sum() + (ov < lowclip).sum())
         outv[i] = np.clip(ov, lowclip, highclip)
     return outv, clipped, fb
-
-
-def quantize_shaped_jax(samples: np.ndarray, dither: np.ndarray | None,
-                        scaler, feedback: np.ndarray, shaper,
-                        highclip: int, lowclip: int
-                        ) -> tuple[np.ndarray, int, np.ndarray]:
-    """JAX's shaped path, a lax.scan over time with every product
-    rounding forced through lax.reduce_precision: not ported (ROADMAP
-    item 10)."""
-    raise _not_ported("decimate_kernel.quantize_shaped_jax (the jax "
-                      "backend)", 10)
 
 
 def pack_bytes(outvalues: np.ndarray, output_bits: int, output_bytes: int

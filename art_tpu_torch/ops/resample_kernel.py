@@ -11,24 +11,27 @@ turns those positions into audio:
   - a numpy backend used as the bit-careful parity reference (float64
     accumulation, lerp of the two filter outputs in float64 like the
     reference's double-precision interpolation arithmetic),
-  - a JAX backend: one gather of [K, T] history windows + phase-bank row
-    gather + fused lerp + batched dot, jitted with bucketed shapes so
-    streaming calls hit the compile cache.
+  - a torch backend (``apply_torch``): the two-phase windowed dot of all
+    K positions in one launch of the ASRC apply kernel (K5,
+    ``ops/asrc_step.py::asrc_apply``) over the channels as its streams.
 
 The fixed-ratio steady-state path has a dedicated formulation in
-``polyphase.py`` (strided convolution onto the MXU); this module is the
-fully-general path that also serves drifting-ratio ASRC.
+``polyphase.py`` (the phase-anchor contraction on kernel K1); this module
+is the fully-general path that also serves drifting-ratio ASRC.
 
-A copy of ``art_tpu/ops/resample_kernel.py``, unchanged but for its
-JAX half: ``_jitted_apply`` and ``apply_jax`` raise
-``NotImplementedError`` (ROADMAP.md, 'Modules to port', item 10).
+A copy of ``art_tpu/ops/resample_kernel.py`` but for its JAX half:
+``_jitted_apply`` and ``apply_jax`` (a jitted gather + lerp + dot, with
+shapes bucketed for XLA's compile cache and the output tiled for the
+TPU's gather intermediate) give way to ``apply_torch``, which needs
+neither.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .._roadmap import _not_ported
+from .asrc_step import asrc_apply
 
 
 def decompose_positions(positions: np.ndarray, num_filters: int,
@@ -98,15 +101,48 @@ def apply_numpy(L: np.ndarray, bank: np.ndarray, parts: dict,
     return out.astype(dtype, copy=False)
 
 
-def _jitted_apply():
-    """JAX's jitted gather + dot: not ported (ROADMAP item 10)."""
-    raise _not_ported("resample_kernel._jitted_apply (the jax backend)", 10)
+def apply_torch(L: np.ndarray, bank_dev: torch.Tensor, parts: dict,
+                interpolate: bool, dtype) -> np.ndarray:
+    """The counterpart of JAX's ``apply_jax``: L [ch, S] numpy, bank_dev
+    [F + 1, T] of the data's type on the device that runs it, parts from
+    ``decompose_indexed``; returns [ch, K] numpy in ``dtype``.
 
+    One ``asrc_apply`` over the channels as streams, every stream with the
+    same positions: out = (1 - frac) <win, bank[fi]> + frac <win,
+    bank[fi + 1]>, win = L[c, base : base + T] (reads past S are zero, as
+    JAX's padded buffer gives).  The kernel reads rows fi and fi + 1, so
+    the non-interpolated mode, whose fi reaches F (the rotated extra
+    filter, row F), takes that row as the second phase of fi = F - 1 with
+    frac = 1: (1 - 1) d(F - 1) + 1 d(F) is d(F) exactly, as frac = 0 gives
+    d(fi) for the other rows.  The passthrough outputs then take their
+    sample.  A CPU bank runs the plain version, a CUDA bank the kernel."""
+    ch, S = L.shape
+    K = parts["base"].shape[0]
+    if K == 0:
+        return np.zeros((ch, 0), dtype=dtype)
+    dev = bank_dev.device
+    F, T = bank_dev.shape[0] - 1, bank_dev.shape[1]
+    buf = torch.zeros((ch, S + T), dtype=bank_dev.dtype, device=dev)
+    buf[:, :S] = torch.from_numpy(np.ascontiguousarray(L, dtype=dtype))
+    fi = np.asarray(parts["fi"], np.int64)
+    frac = np.asarray(parts["frac"], np.float64)
+    if not interpolate:
+        top = fi == F
+        fi = np.where(top, F - 1, fi)
+        frac = np.where(top, 1.0, frac)
 
-def apply_jax(L: np.ndarray, bank_dev, parts: dict, interpolate: bool,
-              dtype, bucket: int = 1024) -> np.ndarray:
-    """JAX backend: not ported (ROADMAP item 10)."""
-    raise _not_ported("resample_kernel.apply_jax (the jax backend)", 10)
+    def rows(a, t):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            dev, t).expand(ch, K).contiguous()
+
+    out = asrc_apply(buf, bank_dev, rows(parts["base"], torch.int32),
+                     rows(fi, torch.int32), rows(frac, bank_dev.dtype))
+    if parts["pass_mask"].any():
+        mask = torch.from_numpy(parts["pass_mask"]).to(dev)
+        idx = torch.from_numpy(np.asarray(parts["pass_idx"], np.int64)) \
+            .to(dev).clamp_(0, S - 1)
+        out = torch.where(mask[None, :], buf[:, idx], out)
+    return out.cpu().numpy().astype(dtype, copy=False)
 
 
 def apply_numpy_periodic(L: np.ndarray, bank: np.ndarray, parts: dict,

@@ -20,7 +20,7 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    per source, in parallel), with ptxas's register and spill lines; no
    kernel instance (K1's eighteen: float32, float32 with float64
    accumulators and float64, reduced and interpolated, three tiles; the
-   ASRC step's two and the apply; the decimate stage's flat and shaped
+   ASRC step's two and the apply's two; the decimate stage's flat and shaped
    kernels in float32 and float64; the biquad section's block and apply
    kernels in float32 and float64 and its carry) may spill, and the
    decimate kernels' SASS (cuobjdump) may hold no FFMA or DFMA;
@@ -149,7 +149,24 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    times in turns: one section and the cascade at config 4b's chunk, the
    plain version, one torch.matmul of JAX's Toeplitz product (the library
    yardstick), the native host cascade, the bound, and the cascade on the
-   art block beside the host pair.
+   art block beside the host pair;
+15. the host engines' accelerator backend (``backend="torch"``, JAX's
+   ``backend="jax"``): K5's float64 instance against its plain version at
+   config 5's shapes and on an art block's interpolated apply (within
+   1e-12), and an art block's exact apply at F = 1024, whose phase index
+   reaches F (float32 and float64, against the host's float64 dots);
+   Resampler(backend="torch") against backend="numpy" on a 60 s stereo
+   44.1k stream in 16,384-frame calls plus the flush (preset -3 -> 48k on
+   K1, preset -3 pitched +50 cents and preset -1 at a ratio drifting per
+   call on K5, preset -3 -> 48k in float64 on K1's float64 instance and
+   K5's): counts and positions equal, samples within 1e-5 / 1e-12, each
+   kernel launched once for each call the design sends it;
+   Decimator(backend="torch") ATH-shaped, dithered, 16-bit against the
+   native host over the same stream, bitwise, one shaped decimate launch
+   a call; art -3 -r48k, artest -3 -e -i and artest -1 -i with
+   --backend=torch beside phase 12's numpy legs, on phase 12's criteria;
+   the streams' rates, and K5's float64 instance timed against its plain
+   version with its bound.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound, then, last, the {"ok": true, "device": ...} line.  Without a
@@ -162,6 +179,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -269,14 +287,14 @@ def phase_build():
             print(f"  {line.strip()}")
     if _build.build_log:        # empty when an earlier process built it
         # 18 fixed_step_kernel instances (float, float-with-double
-        # accumulators and double; reduced and interpolated; 3 tiles), 3
-        # ASRC ones (step float32 and float64, apply), 4 decimate ones
+        # accumulators and double; reduced and interpolated; 3 tiles), 4
+        # ASRC ones (step and apply, float32 and float64), 4 decimate ones
         # (flat and shaped, float and double), 5 biquad ones (block and
         # apply, float and double; carry)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 30 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 31 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
     _require_no_fma("decimate")
 
@@ -1537,7 +1555,8 @@ def _run_cli(main, args, dev, backend):
     launches by instance, the ASRC kernels' launches, the decimate
     kernels' launches).  On the card the command takes its default device,
     as the command line does."""
-    kw = {"device": dev} if backend == "cuda" and dev.type != "cuda" else {}
+    kw = {"device": dev} if backend in ("cuda", "torch") and \
+        dev.type != "cuda" else {}
     _reset_launches()
     err = io.StringIO()
     t0 = time.perf_counter()
@@ -1693,6 +1712,8 @@ def phase_cli(dev, tag, seconds=60):
                            str(out)], dev, be)
             got[be] = (_wav_samples(out, dtype), err)
             legs[be] = (secs, got[be][0].size // 2)
+            if be == "numpy" and not extra:     # phase 15's reference
+                CLI_NUMPY[cmd] = (*got[be], secs)
             if be == "cuda":
                 print(f"  {cmd}: K1 launches {kl}, steady blocks {steady}")
                 _require(not on_card or (kl["f32"] == steady > 0
@@ -1735,6 +1756,7 @@ def phase_cli(dev, tag, seconds=60):
                                    dev, "numpy")[:2]
             ref[key] = stats(nerr)
             legs["numpy"] = (nsecs, ref[key]["2"][0])
+            CLI_NUMPY[("artest", *key)] = (ref[key], nerr, nsecs)
         want = ref[key]
         print(f"  {cmd}: -w5 {got['5'][1]:.2f} dB (numpy {want['5'][1]:.2f}"
               f" dB), counts {[got[w][0] for w in sorted(got)]}; K1 "
@@ -2502,6 +2524,398 @@ def phase_biquad_timing(dev, tag, n_c4=C4_CHUNK, block=16384, reps=20):
     return kms, med[names[2]], bound, med.get(names[3])
 
 
+# ------------------------------------------- phase 15: host-engine backends
+# the kernels' launches on phase 15's paths (the host Resampler and
+# Decimator with backend="torch", art and artest --backend=torch), each
+# read right after its path ran with the counts set to 0 before it
+BACKEND_PATH_LAUNCHES = {"f32": 0, "f64": 0, "asrc_apply": 0,
+                         "asrc_apply_f64": 0, "decimate_shaped": 0}
+# phase 12's numpy legs, which phase 15's CLI legs are compared with
+CLI_NUMPY = {}
+# preset -1 (48 filters, 48 taps), as artest -1 runs it
+PRESET1 = (2, 48, 48)
+
+
+def _art_block_parts(F, taps, interpolate, K=17760, ratio=48000 / 44100,
+                     seed=15):
+    """(buffer [2, 16384 + 2*taps] float64, decompose_positions parts) of
+    an art block's K outputs at ``ratio``; a quarter of the positions a
+    hair below the next sample (the exact mode's phase index reaches F
+    there), a quarter on a sample."""
+    from art_tpu_torch.ops import resample_kernel as rk
+    rng = np.random.default_rng(seed)
+    pos = taps + 0.37 + np.arange(K) / ratio
+    pos[::4] = np.floor(pos[::4])
+    pos[1::4] = np.floor(pos[1::4]) + 1.0 - 0.2 / F
+    buf = rng.normal(0, 0.5, (2, 16384 + 2 * taps))
+    return buf, rk.decompose_positions(pos, F, taps, interpolate, True)
+
+
+def phase_backend_kernels(dev, n=ASRC_N):
+    """K5's float64 instance against its float64 plain version at config
+    5's shapes and on an art block's interpolated apply, and the art
+    block's exact apply at F = 1024, whose phase index reaches F (float32
+    and float64), against the host's float64 apply.  Returns the largest
+    error of each instance."""
+    from art_tpu_torch.ops import resample_kernel as rk
+    worst = {"asrc_apply": 0.0, "asrc_apply_f64": 0.0}
+    rng = np.random.default_rng(1515)
+    eng = _asrc_engine(dev, ASRC_S, np.float64)
+    bank = eng._bank_dev
+    for label, ratios in (("near-1 drift", _drift(ASRC_S, 1)),
+                          ("ratios 2.0", np.full(ASRC_S, 2.0))):
+        _, Ks, k_max, _ = eng._plan(n, ratios, None)
+        h = torch.from_numpy(rng.normal(0, 0.5, (ASRC_S, eng.num_samples))) \
+            .to(dev)
+        x = torch.from_numpy(rng.normal(0, 0.5, (ASRC_S, n))).to(dev)
+        args = _step_args(eng, h, x, bank, ratios, Ks)
+        buf, base, fi, frac, _ = kasrc.apply_prologue(
+            h, x, args[3], args[4], args[6], num_taps=eng.num_taps,
+            num_filters=eng.num_filters, k_max=k_max,
+            hist_len=eng.num_samples)
+        out = kasrc.asrc_apply(buf, bank, base, fi, frac)
+        ref = kasrc.asrc_apply_reference(buf, bank, base, fi, frac)
+        err = float((out - ref).abs().max())
+        worst["asrc_apply_f64"] = max(worst["asrc_apply_f64"], err)
+        print(f"  config 5 {label}: asrc_apply float64 out [{ASRC_S}, "
+              f"{k_max}], max|kernel - plain| {err:.3e}")
+        _require(bool(torch.isfinite(out).all()) and err <= 1e-12,
+                 f"K5 float64 vs plain, config 5 {label}")
+    for F, interp, dtype in ((380, True, np.float64),
+                             (1024, False, np.float32),
+                             (1024, False, np.float64)):
+        buf, parts = _art_block_parts(F, 380, interp)
+        bank = make_filter_bank(380, F, 1.0, True, dtype)
+        L = buf.astype(dtype)
+        out = rk.apply_torch(L, torch.from_numpy(bank).to(dev), parts,
+                             interp, dtype)
+        if interp:      # the plain version (a CPU bank)
+            ref = rk.apply_torch(L, torch.from_numpy(bank), parts, interp,
+                                 dtype)
+        else:           # the host's float64 windowed dots
+            ref = rk.apply_numpy(L, bank, parts, interp, np.float64)
+        err = float(np.abs(out.astype(np.float64) - ref).max())
+        tol = 1e-12 if dtype == np.float64 else 1e-5
+        key = "asrc_apply_f64" if dtype == np.float64 else "asrc_apply"
+        worst[key] = max(worst[key], err)
+        top = int((parts["fi"] == F).sum())
+        print(f"  art block, F={F} {'interpolated' if interp else 'exact'}"
+              f" {np.dtype(dtype).name}: apply_torch [2, "
+              f"{parts['base'].size}] (phase index F at {top} outputs), "
+              f"max|kernel - {'plain' if interp else 'host f64'}| "
+              f"{err:.3e}")
+        _require(np.isfinite(out).all() and err <= tol and (interp or top),
+                 f"apply_torch F={F} {np.dtype(dtype).name}")
+    return worst
+
+
+def _design_calls(monkeypatch_calls):
+    """Spies on the Resampler's two device branches: counts the calls the
+    design sends to K1 (PolyphaseKernel.apply) and to K5 (apply_torch with
+    outputs).  Returns (calls, undo)."""
+    from art_tpu_torch.ops import polyphase, resample_kernel as rk
+    orig_poly, orig_apply = polyphase.PolyphaseKernel.apply, rk.apply_torch
+
+    def poly(self, *a, **k):
+        monkeypatch_calls["K1"] += 1
+        return orig_poly(self, *a, **k)
+
+    def apply(L, bank_dev, parts, *a, **k):
+        monkeypatch_calls["K5"] += int(parts["base"].size > 0)
+        return orig_apply(L, bank_dev, parts, *a, **k)
+
+    polyphase.PolyphaseKernel.apply, rk.apply_torch = poly, apply
+
+    def undo():
+        polyphase.PolyphaseKernel.apply, rk.apply_torch = orig_poly, \
+            orig_apply
+    return undo
+
+
+def _resampler_stream(eng, x, block, ratio_at):
+    """x [2, n] through process() in ``block``-frame calls, then the flush:
+    (outputs [2, m], [(used, generated, position)], wall s)."""
+    outs, res = [], []
+    cap = int(block * 1.2) + 400
+    t0 = time.perf_counter()
+    for j, i in enumerate(range(0, x.shape[1], block)):
+        blk = x[:, i:i + block]
+        o, r = eng.process(blk, blk.shape[1], cap, ratio_at(j))
+        outs.append(o[:, :r.output_generated])
+        res.append((r.input_used, r.output_generated, eng.get_position()))
+    o, r = eng.process(None, -1, cap, ratio_at(-1))
+    outs.append(o[:, :r.output_generated])
+    res.append((r.input_used, r.output_generated, eng.get_position()))
+    return np.concatenate(outs, axis=1), res, time.perf_counter() - t0
+
+
+def _idle_share(dev, step, calls, wall_ms):
+    """Kernel ms a call and the card's idle share over ``calls`` calls of
+    ``step`` (torch.profiler), against the unprofiled wall ms a call."""
+    busy = _device_busy_ms(dev, step, calls) if dev.type == "cuda" else None
+    if busy is None:
+        return "card busy: not measured"
+    return (f"card busy (torch.profiler, {calls} calls): {busy / calls:.4f} "
+            f"ms of kernels a call, idle {1 - busy / calls / wall_ms:.1%}")
+
+
+def _stepper(eng, x, block, ratio_at):
+    """One process() call of ``eng`` on the next ``block`` frames of x
+    (from the start) a call."""
+    j = [0]
+    cap = int(block * 1.2) + 400
+
+    def step():
+        blk = x[:, j[0] * block:(j[0] + 1) * block]
+        eng.process(blk, blk.shape[1], cap, ratio_at(j[0]))
+        j[0] += 1
+    return step
+
+
+def phase_backend_paths(dev, tag, seconds=60, block=16384):
+    """Resampler(backend="torch") against backend="numpy" on a 60 s stereo
+    44.1k stream in ``block``-frame calls plus the flush (preset -3 ->
+    48k, the polyphase path on K1; preset -3 at 48k from 44.1k pitched up
+    50 cents, interpolated, K5; preset -1 at a ratio drifting per call, as
+    artest without -e, K5; preset -3 -> 48k in float64), then
+    Decimator(backend="torch") against the native host decimator on the
+    same stream (ATH-shaped, dithered, 16-bit).  Counts and positions
+    exact, samples within 1e-5 / 1e-12, the decimator bitwise; each
+    kernel's launches equal the calls the design sends to it."""
+    from art_tpu_torch import Resampler
+    from art_tpu_torch.core.flags import PRESETS
+    on_card = dev.type == "cuda"
+    x32 = roundtrip.artest_noise(seconds)
+    pitch = 44100 * 2 ** (50 / 1200)
+    drift = lambda j: 48000 / 44100 * (1 + 0.002 * math.sin(0.05 * j))
+    cases = (
+        ("preset -3 -> 48k", np.float32, "f32",
+         lambda **kw: Resampler.fixed_ratio(*HEAD, **kw), lambda j: 0.0),
+        ("preset -3, 44.1k +50 cents -> 48k", np.float32, "asrc_apply",
+         lambda **kw: Resampler.fixed_ratio(2, 380, 380, pitch, 48000, 0,
+                                            FLAGS, **kw), lambda j: 0.0),
+        ("preset -1, ratio drifting per call", np.float32, "asrc_apply",
+         lambda **kw: Resampler(*PRESET1, 0.9, FLAGS, **kw), drift),
+        ("preset -3 -> 48k float64", np.float64, "f64",
+         lambda **kw: Resampler.fixed_ratio(*HEAD, **kw), lambda j: 0.0))
+    assert PRESETS[1] == PRESET1[1:] and PRESETS[3] == HEAD[1:3]
+    for label, dtype, main_kernel, make, ratio_at in cases:
+        x = x32.astype(dtype)
+        legs = {}
+        for be in ("torch", "numpy"):
+            eng = make(dtype=dtype, backend=be, device=dev)
+            eng.advance_position(eng.num_taps / 2.0)
+            calls = {"K1": 0, "K5": 0}
+            undo = _design_calls(calls)
+            _reset_launches()
+            try:
+                out, res, secs = _resampler_stream(eng, x, block, ratio_at)
+                _sync(dev)
+            finally:
+                undo()
+            legs[be] = (out, res, secs, calls, dict(k1.instance_launches),
+                        dict(kasrc.launches))
+        (a, ra, sa, calls, kl, al), (b, rb, sb, _, _, _) = \
+            legs["torch"], legs["numpy"]
+        err = float(np.abs(a.astype(np.float64) - b).max())
+        tol = 1e-12 if dtype == np.float64 else 1e-5
+        inst = "f64" if dtype == np.float64 else "f32"
+        apply_name = "asrc_apply_f64" if dtype == np.float64 \
+            else "asrc_apply"
+        print(f"  Resampler {label}: {len(ra)} calls, {a.shape[1]} output "
+              f"frames each, counts and positions equal {ra == rb}, max "
+              f"sample diff {err:.3e}; design K1 {calls['K1']}, K5 "
+              f"{calls['K5']}; launches K1 {kl[inst]}, {apply_name} "
+              f"{al[apply_name]}")
+        print(f"  Resampler {label}: torch {sa:.3f} s "
+              f"({a.shape[1] / sa / 1e6:.4f} M output frames/s), numpy "
+              f"{sb:.3f} s ({b.shape[1] / sb / 1e6:.4f}) {tag}")
+        eng = make(dtype=dtype, backend="torch", device=dev)
+        eng.advance_position(eng.num_taps / 2.0)
+        share = _idle_share(dev, _stepper(eng, x, block, ratio_at), 30,
+                            sa * 1e3 / len(ra))
+        print(f"  Resampler {label}, torch: {share} {tag}")
+        _require(ra == rb, f"Resampler {label}: counts or positions differ")
+        _require(np.isfinite(a).all() and err <= tol,
+                 f"Resampler {label}: samples differ by {err:.3e}")
+        _require(calls["K1" if main_kernel in ("f32", "f64") else "K5"] > 0,
+                 f"Resampler {label}: its main kernel was not called")
+        _require(not on_card or (kl[inst] == calls["K1"]
+                                 and sum(kl.values()) == calls["K1"]
+                                 and al[apply_name] == calls["K5"]
+                                 and sum(al.values()) == calls["K5"]),
+                 f"Resampler {label}: launches off the design")
+        BACKEND_PATH_LAUNCHES[inst] += kl[inst]
+        BACKEND_PATH_LAUNCHES[apply_name] += al[apply_name]
+    _decimator_stream(dev, x32, block, tag)
+
+
+def _decimator_stream(dev, x32, block, tag):
+    from art_tpu_torch import Decimator, native
+    _require(native.available(), "the native host runtime did not build")
+    fl = HP | ATH
+    frames = np.ascontiguousarray(x32.T)
+    legs = {}
+    for be in ("torch", "native"):
+        dec = Decimator(2, 16, 2, 1.0, 44100, fl, backend=be, device=dev)
+        _reset_launches()
+        got, clips = [], 0
+        t0 = time.perf_counter()
+        for i in range(0, frames.shape[0], block):
+            p, c = dec.process_interleaved(frames[i:i + block])
+            got.append(p)
+            clips += c
+        secs = time.perf_counter() - t0
+        legs[be] = (np.concatenate(got), clips, dec.state_dict(), secs,
+                    dd.launches["decimate_shaped"])
+    (a, ca, sa, ta, la), (b, cb, sb, tb, _) = legs["torch"], legs["native"]
+    calls = -(-frames.shape[0] // block)
+    same = ca == cb and all(
+        _bitwise(torch.from_numpy(u), torch.from_numpy(v)) for u, v in (
+            (a, b), (sa["feedback"], sb["feedback"]), (sa["tpdf"], sb["tpdf"]),
+            (sa["shaper"].xh, sb["shaper"].xh),
+            (sa["shaper"].yh, sb["shaper"].yh)))
+    print(f"  Decimator ATH-shaped dithered 16-bit: {calls} calls, "
+          f"{a.shape[0]} frames, {ca} clipped; bytes, clips, feedback, "
+          f"shaper state and generators bitwise the native host's: {same}; "
+          f"decimate_shaped launches {la}")
+    print(f"  Decimator: torch {ta:.3f} s ({a.shape[0] / ta / 1e6:.4f} M "
+          f"frames/s), native {tb:.3f} s ({b.shape[0] / tb / 1e6:.4f}) "
+          f"{tag}")
+    dec = Decimator(2, 16, 2, 1.0, 44100, fl, backend="torch", device=dev)
+    blocks = iter(range(0, frames.shape[0], block))
+
+    def step():
+        i = next(blocks)
+        dec.process_interleaved(frames[i:i + block])
+    print(f"  Decimator, torch: "
+          f"{_idle_share(dev, step, 30, ta * 1e3 / calls)} {tag}")
+    _require(same, "Decimator(backend='torch') differs from the native host")
+    _require(dev.type != "cuda" or la == calls,
+             "decimate_shaped launches != Decimator calls")
+    BACKEND_PATH_LAUNCHES["decimate_shaped"] += la
+
+
+def _numpy_leg(key, run):
+    """Phase 12's numpy leg of a command (run here when phase 12 did not)."""
+    if key not in CLI_NUMPY:
+        CLI_NUMPY[key] = run()
+    return CLI_NUMPY[key]
+
+
+def phase_backend_cli(dev, tag, seconds=60):
+    """art -3 -r48k, artest -3 -e -i and artest -1 -i with
+    --backend=torch beside phase 12's --backend=numpy legs, on phase 12's
+    criteria; K1 and K5 launched for the calls the design sends them."""
+    from art_tpu_torch.cli import art, artest
+    on_card = dev.type == "cuda"
+    wav, n = _cli_wav(seconds)
+
+    def checked(main, args, what):
+        calls = {"K1": 0, "K5": 0}
+        undo = _design_calls(calls)
+        try:
+            err, secs, kl, al, _ = _run_cli(main, args, dev, "torch")
+        finally:
+            undo()
+        print(f"  {what} --backend=torch: design K1 {calls['K1']}, K5 "
+              f"{calls['K5']}; launches K1 {kl}, ASRC {al}")
+        _require(not on_card or (kl["f32"] == calls["K1"] == sum(kl.values())
+                                 and al["asrc_apply"] == calls["K5"]
+                                 == sum(al.values())),
+                 f"{what} --backend=torch: launches off the design")
+        BACKEND_PATH_LAUNCHES["f32"] += kl["f32"]
+        BACKEND_PATH_LAUNCHES["asrc_apply"] += al["asrc_apply"]
+        return err, secs, calls
+
+    cmd = "art -3 -r48k"
+    out = CLI_DIR / "art_torch.wav"
+    err, secs, calls = checked(art.main, ["-q", "-y", "-3", "-r48k", str(wav),
+                                          str(out)], cmd)
+    a = _wav_samples(out, "<f4")
+
+    def numpy_art():
+        ref = CLI_DIR / "art_numpy_p15.wav"
+        e, s = _run_cli(art.main, ["-q", "-y", "-3", "-r48k", str(wav),
+                                   str(ref)], dev, "numpy")[:2]
+        return _wav_samples(ref, "<f4"), e, s
+    b, eb, sb = _numpy_leg(cmd, numpy_art)
+    diff = float(np.abs(a.astype(np.float64) - b).max())
+    print(f"  {cmd}: {a.size // 2} frames each, max abs diff {diff:.3e}; "
+          f"stderr {err.strip() or '(none)'!r}")
+    _require(a.size == b.size and err == eb and calls["K1"] > 0,
+             f"{cmd} --backend=torch: frames or clip warnings differ")
+    _require(diff <= 1e-5, f"{cmd} --backend=torch: samples beyond 1e-5")
+    _rate_line(cmd, {"torch": (secs, a.size // 2), "numpy": (sb, b.size // 2)},
+               tag)
+
+    base = ["-s44.1k", "-d48k", "-c2", "-i", f"-n{seconds}", "--timing"]
+    for preset, extra in (("-3", ["-e"]), ("-1", [])):
+        cmd = " ".join(["artest", preset, *base, *extra])
+        err, secs, calls = checked(artest.main, [preset, *base, *extra], cmd)
+        got = _artest_stats(err)
+        want, nerr, nsecs = _numpy_leg(
+            ("artest", preset, bool(extra)),
+            lambda: _artest_numpy(artest, [preset, *base, *extra], dev))
+        print(f"  {cmd}: -w5 {got['5'][1]:.2f} dB (numpy "
+              f"{want['5'][1]:.2f} dB), counts "
+              f"{[got[w][0] for w in sorted(got)]}")
+        print(f"  {cmd} --backend=torch {_timing(err)}")
+        _require({w: c for w, (c, _) in got.items()}
+                 == {w: c for w, (c, _) in want.items()},
+                 f"{cmd} --backend=torch: -w counts differ from numpy's")
+        if extra:
+            _require(got["5"][1] <= -130.0 and calls["K1"] > 0,
+                     f"{cmd} --backend=torch: -w5 above -130 dB")
+        else:
+            _require(abs(got["5"][1] - want["5"][1]) <= 0.5
+                     and calls["K5"] > 0 and calls["K1"] == 0,
+                     f"{cmd} --backend=torch: -w5 more than 0.5 dB from "
+                     f"numpy's")
+        _rate_line(cmd, {"torch": (secs, got["2"][0]),
+                         "numpy": (nsecs, want["2"][0])}, tag)
+
+
+def _artest_stats(text):
+    return {m.group(1): (int(m.group(2)), float(m.group(3)))
+            for m in _STATS.finditer(text)}
+
+
+def _artest_numpy(artest, args, dev):
+    err, secs = _run_cli(artest.main, args, dev, "numpy")[:2]
+    return _artest_stats(err), err, secs
+
+
+def phase_backend_timing(dev, tag, n=ASRC_N, reps=10):
+    """K5's float64 instance at config 5's shapes against its plain
+    version, with its bound.  Returns (ms, plain_ms, (bound_ms,
+    bound_by))."""
+    rng = np.random.default_rng(0)
+    eng = _asrc_engine(dev, ASRC_S, np.float64)
+    x = torch.from_numpy(rng.standard_normal((ASRC_S, n))).to(dev)
+    eng.process(x, _drift(ASRC_S, 0))
+    ratios, Ks, k_max, _ = eng._plan(n, _drift(ASRC_S, 1), None)
+    args = _step_args(eng, eng.hist, x, eng._bank_dev, ratios, Ks)
+    buf, base, fi, frac, _ = kasrc.apply_prologue(
+        eng.hist, x, args[3], args[4], args[6], num_taps=eng.num_taps,
+        num_filters=eng.num_filters, k_max=k_max, hist_len=eng.num_samples)
+    bank = eng._bank_dev
+    med = _time_in_turns(dev, {
+        "plain apply f64": lambda: kasrc.asrc_apply_reference(
+            buf, bank, base, fi, frac),
+        "apply kernel f64": lambda: kasrc.asrc_apply(buf, bank, base, fi,
+                                                     frac)},
+        ["plain apply f64", "apply kernel f64", "apply kernel f64",
+         "plain apply f64"], reps, "per call (f64)", tag)
+    S = ASRC_S
+    bound = _bound_ms(8 * (buf.numel() + 2 * S * k_max + eng.bank.size)
+                      + 4 * 2 * S * k_max, 4 * S * k_max * eng.num_taps,
+                      PEAK_F64)
+    print(f"  asrc_apply f64 bound {bound[0]:.4f} ms ({bound[1]}-bound; "
+          f"{S * k_max} outputs, unmasked)")
+    return med.get("apply kernel f64"), med["plain apply f64"], bound
+
+
 def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                   bound, library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -2604,6 +3018,25 @@ def main(argv) -> int:
     _require(dev.type != "cuda" or BIQUAD_PATH_LAUNCHES["biquad"] > 0,
              "the biquad kernel was not launched on its paths")
     bq_timed = phase_biquad_timing(dev, tag)
+    print("phase 15: host-engine backends: K5's float64 instance vs plain "
+          "PyTorch, Resampler and Decimator(backend='torch') over 60 s, "
+          "art and artest --backend=torch, times")
+    worst["asrc_apply_f64"] = 0.0
+    for key, err in phase_backend_kernels(dev).items():
+        worst[key] = max(worst[key], err)
+    phase_backend_paths(dev, tag)
+    phase_backend_cli(dev, tag)
+    print(f"  the kernels' launches on the host-engine paths: "
+          f"{BACKEND_PATH_LAUNCHES}")
+    _require(dev.type != "cuda" or all(BACKEND_PATH_LAUNCHES.values()),
+             "a kernel was not launched on the host-engine paths")
+    launches["fixed_step"] += BACKEND_PATH_LAUNCHES["f32"]
+    tier_launches["f64"] += BACKEND_PATH_LAUNCHES["f64"]
+    launches["asrc_apply"] += BACKEND_PATH_LAUNCHES["asrc_apply"]
+    DEC_PATH_LAUNCHES["decimate_shaped"] += \
+        BACKEND_PATH_LAUNCHES["decimate_shaped"]
+    timed["asrc_apply_f64"] = phase_backend_timing(dev, tag)
+    launches["asrc_apply_f64"] = BACKEND_PATH_LAUNCHES["asrc_apply_f64"]
     src = "art_tpu_torch/csrc/"
     pk = "art_tpu/ops/pallas_kernels.py:"
     kernels = [_kernel_entry(
@@ -2612,7 +3045,10 @@ def main(argv) -> int:
         med["plain step"], med["bound"], med["conv1d library"])]
     for key, replaces in (("asrc_step", pk + "567 and :355"),
                           ("asrc_step_f64", pk + "805"),
-                          ("asrc_apply", pk + "82")):
+                          ("asrc_apply", pk + "82"),
+                          # JAX runs the float64 apply as XLA code
+                          ("asrc_apply_f64",
+                           "art_tpu/ops/resample_kernel.py:135")):
         ms, plain_ms, bound = timed[key]
         kernels.append(_kernel_entry(key, src + "asrc_step.cu", replaces,
                                      launches[key], worst[key], ms, plain_ms,

@@ -11,10 +11,15 @@
   engine cannot model (``--pitch``, an irrational ``-r``) byte-identical to
   the numpy backend; the ``-w5`` round-trip RMS within 0.5 dB of JAX's or
   below -125 dB.
+- ``--backend=torch`` with ``device="cpu"`` (the host ``Resampler``'s
+  kernels on their plain versions) against JAX's ``--backend=jax``: file
+  lengths, clip warnings and every stats-line count exact; float32
+  samples within 1e-5, float64 within 1e-12; resample-then-decimate codes
+  within the shaped-noise floor; ``-w5`` as above.
 - No silent fallback: without a card, or when the device engine or its
   kernel fails, ``--backend=cuda`` raises (the command exits non-zero) and
-  writes no converted file; ``--backend=jax`` and ``--mesh`` exit naming
-  their ROADMAP items.
+  writes no converted file; ``--backend=jax`` exits naming
+  ``--backend=torch``, and ``--mesh`` its ROADMAP item.
 """
 
 import io
@@ -69,7 +74,7 @@ def _jax(backend, args, src, tmp_path):
 
 
 def _port(backend, args, src, tmp_path):
-    kw = {"device": "cpu"} if backend == "cuda" else {}
+    kw = {"device": "cpu"} if backend in ("cuda", "torch") else {}
     return _convert(tart.main, backend, args, src, tmp_path / "port.wav",
                     **kw)
 
@@ -375,12 +380,82 @@ def test_art_command_exits_nonzero_without_a_card(wav_in, tmp_path):
     assert not dst.exists()
 
 
-@pytest.mark.parametrize("main,args,item", [
-    (tart.main, ["--backend=jax", "a.wav", "b.wav"], 10),
-    (tart.main, ["--mesh=4", "a.wav", "b.wav"], 11),
-    (tartest.main, ["--backend=jax", "-s44.1k", "-d48k"], 10)],
+@pytest.mark.parametrize("main,args,named", [
+    (tart.main, ["--backend=jax", "a.wav", "b.wav"], "--backend=torch"),
+    (tart.main, ["--mesh=4", "a.wav", "b.wav"], "item 11"),
+    (tartest.main, ["--backend=jax", "-s44.1k", "-d48k"], "--backend=torch")],
     ids=["art jax", "art mesh", "artest jax"])
-def test_refused_backends_name_their_roadmap_item(main, args, item):
+def test_refused_backends_name_their_roadmap_item(main, args, named):
+    """--mesh names the ROADMAP item that ports it; --backend=jax, whose
+    place --backend=torch takes, names that."""
     with pytest.raises(SystemExit) as exc:
         main(args)
-    assert f"item {item}" in str(exc.value)
+    assert named in str(exc.value)
+
+
+@pytest.mark.parametrize("args", [
+    ["-r48k"], ["-r47999"], ["-r48k", "--f64"],
+    ["-r22050", "-p"], ["-r48k", "-o16"]], ids=" ".join)
+def test_art_torch_matches_jax_jax(args, wav_in, tmp_path, monkeypatch):
+    """--backend=torch against JAX's --backend=jax: -r48k reduces (the
+    polyphase path, K1), -r47999 interpolates and -r22050
+    -p runs the allpass-free downsampler with its pre filter (the apply,
+    K5); lengths, headers and clip warnings exact, samples within the
+    float32 class (float64 within 1e-12), 16-bit codes within the
+    shaped-noise floor.  Each resampler call goes to the branch JAX's
+    goes to."""
+    from art_tpu.engines.resampler import Resampler as JResampler
+    from art_tpu_torch.engines.resampler import Resampler as TResampler
+    branches = {}
+
+    def spy(cls, key):
+        orig = cls._compute
+
+        def compute(self, L, plan, ratio):
+            poly = self._polyphase() if not self.interpolation_used() \
+                else None
+            hit = bool(plan.output_generated and poly is not None
+                       and poly.eligible(plan.first_position,
+                                         plan.output_generated))
+            branches.setdefault(key, []).append(hit)
+            return orig(self, L, plan, ratio)
+        monkeypatch.setattr(cls, "_compute", compute)
+
+    spy(JResampler, "jax")
+    spy(TResampler, "torch")
+    a, ea = _jax("jax", args, wav_in, tmp_path)
+    b, eb = _port("torch", args, wav_in, tmp_path)
+    assert len(a) == len(b) and ea == eb and a[:44] == b[:44]
+    assert branches["jax"] == branches["torch"]
+    assert any(branches["torch"]) == (args[0] == "-r48k")
+    if "-o16" in args:
+        diff = np.abs(_codes(a) - _codes(b))
+        assert diff.max() <= 12 and diff.mean() < 2.0
+    else:
+        da = np.frombuffer(_data(a), "<f4").astype(np.float64)
+        db = np.frombuffer(_data(b), "<f4").astype(np.float64)
+        assert np.abs(da - db).max() <= 1e-5
+
+
+ARTEST_TORCH = [
+    ["-3", "-s44.1k", "-d48k", "-c2", "-n1", "-e", "-i"],
+    ["-1", "-s44.1k", "-d48k", "-c2", "-n1", "-i", "-o16"],
+    ["-3", "-s44.1k", "-d48k", "-c2", "-n1", "-e", "-i", "--f64"],
+]
+
+
+@pytest.mark.parametrize("args", ARTEST_TORCH, ids=" ".join)
+def test_artest_torch_matches_jax_jax(args):
+    """artest --backend=torch against JAX's --backend=jax: every stats-line
+    count and the clip total exact, the input stream bit-identical, -w5
+    within 0.5 dB of JAX's or below -125 dB."""
+    ref, _ = _artest(jartest.main, [*args, "--backend=jax"])
+    got, _ = _artest(tartest.main, [*args, "--backend=torch"], device="cpu")
+    assert set(ref) == set(got)
+    assert got["1"]["raw"] == ref["1"]["raw"]
+    for key in ref:
+        assert got[key]["count"] == ref[key]["count"], key
+        if "clipped" in ref[key]:
+            assert got[key]["clipped"] == ref[key]["clipped"]
+    assert got["5"]["rms"] < -125.0 or abs(got["5"]["rms"]
+                                           - ref["5"]["rms"]) <= 0.5

@@ -946,3 +946,119 @@ def test_device_biquad_cascade_on_card_matches_host_pair():
     cas.pull_to(*mixed)
     out.append(apply_cascade(mixed, x[200_001:]))
     assert np.abs(np.concatenate(out) - want).max() < 1e-13
+
+
+# ------------------------------------------------ the host engines' backend
+@pytest.mark.parametrize("case", ["near1", "r2.0", "F1024", "taps36",
+                                  "r0.2wide", "S3"])
+def test_asrc_apply_f64_kernel_matches_plain(case):
+    """K5's float64 instance against its plain version: within 1e-12."""
+    dev = _card()
+    eng, hist, x, ratios, _, k_max = _asrc_case(case, dev, seed=len(case))
+    t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)
+    buf, base, fi, frac, _ = kasrc.apply_prologue(
+        t(hist), t(x), t(eng.offsets), t(ratios),
+        eng.num_samples - eng.input_index, num_taps=eng.num_taps,
+        num_filters=eng.num_filters, k_max=k_max, hist_len=eng.num_samples)
+    bank = t(eng.bank)
+    before = kasrc.launches["asrc_apply_f64"]
+    o = kasrc.asrc_apply(buf, bank, base, fi, frac)
+    torch.cuda.synchronize()
+    assert kasrc.launches["asrc_apply_f64"] == before + 1
+    assert o.dtype == torch.float64 and o.shape == (eng.S, k_max)
+    ref = kasrc.asrc_apply_reference(buf, bank, base, fi, frac)
+    assert float((o - ref).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("F,taps,interpolate,lowpass,dtype,tol", [
+    (48, 48, True, True, np.float32, 1e-5),
+    (1024, 64, False, True, np.float32, 1e-5),
+    (160, 48, False, False, np.float32, 1e-5),
+    (1024, 32, False, False, np.float64, 1e-12),
+    (64, 48, True, True, np.float64, 1e-12)],
+    ids=["interp", "exact F1024", "exact allpass", "exact F1024 allpass f64",
+         "interp f64"])
+def test_apply_torch_on_card_matches_plain(F, taps, interpolate, lowpass,
+                                           dtype, tol):
+    """apply_torch on the card (one K5 launch) against its plain version
+    on the CPU; the non-interpolated phase index reaches F."""
+    from art_tpu_torch.core.filters import make_filter_bank
+    from art_tpu_torch.ops import resample_kernel as rk
+    dev = _card()
+    rng = np.random.default_rng(F + taps)
+    pos = np.sort(rng.uniform(taps, 3000 - taps - 1, 1500))
+    pos[::4] = np.floor(pos[::4])
+    pos[1::4] = np.floor(pos[1::4]) + 1.0 - 0.2 / F
+    parts = rk.decompose_positions(pos, F, taps, interpolate, lowpass)
+    assert interpolate or (parts["fi"] == F).any()
+    bank = make_filter_bank(taps, F, 0.9 if lowpass else 1.0, True, dtype)
+    L = rng.normal(0, 0.5, (2, 3000)).astype(dtype)
+    name = "asrc_apply_f64" if dtype == np.float64 else "asrc_apply"
+    before = kasrc.launches[name]
+    got = rk.apply_torch(L, torch.from_numpy(bank).to(dev), parts,
+                         interpolate, dtype)
+    assert kasrc.launches[name] == before + 1
+    want = rk.apply_torch(L, torch.from_numpy(bank), parts, interpolate,
+                          dtype)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.abs(got.astype(np.float64) - want).max() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5),
+                                       (np.float64, 1e-12)])
+@pytest.mark.parametrize("mode", ["reduced", "interpolated", "drift"])
+def test_resampler_torch_on_card_matches_cpu(mode, dtype, tol):
+    """Resampler(backend="torch") on the card against the same engine on
+    the CPU's plain versions: counts and positions equal, samples within
+    the bound; the polyphase calls launch K1, the others K5."""
+    from art_tpu_torch import Resampler
+    dev = _card()
+    ctor = {"reduced": (2, 64, 380, 44100, 48000, 0, IB),
+            "interpolated": (2, 64, 64, 44100, 47999, 0, IB),
+            "drift": (2, 64, 64, 0.9, IB)}[mode]
+    make = Resampler if mode == "drift" else Resampler.fixed_ratio
+    engines = [make(*ctor, dtype=dtype, backend="torch", device=d)
+               for d in (dev, "cpu")]
+    for e in engines:
+        e.advance_position(32.0)
+    sig = (np.random.default_rng(3).standard_normal((2, 20000))
+           * 0.4).astype(dtype)
+    k1_before, k5_before = k1.launches, dict(kasrc.launches)
+    for j, i in enumerate(list(range(0, 20000, 4000)) + [-1]):
+        blk = None if i < 0 else sig[:, i:i + 4000]
+        ratio = 1.0884 + 0.002 * np.sin(j) if mode == "drift" else 0.0
+        (a, ra), (b, rb) = (e.process(blk, -1 if blk is None else 4000,
+                                      5000, ratio) for e in engines)
+        assert (ra.input_used, ra.output_generated) == (
+            rb.input_used, rb.output_generated)
+        assert engines[0].get_position() == engines[1].get_position()
+        assert np.abs(a.astype(np.float64) - b).max(initial=0) <= tol
+    name = "asrc_apply_f64" if dtype == np.float64 else "asrc_apply"
+    assert (k1.launches > k1_before) == (mode == "reduced")
+    assert kasrc.launches[name] > k5_before[name]
+
+
+def test_decimator_torch_on_card_matches_native():
+    """Decimator(backend="torch") on the card (one shaped decimate launch
+    a call) against the native host decimator, bitwise in bytes, clips,
+    feedback, shaper state and generators."""
+    from art_tpu_torch import Decimator
+    from art_tpu_torch.core import flags as F
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    fl = F.DITHER_HIGHPASS | F.SHAPING_ATH_CURVE
+    host = Decimator(2, 16, 2, 1.0, 44100, fl, backend="native")
+    card = Decimator(2, 16, 2, 1.0, 44100, fl, backend="torch", device=dev)
+    rng = np.random.default_rng(9)
+    before = dd.launches["decimate_shaped"]
+    for n in (4096, 1, 3000):
+        x = (rng.standard_normal((n, 2)) * 0.7).astype(np.float32)
+        (pa, ca), (pb, cb) = (e.process_interleaved(x) for e in (host, card))
+        assert ca == cb and np.array_equal(pa, pb)
+    assert dd.launches["decimate_shaped"] == before + 3
+    sa, sb = host.state_dict(), card.state_dict()
+    assert np.array_equal(sa["feedback"], sb["feedback"])
+    assert np.array_equal(sa["tpdf"], sb["tpdf"])
+    for h in ("xh", "yh"):
+        assert np.array_equal(getattr(sa["shaper"], h),
+                              getattr(sb["shaper"], h))
