@@ -4,9 +4,12 @@ Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into ONE shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  The library lands in ``build/art_tpu_torch/`` at the root
-of the checkout, named by a hash of the sources and flags, so editing a
-source rebuilds it and an unchanged tree reuses it.  Nothing is built at
-import: the first launch builds.
+of the checkout, named by a hash of the sources, headers and flags, so
+editing a source rebuilds it and an unchanged tree reuses it.  Nothing is
+built at import: the first launch builds.  ``csrc/decimate_geometry.cpp``
+(the decimate kernels' host geometry, from the header ``decimate.cu``
+includes) is built apart, by the host's C++ compiler, so it needs no
+card.
 """
 
 from __future__ import annotations
@@ -61,12 +64,29 @@ _SIGNATURES = {
     "art_decimate_shaped": [_vp, _ll, _ll, _ll, _ll, _i, _ll, _d, _vp, _vp,
                             _vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp, _i,
                             _i, _i, _i, _vp, _ll, _ll, _vp, _vp],
+    # in [21], K, kind, state [9], stream
+    "art_decimate_chain_probe": [_vp, _ll, _i, _vp, _vp],
     # x, n, S, x strides (frame, channel), kind, K, a|b, AB, ABQ, B, Q, xh,
     # yh, work, new xh, new yh, y, y strides (frame, channel), stream
     "art_biquad_section": [_vp, _ll, _ll, _ll, _ll, _i, _ll, _vp, _vp, _vp,
                            _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
                            _vp],
 }
+
+
+# csrc/decimate_geometry.cpp, built by the host's C++ compiler
+_GEOMETRY_SIGNATURES = {
+    # n, S, kind, SMs, out [6]: the flat kernel's CTAs, threads, run,
+    # stride frames, LCG map
+    "art_decimate_flat_geometry": [_ll, _ll, _i, _i, _vp],
+    # n, S, K, kind, out [6]: the shaped kernel's groups, zero CTAs, tile,
+    # stages, threads, shared bytes
+    "art_decimate_shaped_geometry": [_ll, _ll, _ll, _i, _vp],
+    # odd, pairs, out [2]: the LCG map of 2 * pairs steps
+    "art_decimate_pair_power": [_i, ctypes.c_ulonglong, _vp],
+}
+CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared"]
+_geometry_lib = None
 
 
 def nvcc() -> str:
@@ -114,25 +134,66 @@ def _compile(sources: list[Path], so: Path) -> str:
     return "".join(log)
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.h"))
+
+
+def _digest(flags: list[str], files: list[Path]) -> str:
+    """16 hex digits of a hash of ``flags`` and the files' names and
+    bytes: a library's name, so an edit rebuilds it."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in files:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def geometry_library() -> ctypes.CDLL:
+    """csrc/decimate_geometry.cpp built with the host's C++ compiler (no
+    card, no nvcc): the decimate kernels' launch geometry from the header
+    their launches include.  Built on first use, beside the kernels'
+    library."""
+    global _geometry_lib
+    if _geometry_lib is not None:
+        return _geometry_lib
+    src = CSRC / "decimate_geometry.cpp"
+    so = BUILD_DIR / (f"libart_decimate_geometry_"
+                      f"{_digest(CXX_FLAGS, [src, *_headers()])}.so")
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
+        r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed ({r.returncode}) on "
+                               f"{src.name}:\n{r.stdout}{r.stderr}")
+        os.replace(tmp, so)     # atomic, as for the kernels' library
+    _geometry_lib = _bind(ctypes.CDLL(str(so)), _GEOMETRY_SIGNATURES)
+    return _geometry_lib
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib, build_log, library_path
     if _lib is not None:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    so = BUILD_DIR / f"libart_kernels_{h.hexdigest()[:16]}.so"
+    so = BUILD_DIR / (f"libart_kernels_"
+                      f"{_digest(NVCC_FLAGS, sources + _headers())}.so")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         build_log = _compile(sources, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _bind(ctypes.CDLL(str(so)), _SIGNATURES)
     library_path = so
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
     _lib = lib
     return lib

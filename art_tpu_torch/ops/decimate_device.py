@@ -22,10 +22,18 @@ versions (``decimate_flat_reference``, ``decimate_shaped_reference``).
 At these entry points LCG states are int32 tensors holding the uint32 bits
 (``states_tensor`` / ``states_numpy`` convert).  ``launches`` counts each
 kernel's launches.
+
+``library_geometry`` and ``lcg_pair_map`` read the kernels' launch
+geometry and the LCG's stride map from the host code their launches use
+(``csrc/decimate_geometry.h``, built for the host); ``chain_probe``
+launches ``decimate_chain_probe_kernel``, the shaped kernel's per-frame
+chain alone in one thread, whose time is that kernel's latency bound, and
+``chain_probe_reference`` is its plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -430,3 +438,90 @@ def decimate_shaped(samples, K: int, *, scaler: float, a, b, xh, yh,
     _raise_on(rc, "decimate_shaped", n, S, dt)
     launches["decimate_shaped"] += 1
     return out, clips, new_gens, new_fb, new_xh, new_yh
+
+
+# ------------------------------------------------- the kernels' geometry
+def lcg_pair_map(pairs: int) -> tuple[int, int]:
+    """(a, b): 2*pairs steps of the dither LCG take an even state g to a*g
+    + b and an odd one to a*g - b (mod 2^32), the powers of the two-step
+    maps 225 g + 14 and 225 g - 14: csrc/decimate_geometry.h's pair_power,
+    which the kernels' lanes and producers jump with (built for the host,
+    no card needed)."""
+    out = (ctypes.c_uint * 2)()
+    _build.geometry_library().art_decimate_pair_power(0, pairs, out)
+    return out[0], out[1]
+
+
+def library_geometry(n: int, S: int, K: int, dtype, sms: int) -> dict:
+    """The decimate kernels' launches for n frames of S channels of
+    ``dtype``, K of them quantized, on ``sms`` SMs, from
+    csrc/decimate_geometry.h (the code the launches run, built for the
+    host, no card needed): {"flat": {ctas, threads, run (elements a lane
+    takes at once), frames (the lanes' stride, 0 for one run a lane or a
+    jump a run), a, b (the LCG map of 5 * frames steps, as
+    lcg_pair_map)}, "shaped": {groups (CTAs of 32 channels), zero (CTAs
+    packing the zero tail), tile (frames), stages, threads, smem (dynamic
+    shared memory bytes)}}."""
+    lib = _build.geometry_library()
+    fo = (ctypes.c_longlong * 6)()
+    so = (ctypes.c_longlong * 6)()
+    rc = lib.art_decimate_flat_geometry(n, S, _KINDS[dtype], sms, fo) or \
+        lib.art_decimate_shaped_geometry(n, S, K, _KINDS[dtype], so)
+    if rc:
+        raise ValueError(f"the decimate kernels take no n={n}, S={S}, "
+                         f"K={K}, sms={sms}")
+    return dict(flat=dict(zip(("ctas", "threads", "run", "frames", "a", "b"),
+                              fo)),
+                shaped=dict(zip(("groups", "zero", "tile", "stages",
+                                 "threads", "smem"), so)))
+
+
+# ------------------------------------------------ the shaped chain's probe
+def _probe_values(values, dtype) -> np.ndarray:
+    """The probe's inputs [21]: a0..a4, b0..b4, xs, d, f, xh0..3, yh0..3."""
+    v = np.asarray(values, dtype=np.float64).astype(
+        np.float32 if dtype == torch.float32 else np.float64)
+    if v.shape != (21,):
+        raise ValueError(f"the chain probe takes 21 values, got {v.shape}")
+    return v
+
+
+def chain_probe(values, K: int, dtype, device):
+    """One launch of decimate_chain_probe_kernel on ``device`` (a card):
+    the shaped kernel's dithered per-frame chain K times on the constant
+    xs and d of ``values`` (see _probe_values; a tensor of them on the
+    device is used as it is); returns its final state [f, xh0..3, yh0..3]
+    as a tensor.  Not on any path, so not counted in ``launches``."""
+    v = values if isinstance(values, torch.Tensor) else \
+        torch.from_numpy(_probe_values(values, dtype)).to(device)
+    if v.dtype != dtype or v.device.type != "cuda" or \
+            tuple(v.shape) != (21,):
+        raise ValueError(f"the chain probe takes [21] {dtype} on a card")
+    state = torch.empty(9, dtype=dtype, device=device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.art_decimate_chain_probe(v.data_ptr(), int(K), _KINDS[dtype],
+                                          state.data_ptr(), stream)
+    _raise_on(rc, "decimate_chain_probe", K, 1, dtype)
+    return state
+
+
+def chain_probe_reference(values, K: int, dtype) -> np.ndarray:
+    """The plain version of ``chain_probe``: quantize_shaped_dev's
+    per-frame arithmetic on numpy scalars of the data type."""
+    v = _probe_values(values, dtype)
+    t = v.dtype.type
+    a, b, xs, d = v[0:5], v[5:10], v[10], v[11]
+    f, xh, yh = v[12], list(v[13:17]), list(v[17:21])
+    for _ in range(K):
+        code = t(xs - f)
+        fl = np.floor(np.float64(t(code + d)) + 0.5)
+        err = t(t(fl) - code)
+        s = t(err * a[0])
+        for k in (3, 2, 1, 0):
+            s = t(s + t(t(xh[k] * a[k + 1]) - t(b[k + 1] * yh[k])))
+        xh = [err, *xh[:3]]
+        yh = [s, *yh[:3]]
+        f = s
+    return np.array([f, *xh, *yh], dtype=v.dtype)

@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase; needs one card
     python3 chip_smoke.py --checksum    # only K1's output hashes (3 lines)
     python3 chip_smoke.py --profile-biquad  # the biquad kernels' device times
+    python3 chip_smoke.py --decimate-ab build/parent  # decimate A/B, in turns
 
 Drives the port's paths on the card -- the fixed-ratio streaming
 resampler (preset -3, 2 channels, 380 taps, 44.1k<->48k, reduced; and
@@ -21,9 +22,10 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    kernel instance (K1's eighteen: float32, float32 with float64
    accumulators and float64, reduced and interpolated, three tiles; the
    ASRC step's two and the apply's two; the decimate stage's flat and shaped
-   kernels in float32 and float64; the biquad section's block and apply
-   kernels in float32 and float64 and its carry) may spill, and the
-   decimate kernels' SASS (cuobjdump) may hold no FFMA or DFMA;
+   kernels and the shaped chain's probe in float32 and float64; the biquad
+   section's block and apply kernels in float32 and float64 and its carry)
+   may spill, and the six decimate instances' SASS (cuobjdump) may hold no
+   FFMA or DFMA;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes (~2^22-frame stereo chunks), its edge cases, BASELINE config 1's
    interpolated chunk and the large input periods (preset -3 192k->44.1k,
@@ -114,24 +116,38 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    and where an art steady block's time goes on the card: the whole
    HybridStreamResampler block beside its host plan, upload, K1 step and
    fetch, and the card's busy share over 50 blocks from torch.profiler;
-13. the device decimate stage: decimate_flat_kernel and
-   decimate_shaped_kernel against their plain versions on the card,
+13. the device decimate stage: each kernel's launch geometry at the main
+   shapes (the flat kernel's CTAs and stride; the shaped kernel's CTAs,
+   tile, stages, threads and shared memory; decimate_geometry.h, the
+   code the launches run) with its registers and spills;
+   decimate_flat_kernel and decimate_shaped_kernel against their plain
+   versions on the card,
    bitwise in packed bytes, clip counts and the new LCG and shaper state:
    the flat kernel on a 2^22-frame stereo chunk read in K1's [ch,
    capacity] layout (bits 8, 16, 24 and 24 in 4 bytes, dither types -1,
    1, 0 and 2 and none, the per-channel container with a power-of-two
    and another scaler; K = n - 777 with NaN past it), both on the art
    command's steady block (K1's output of a 16,384-frame preset -3 block;
-   ATH and 2nd-order shaping, dithered and not, float64), and the shaped
-   kernel on the 2^22 chunk against the native host decimator;
+   ATH and 2nd-order shaping, dithered and not, float64), the shaped
+   kernel on the 2^22 chunk against the native host decimator, at S = 6
+   and 33 (two chain warps) with K in the ring's last stage, and on the
+   art block cut into 3 calls against one; the sha256 of the flat
+   kernel's 2^22 chunk and of the shaped kernel's art block with their
+   states (``--decimate-ab`` checks them against an older tree);
    DeviceDecimator against the native host decimator over a 60 s stereo
    stream in 16,384-frame blocks (unshaped, ATH-shaped, 24-bit), bitwise;
    pipeline_chunk at the preset -3 shapes (flat and shaped: history and
    power K1's, bytes the plain version's or the native host's); then the
-   times in turns with CUDA events: the flat kernel and its plain version
-   with its bound, process_flat_packed's epilogue against its int64 plain
-   version, the shaped kernel per art block and per 2^22 chunk, each
-   beside the native host decimator;
+   times (decimate_times, the A/B's harness): a call's with CUDA events
+   and the kernel's on the card with the L2 flushed (torch.profiler) for
+   the flat kernel on the 2^22 chunk, process_flat_packed's int16
+   epilogue and the shaped kernel per art block, the shaped kernel per
+   2^22 chunk, Decimator(backend="torch") and the native host over phase
+   15's stream; beside them the plain versions, the native host decimator
+   and the bounds: bytes for the flat kernel, for the shaped one the time
+   of decimate_chain_probe_kernel (its per-frame chain alone, in one
+   thread, on values in registers) at the art block's K, its final state
+   bitwise its plain version's;
 14. the biquad cascade (csrc/biquad.cu, three launches a section): the
    kernel against its float64 plain version at BASELINE config 4b's chunk
    (6 x 524,320 float64; the combined section and the cascade's two) and
@@ -169,8 +185,19 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    version with its bound.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
-and bound, then, last, the {"ok": true, "device": ...} line.  Without a
-usable CUDA device it exits 2 and prints no result.
+and bound (the shaped decimate kernel's bound by latency; ``ms`` a call's
+CUDA-events time, ``device_ms`` the decimate kernels' device time with the
+L2 flushed, null for the others), then, last, the {"ok": true, "device":
+...} line.  Without a usable CUDA device it exits 2
+and prints no result.
+
+``--decimate-ab build/parent`` times the decimate stage against an older
+tree unpacked there (git archive), in four processes in turns (parent,
+change, change, parent): the flat kernel on the 2^22 chunk,
+process_flat_packed's int16 epilogue, the shaped kernel on the art block
+and the 2^22 chunk, and Decimator(backend="torch") beside the native host
+(decimate_times, as phase 13 takes them); the hashes of every turn must
+be equal.
 """
 
 from __future__ import annotations
@@ -181,6 +208,7 @@ import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -263,18 +291,27 @@ def phase_device():
     return name, count, f"[{smi}]"
 
 
-def _spills(log):
-    """{kernel: (spill store bytes, spill load bytes)} from ptxas -v."""
+def _ptxas(log, pattern):
+    """{kernel: the integers ``pattern`` captures in its ptxas -v lines}."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(pattern, line)
         if m and fn:
-            out[fn] = (int(m.group(1)), int(m.group(2)))
+            out[fn] = tuple(int(g) for g in m.groups())
     return out
+
+
+def _spills(log):
+    """{kernel: (spill store bytes, spill load bytes)} from ptxas -v."""
+    return _ptxas(log, r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def _registers(log):
+    """{kernel: registers a thread} from ptxas -v."""
+    return {k: v[0] for k, v in _ptxas(log, r"Used (\d+) registers").items()}
 
 
 def phase_build():
@@ -288,15 +325,16 @@ def phase_build():
     if _build.build_log:        # empty when an earlier process built it
         # 18 fixed_step_kernel instances (float, float-with-double
         # accumulators and double; reduced and interpolated; 3 tiles), 4
-        # ASRC ones (step and apply, float32 and float64), 4 decimate ones
-        # (flat and shaped, float and double), 5 biquad ones (block and
-        # apply, float and double; carry)
+        # ASRC ones (step and apply, float32 and float64), 6 decimate ones
+        # (the flat and shaped kernels and the shaped chain's probe, float
+        # and double), 5 biquad ones (block and apply, float and double;
+        # carry)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 31 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 33 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
-    _require_no_fma("decimate")
+    _require_no_fma("decimate", 6)
 
 
 def _cuobjdump() -> str:
@@ -305,10 +343,11 @@ def _cuobjdump() -> str:
     return str(path)
 
 
-def _require_no_fma(tag):
-    """The SASS of every kernel whose name holds ``tag`` has no fused
-    multiply-add (FFMA, DFMA): the decimate stage's bytes are a bit-exact
-    contract, so every product is rounded before its sum."""
+def _require_no_fma(tag, count):
+    """The SASS of each of the ``count`` kernels whose name holds ``tag``
+    has no fused multiply-add (FFMA, DFMA): the decimate stage's bytes are
+    a bit-exact contract, so every product is rounded before its sum (the
+    shaped chain's probe too, since it times that chain)."""
     sass = subprocess.run([_cuobjdump(), "-sass", str(_build.library_path)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
@@ -324,7 +363,7 @@ def _require_no_fma(tag):
             if re.search(r"\b(FFMA|DFMA)", line):
                 found[fn][1] += 1
     print(f"  SASS of the {tag} kernels (instructions, FFMA/DFMA): {found}")
-    _require(len(found) == 4 and all(n > 0 and f == 0
+    _require(len(found) == count and all(n > 0 and f == 0
                                      for n, f in found.values()),
              f"a {tag} kernel holds a fused multiply-add (or is missing)")
 
@@ -1935,7 +1974,114 @@ def phase_decimate_kernels(dev, n_target=1 << 22, block=16384):
           f"K) against the native host decimator: bytes, clips ({wclips}) "
           f"and state bitwise {same}")
     _require(same, "decimate_shaped vs the native host at 2^22 frames")
+    worst["decimate_shaped"] = max(worst["decimate_shaped"],
+                                   _shaped_widths(dev, out.T, Kb))
     return worst
+
+
+def _shaped_widths(dev, block, K):
+    """The shaped kernel beyond stereo, bitwise against its plain version:
+    S = 6 (one CTA) and S = 33 (two, the second chain warp with one lane)
+    with K past the ring's last stage; then the art block cut into 3
+    calls, whose bytes, clips and final state must equal one call's.
+    Returns max |kernel - plain| over packed bytes."""
+    worst = 0.0
+    sh = _host_decimator(HP | ATH).noise_shaper
+    for S, dtype in ((6, torch.float32), (33, torch.float64)):
+        tile = dd.library_geometry(0, S, 0, dtype, 1)["shaped"]["tile"]
+        n, Ks = 3 * tile + 500, 2 * tile + tile // 2 + 7
+        x = _noise_dev(dev, (S, n), 90 + S, 0.6, dtype).T
+        rng = np.random.default_rng(S)
+        kw = dict(scaler=32768.0 * 1.07, highclip=32767, lowclip=-32768,
+                  output_bits=16, output_bytes=2,
+                  gens=dd.states_tensor(rng.integers(
+                      0, 1 << 32, S, dtype=np.uint64).astype(np.uint32), dev),
+                  dither_type=0, a=sh.a, b=sh.b,
+                  xh=np.tile(sh.xh[:, :1], (1, S)) + 0.1,
+                  yh=np.tile(sh.yh[:, :1], (1, S)) - 0.1,
+                  feedback=rng.uniform(-0.3, 0.3, S))
+        same, err = _vs_plain(dd.decimate_shaped, dd.decimate_shaped_reference,
+                              x, Ks, kw)
+        print(f"  decimate_shaped S = {S} {str(dtype)[6:]} ({n} frames, "
+              f"tile {tile}, K = {Ks}): bitwise {same}, max|kernel - plain| "
+              f"{err:g}")
+        _require(same, f"decimate_shaped vs plain at S = {S}")
+        worst = max(worst, err)
+    kw = _dec_kw(_host_decimator(HP | ATH), dev)
+    whole = dd.decimate_shaped(block, K, **kw)
+    parts, clips = [], 0
+    state = dict(gens=kw["gens"], feedback=kw["feedback"], xh=kw["xh"],
+                 yh=kw["yh"])
+    for lo, hi in ((0, 1000), (1000, 4500), (4500, K)):
+        p, c, g, f, xh, yh = dd.decimate_shaped(block[lo:hi], hi - lo,
+                                                **{**kw, **state})
+        parts.append(p)
+        clips += int(c)
+        state = dict(gens=g, feedback=f, xh=xh, yh=yh)
+    _sync(dev)
+    same = (_bitwise(torch.cat(parts), whole[0][:K]) and clips == int(whole[1])
+            and all(_bitwise(a, b) for a, b in zip(
+                (state["gens"], state["feedback"], state["xh"], state["yh"]),
+                whole[2:])))
+    print(f"  decimate_shaped on art's block in 3 calls (frames 0-1000, "
+          f"1000-4500, 4500-{K}) against one call: bytes, clips and state "
+          f"bitwise {same}")
+    _require(same, "decimate_shaped: 3 calls differ from one")
+    return worst
+
+
+def phase_decimate_geometry(dev, n_target=1 << 22, block=16384):
+    """Each decimate kernel's launch at the main path's shapes on this
+    card's SMs (the flat kernel's CTAs and stride, the shaped kernel's
+    CTAs, tile, stages, threads and shared memory; from
+    decimate_geometry.h, the code the launches run), and their registers
+    and spills from this process's build."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 132
+    Kb = _steady_chunk(HEAD, dev, block)[2]
+    shapes = [("2^22 stereo chunk", n_target, 2, n_target),
+              ("art's block", Kb, 2, Kb), ("5.1 art block", Kb, 6, Kb),
+              ("33 channels, n >> K", 100_000, 33, 1000)]
+    for label, n, S, K in shapes:
+        for dtype in (torch.float32, torch.float64):
+            geo = dd.library_geometry(n, S, K, dtype, sms)
+            fg, sg = geo["flat"], geo["shaped"]
+            print(f"  {str(dtype)[6:]}, {label} ({n} x {S}, K {K}): "
+                  f"decimate_flat {fg['ctas']} CTAs of {fg['threads']}, "
+                  f"runs of {fg['run']} elements, stride "
+                  f"{fg['frames'] or 'none'} frames ({sms} SMs); "
+                  f"decimate_shaped {sg['groups']} + {sg['zero']} zero-tail "
+                  f"CTAs of {sg['threads']}, tile {sg['tile']} frames, "
+                  f"{sg['stages']} stages, {sg['smem']} B shared")
+    regs, spills = _registers(_build.build_log), _spills(_build.build_log)
+    print("  registers (spill store, load bytes): " + (", ".join(
+        f"{k}: {regs[k]} ({spills.get(k)})" for k in sorted(regs)
+        if "decimate" in k) or "not in this process's build log"))
+
+
+def decimate_hashes(dev, n_target=1 << 22, block=16384):
+    """sha256 of the flat kernel's packed 2^22-frame stereo chunk (16
+    bits, HP dither, K1's layout) with its clips and LCG states, and of
+    the shaped kernel's packed art block (ATH, HP, 16 bits) with its clips,
+    LCG and shaper states: entry points every tree with the decimate stage
+    has, so an older checkout prints its own (--decimate-times)."""
+    buf = _noise_dev(dev, (2, n_target), 74, 0.6)
+    flat = dd.decimate_flat(buf.T, n_target, **_dec_kw(
+        _host_decimator(HP), dev))
+    eng, n1, Kb, start, P, fracv, kw1 = _steady_chunk(HEAD, dev, block)
+    out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), 76, 0.6), P,
+                        start, Kb, torch.zeros((), device=dev), **kw1)[1]
+    shaped = dd.decimate_shaped(out.T, Kb, **_dec_kw(
+        _host_decimator(HP | ATH), dev))
+    _sync(dev)
+
+    def sha(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+    return {"decimate_flat 2^22 chunk": sha(flat),
+            "decimate_shaped art block": sha(shaped)}
 
 
 def phase_decimate_paths(dev, seconds=60, block=16384, n_target=1 << 22):
@@ -2039,82 +2185,173 @@ def _host_ms(fn, reps):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def _chain_probe_ms(dev, host, frames, K, reps=3):
+    """The shaped kernel's latency bound: decimate_chain_probe_kernel, the
+    kernel's dithered per-frame chain alone in one thread, K times on the
+    host shaper's coefficients and state and the block's first scaled
+    sample, its final state bitwise against its plain version; the median
+    ms of ``reps`` launches (CUDA events), nan off the card."""
+    sh = host.noise_shaper
+    xs = np.float32(np.float32(frames[0, 0]) * np.float32(host.scaler))
+    values = [*sh.a, *sh.b, xs, 0.3, host.feedback[0], *sh.xh[:, 0],
+              *sh.yh[:, 0]]
+    want = dd.chain_probe_reference(values, K, torch.float32)
+    if dev.type != "cuda":
+        return float("nan")
+    v = torch.from_numpy(dd._probe_values(values, torch.float32)).to(dev)
+    got = dd.chain_probe(v, K, torch.float32, dev)
+    times = [_time_ms(dev, lambda: dd.chain_probe(v, K, torch.float32, dev),
+                      1) for _ in range(reps)]
+    same = _bitwise(got.cpu(), torch.from_numpy(want))
+    runs = ", ".join(f"{t:.4f}" for t in times)
+    print(f"  decimate_chain_probe_kernel, K = {K}: final state bitwise its "
+          f"plain version's {same}; runs {runs} ms")
+    _require(same, "the chain probe differs from its plain version")
+    return sorted(times)[len(times) // 2]
+
+
+def _kernel_device_ms(dev, fn, calls, kernel):
+    """The card's ms a launch of ``kernel`` (torch.profiler) over ``calls``
+    calls of ``fn``, each after a 128 MB write that flushes the 50 MB L2,
+    so the kernel reads its inputs from memory, as its byte bound counts
+    them; the average over the launches the trace holds.  nan off the card
+    or where the trace holds none."""
+    if dev.type != "cuda":
+        return float("nan")
+    flush = torch.empty(1 << 25, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = count = 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            us += getattr(e, "self_device_time_total", 0)
+            count += e.count
+    return us / count / 1e3 if us and count else float("nan")
+
+
+def decimate_times(dev, n_target=1 << 22, block=16384, group=8, seconds=60):
+    """The decimate stage's times, on entry points every tree with the
+    decimate stage has (so the A/B runs it on an older tree too): for the
+    flat kernel on a 2^22-frame stereo chunk (16 bits, HP, K1's layout),
+    process_flat_packed's int16 epilogue on a group of 8 preset -3 chunks
+    and the shaped kernel on art's block, the ms a call (CUDA events, back
+    to back) and the kernel's device ms with the L2 flushed
+    (_kernel_device_ms); the shaped kernel's ms a call on the 2^22 chunk;
+    the M frames/s of Decimator(backend="torch") and of the native host
+    over phase 15's stream (ATH, HP, 16 bits, 16,384-frame calls)."""
+    from art_tpu_torch import Decimator
+    times = {}
+
+    def timed(label, fn, reps, kernel):
+        fn()
+        times[f"{label}: ms a call"] = _time_ms(dev, fn, reps)
+        times[f"{label}: device ms"] = _kernel_device_ms(dev, fn, reps,
+                                                         kernel)
+    buf = _noise_dev(dev, (2, n_target), 74, 0.6)
+    kw = _dec_kw(_host_decimator(HP), dev)
+    flat, shaped = "decimate_flat_kernel", "decimate_shaped_kernel"
+    timed("decimate_flat chunk", lambda: dd.decimate_flat(
+        buf.T, n_target, **kw), 20, flat)
+    K0 = _steady_chunk(HEAD, dev, n_target)[2]
+    grp = _noise_dev(dev, (2, group * K0), 75, 0.25)
+    zi = torch.zeros((), dtype=torch.int32, device=dev)
+    timed("epilogue group", lambda: streams._quantize_pack(
+        grp, 32768.0, zi, highclip=32767, lowclip=-32768, output_bits=16,
+        output_bytes=2), 5, flat)
+    eng, n1, Kb, start, P, fracv, kw1 = _steady_chunk(HEAD, dev, block)
+    out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), 76, 0.6), P,
+                        start, Kb, torch.zeros((), device=dev), **kw1)[1]
+    skw = _dec_kw(_host_decimator(HP | ATH), dev)
+    timed("decimate_shaped block", lambda: dd.decimate_shaped(
+        out.T, Kb, **skw), 10, shaped)
+    times["decimate_shaped chunk: ms a call"] = _time_ms(
+        dev, lambda: dd.decimate_shaped(buf.T, n_target, **skw), 2)
+    frames = np.ascontiguousarray(roundtrip.artest_noise(seconds).T)
+    for be in ("torch", "native"):
+        dec = Decimator(2, 16, 2, 1.0, 44100, HP | ATH, backend=be,
+                        device=dev)
+        dec.process_interleaved(frames[:block])
+        t0 = time.perf_counter()
+        for i in range(block, frames.shape[0], block):
+            dec.process_interleaved(frames[i:i + block])
+        _sync(dev)
+        times[f"Decimator {be}, M frames/s"] = \
+            (frames.shape[0] - block) / (time.perf_counter() - t0) / 1e6
+    return times
+
+
 def phase_decimate_timing(dev, tag, n_target=1 << 22, block=16384,
-                          group=8, reps=20):
-    """The decimate kernels' times with CUDA events, in turns with their
-    plain versions, beside the native host decimator on the same samples
-    (host clock): the flat kernel on a 2^22-frame stereo chunk to 16 bits
-    (HP dither, K1's layout) with its bound (samples in plus packed bytes
-    out over the memory rate); process_flat_packed's epilogue on a group
-    of 8 preset -3 chunks, kernel against the int64 plain version; the
-    shaped kernel on the art command's steady block and on the 2^22
-    chunk.  Returns {kernel: (ms, plain ms, bound)}."""
+                          group=8, seconds=60):
+    """The decimate kernels' times (decimate_times: a call's with CUDA
+    events, the kernel's on the card with the L2 flushed) beside their
+    plain versions (CUDA events), the native host decimator on the same
+    samples (host clock) and their bounds: the flat kernel on a
+    2^22-frame stereo chunk to 16 bits and process_flat_packed's int16
+    epilogue with their byte bounds (samples in plus packed bytes out over
+    the memory rate), the shaped kernel on the art command's steady block
+    with its latency bound (the chain probe) and on the 2^22 chunk.
+    Returns {kernel: (ms a call, device ms, plain ms, bound)}."""
+    t = decimate_times(dev, n_target, block, group, seconds)
+    for label, v in t.items():
+        print(f"  {label}: {v:.4f} {tag}")
     res = {}
     n = n_target
     buf = _noise_dev(dev, (2, n), 74, 0.6)
     host = _host_decimator(HP)
     kw = _dec_kw(host, dev)
     xnp = np.ascontiguousarray(buf.T.cpu().numpy())
-    variants = {
-        "decimate_flat kernel": lambda: dd.decimate_flat(buf.T, n, **kw),
-        "decimate_flat plain": lambda: dd.decimate_flat_reference(
-            buf.T, n, **kw)}
-    order = ["decimate_flat plain", "decimate_flat kernel",
-             "decimate_flat kernel", "decimate_flat plain"]
-    med = _time_in_turns(dev, variants, order, reps,
-                         f"per {n}-frame stereo chunk, 16 bits, HP", tag)
+    plain = _time_ms(dev, lambda: dd.decimate_flat_reference(buf.T, n, **kw),
+                     3)
     host_ms = _host_ms(lambda: host.process_interleaved(xnp), 3)
     bound = _bound_ms(n * 2 * (4 + 2), 7 * n * 2, PEAK_F32)
-    kms = med.get("decimate_flat kernel", float("nan"))
-    print(f"  native host decimator, same chunk: {host_ms:.4f} ms (host "
-          f"clock); decimate_flat bound {bound[0]:.4f} ms ({bound[1]}: "
-          f"{n * 12 / 1e6:.1f} MB), kernel at {bound[0] / kms:.1%} of it "
-          f"{tag}")
-    res["decimate_flat"] = (kms, med["decimate_flat plain"], bound)
-    # process_flat_packed's epilogue: a group of 8 preset -3 chunks
+    kms = t["decimate_flat chunk: device ms"]
+    print(f"  decimate_flat, {n}-frame stereo chunk, 16 bits, HP: plain "
+          f"{plain:.4f} ms, native host {host_ms:.4f} ms (host clock); "
+          f"bound {bound[0]:.4f} ms ({bound[1]}: {n * 12 / 1e6:.1f} MB), "
+          f"the kernel's device time at {bound[0] / kms:.1%} of it {tag}")
+    res["decimate_flat"] = (t["decimate_flat chunk: ms a call"], kms, plain,
+                            bound)
     K0 = _steady_chunk(HEAD, dev, n_target)[2]
     grp = _noise_dev(dev, (2, group * K0), 75, 0.25)
     zi = torch.zeros((), dtype=torch.int32, device=dev)
-    qkw = dict(highclip=32767, lowclip=-32768, output_bits=16,
-               output_bytes=2)
-    variants = {
-        "epilogue kernel": lambda: streams._quantize_pack(grp, 32768.0, zi,
-                                                          **qkw),
-        "epilogue int64 plain": lambda: streams._quantize_pack_reference(
-            grp, 32768.0, zi, **qkw)}
-    order = ["epilogue int64 plain", "epilogue kernel", "epilogue kernel",
-             "epilogue int64 plain"]
-    _time_in_turns(dev, variants, order, 5,
-                   f"per group of {group} x {K0} stereo frames "
-                   f"(process_flat_packed int16)", tag)
-    # the shaped kernel: the art command's steady block and the 2^22 chunk
+    eplain = _time_ms(dev, lambda: streams._quantize_pack_reference(
+        grp, 32768.0, zi, highclip=32767, lowclip=-32768, output_bits=16,
+        output_bytes=2), 3)
+    ebound = _bound_ms(group * K0 * 2 * (4 + 2), 7 * group * K0 * 2,
+                       PEAK_F32)
+    print(f"  epilogue, group of {group} x {K0} stereo frames "
+          f"(process_flat_packed int16): int64 plain {eplain:.4f} ms; bound "
+          f"{ebound[0]:.4f} ms ({ebound[1]}), the kernel's device time at "
+          f"{ebound[0] / t['epilogue group: device ms']:.1%} of it {tag}")
     eng, n1, Kb, start, P, fracv, kw1 = _steady_chunk(HEAD, dev, block)
     out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), 76, 0.6), P,
                         start, Kb, torch.zeros((), device=dev), **kw1)[1]
     host = _host_decimator(HP | ATH)
     skw = _dec_kw(host, dev)
     bnp = np.ascontiguousarray(out[:, :Kb].T.cpu().numpy())
-    ms = _time_ms(dev, lambda: dd.decimate_shaped(out.T, Kb, **skw), reps) \
-        if dev.type == "cuda" else float("nan")
     _sync(dev)
     t0 = time.perf_counter()
     dd.decimate_shaped_reference(out.T, Kb, **skw)
     _sync(dev)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    block_host = _host_ms(lambda: host.process_interleaved(bnp), reps)
-    bound = _bound_ms(Kb * 2 * (4 + 2), 20 * Kb * 2, PEAK_F32)
+    block_host = _host_ms(lambda: host.process_interleaved(bnp), 10)
+    bound = (_chain_probe_ms(dev, host, bnp, Kb), "latency")
+    ms = t["decimate_shaped block: device ms"]
     print(f"  decimate_shaped ATH HP 16, art's steady block ({Kb} frames): "
-          f"kernel {ms:.4f} ms (CUDA events, {reps} calls), plain "
-          f"{plain_ms:.1f} ms (one call, host clock), native host "
-          f"{block_host:.4f} ms; bound {bound[0]:.6f} ms ({bound[1]}) "
-          f"{tag}")
-    res["decimate_shaped"] = (ms, plain_ms, bound)
-    if dev.type == "cuda":
-        chunk = _time_ms(dev, lambda: dd.decimate_shaped(buf.T, n, **skw),
-                         2)
-        chunk_host = _host_ms(lambda: host.process_interleaved(xnp), 2)
-        print(f"  decimate_shaped ATH HP 16, {n}-frame stereo chunk: kernel "
-              f"{chunk:.3f} ms, native host {chunk_host:.3f} ms {tag}")
+          f"plain {plain_ms:.1f} ms (one call, host clock), native host "
+          f"{block_host:.4f} ms; latency bound {bound[0]:.4f} ms (the "
+          f"chain probe), the kernel's device time at {bound[0] / ms:.1%} "
+          f"of it {tag}")
+    res["decimate_shaped"] = (t["decimate_shaped block: ms a call"], ms,
+                              plain_ms, bound)
+    chunk_host = _host_ms(lambda: host.process_interleaved(xnp), 2)
+    print(f"  decimate_shaped ATH HP 16, {n}-frame stereo chunk: native "
+          f"host {chunk_host:.3f} ms {tag}")
     return res
 
 
@@ -2916,12 +3153,48 @@ def phase_backend_timing(dev, tag, n=ASRC_N, reps=10):
     return med.get("apply kernel f64"), med["plain apply f64"], bound
 
 
+# ------------------------------------------------- the decimate stage's A/B
+def decimate_ab(parent):
+    """The decimate stage against an older tree unpacked in ``parent``
+    (git archive into build/parent/): this script is copied there as
+    chip_smoke_new.py, and decimate_times runs in four processes, one a
+    turn, in the order parent, change, change, parent (each process
+    imports its own tree's package and builds its own library); the
+    hashes of every turn must be equal."""
+    here = Path(__file__).resolve()
+    parent = Path(parent).resolve()
+    _require((parent / "art_tpu_torch").is_dir(),
+             f"no art_tpu_torch in {parent}")
+    shutil.copy(here, parent / "chip_smoke_new.py")
+    script = {"parent": parent / "chip_smoke_new.py", "change": here}
+    turns = []
+    for name in ("parent", "change", "change", "parent"):
+        r = subprocess.run([sys.executable, str(script[name]),
+                            "--decimate-times"], cwd=script[name].parent,
+                           capture_output=True, text=True, timeout=900)
+        _require(r.returncode == 0, f"the {name} turn failed:\n"
+                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        turns.append((name, json.loads(r.stdout.strip().splitlines()[-1])))
+        print(f"  turn {len(turns)}, {name}: {json.dumps(turns[-1][1])}")
+    for case in turns[0][1]["times"]:
+        runs = [f"{name} {t['times'][case]}" for name, t in turns]
+        print(f"  {case}: {', '.join(runs)}")
+    hashes = [t["hashes"] for _, t in turns]
+    same = all(h == hashes[0] for h in hashes)
+    print(f"  hashes equal in all four turns: {same}")
+    _require(same, "the decimate stage's bytes differ from the parent's")
+
+
 def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
-                  bound, library_ms=None):
+                  bound, library_ms=None, device_ms=None):
+    """One entry of the kernels line: ``ms`` is a call's time with CUDA
+    events; ``device_ms`` the kernel's device time with the L2 flushed
+    (torch.profiler) where it was taken, else null."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": library_ms}
+            "bound_by": bound[1], "library_ms": library_ms,
+            "device_ms": device_ms}
 
 
 def main(argv) -> int:
@@ -2936,6 +3209,14 @@ def main(argv) -> int:
     if argv[1:] == ["--profile-biquad"]:
         print(phase_device()[2])
         profile_biquad(dev)
+        return 0
+    if argv[1:] == ["--decimate-times"]:
+        print(json.dumps({"times": decimate_times(dev),
+                          "hashes": decimate_hashes(dev)}))
+        return 0
+    if argv[1:2] == ["--decimate-ab"] and len(argv) == 3:
+        print(phase_device()[2])
+        decimate_ab(argv[2])
         return 0
     t_start = time.perf_counter()
     print("phase 1: device")
@@ -3000,7 +3281,10 @@ def main(argv) -> int:
     print("phase 13: device decimate: the kernels vs plain PyTorch, "
           "DeviceDecimator vs the native host over 60 s, pipeline_chunk, "
           "times")
+    phase_decimate_geometry(dev)
     worst.update(phase_decimate_kernels(dev))
+    for label, digest in decimate_hashes(dev).items():
+        print(f"  sha256 {label}: {digest}")
     phase_decimate_paths(dev)
     print(f"  the decimate kernels' launches on the main paths: "
           f"{DEC_PATH_LAUNCHES}")
@@ -3066,11 +3350,12 @@ def main(argv) -> int:
             "art_tpu/parallel/pipeline.py:39", tier_launches[inst],
             tier_err[inst], ms, plain_ms, bound, lib_ms))
     for key, line in (("decimate_flat", 113), ("decimate_shaped", 131)):
-        ms, plain_ms, bound = dec_timed[key]
+        ms, device_ms, plain_ms, bound = dec_timed[key]
         kernels.append(_kernel_entry(
             key, src + "decimate.cu",
             f"art_tpu/ops/decimate_device.py:{line}",
-            DEC_PATH_LAUNCHES[key], worst[key], ms, plain_ms, bound))
+            DEC_PATH_LAUNCHES[key], worst[key], ms, plain_ms, bound,
+            device_ms=device_ms))
     ms, plain_ms, bound, lib_ms = bq_timed
     kernels.append(_kernel_entry(
         "biquad", src + "biquad.cu", "art_tpu/ops/biquad_kernel.py:206",

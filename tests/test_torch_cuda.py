@@ -762,6 +762,161 @@ def test_decimate_shaped_kernel_matches_plain(case):
         assert _bits_equal(g, w)
 
 
+# the redesigned geometry: (S, dtype, dither type, shaper, n, K) with K
+# named by where it falls in the shaped kernel's tiles ("first": inside
+# the first tile, "last": inside the ring's last stage, "zero", "n")
+DEC_SHAPED_GEO = [(1, torch.float32, 0, "ath", 6000, "last"),
+                  (2, torch.float32, -1, "ath", 6000, "first"),
+                  (2, torch.float32, 1, "2nd", 6000, "last"),
+                  (2, torch.float32, None, "ath", 5000, "n"),
+                  (2, torch.float64, 0, "ath", 3500, "last"),
+                  (2, torch.float32, 0, "ath", 200_000, 1000),
+                  (2, torch.float32, 0, "ath", 3000, "zero"),
+                  (6, torch.float32, -1, "2nd", 2000, "last"),
+                  (33, torch.float32, None, "ath", 1000, 700),
+                  (33, torch.float64, 1, "2nd", 800, "last")]
+
+
+def _shaped_kw(dev, S, dtype, dither_type, curve, seed):
+    from art_tpu_torch.core import flags as F
+    from art_tpu_torch.engines.decimator import Decimator
+    from art_tpu_torch.ops import decimate_device as dd
+    flags = F.SHAPING_ATH_CURVE if curve == "ath" else F.SHAPING_2ND_ORDER
+    sh = Decimator(1, 16, 2, 1.0, 48000, flags,
+                   dtype=np.float64 if dtype == torch.float64
+                   else np.float32).noise_shaper
+    rng = np.random.default_rng(seed)
+    gens = rng.integers(0, 1 << 32, S, dtype=np.uint64).astype(np.uint32)
+    return dict(scaler=32768.0 * 1.07, highclip=32767, lowclip=-32768,
+                output_bits=16, output_bytes=2,
+                gens=dd.states_tensor(gens, dev), dither_type=dither_type,
+                a=sh.a, b=sh.b, xh=np.tile(sh.xh, (1, S)) + 0.1,
+                yh=np.tile(sh.yh, (1, S)) - 0.1,
+                feedback=rng.uniform(-0.3, 0.3, S))
+
+
+@pytest.mark.parametrize("case", DEC_SHAPED_GEO, ids=[
+    f"S{c[0]}-{str(c[1])[6:]}-{c[2]}-{c[3]}-n{c[4]}-K{c[5]}"
+    for c in DEC_SHAPED_GEO])
+def test_decimate_shaped_kernel_geometry(case):
+    """The warp-specialised shaped kernel against its plain version,
+    bitwise, across its geometry: one and two chain warps (S = 33), K = 0,
+    K inside the first tile and inside the ring's last stage, n >> K (the
+    zero-tail CTAs), float64, dither types -1, 0 and 1 and none, ATH and
+    2nd-order shapers."""
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    S, dtype, dither_type, curve, n, where = case
+    tile = dd.library_geometry(n, S, n, dtype, 1)["shaped"]["tile"]
+    K = {"first": tile // 2 + 3, "last": 2 * tile + tile // 3, "zero": 0,
+         "n": n}.get(where, where)
+    assert K <= n
+    rng = np.random.default_rng(S + n)
+    x = torch.from_numpy(rng.standard_normal((S, n)) * 0.6).to(dev, dtype).T
+    kw = _shaped_kw(dev, S, dtype, dither_type, curve, S)
+    got = dd.decimate_shaped(x, K, **kw)
+    want = dd.decimate_shaped_reference(x, K, **kw)
+    torch.cuda.synchronize()
+    assert int(got[1]) == int(want[1])
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+def test_decimate_shaped_stream_in_three_calls_equals_one():
+    """A stream cut into 3 calls (cuts inside tiles) gives the bytes, clip
+    count and final state of one call over it."""
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    n = 9000
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (n, 2)) * 0.7).to(dev, torch.float32)
+    kw = _shaped_kw(dev, 2, torch.float32, 0, "ath", 3)
+    whole = dd.decimate_shaped(x, n, **kw)
+    state = {k: kw[k] for k in ("gens", "feedback", "xh", "yh")}
+    parts, clips = [], 0
+    for lo, hi in ((0, 1500), (1500, 5333), (5333, n)):
+        p, c, g, f, xh, yh = dd.decimate_shaped(x[lo:hi], hi - lo,
+                                                **{**kw, **state})
+        parts.append(p)
+        clips += int(c)
+        state = dict(gens=g, feedback=f, xh=xh, yh=yh)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts), whole[0]) and clips == int(whole[1])
+    for g, w in zip((state["gens"], state["feedback"], state["xh"],
+                     state["yh"]), whole[2:]):
+        assert _bits_equal(g, w)
+
+
+# (S, input layout, bits, bytes, planar, dither type, n, K cut)
+DEC_FLAT_GEO = [(1, "k1", 16, 2, False, 0, 100_003, 3),
+                (1, "interleaved", 8, 1, True, -1, 100_003, 0),
+                (1, "k1", 24, 4, True, 1, 1 << 20, 0),
+                (2, "k1", 24, 3, False, 0, 100_003, 5),
+                (2, "k1", 16, 2, True, None, 100_004, 0),
+                (2, "k1", 8, 1, True, 0, 100_004, 2),
+                (2, "k1", 24, 4, True, 1, 1 << 20, 3),
+                (2, "misaligned", 16, 2, False, 0, 100_003, 3),
+                (2, "interleaved", 16, 2, False, 0, (1 << 21) + 5, 4),
+                (6, "k1", 16, 2, False, 0, 100_003, 3),
+                (6, "interleaved", 24, 3, False, -1, 1_500_001, 0),
+                (8, "k1", 12, 2, True, 0, 100_003, 3),
+                (8, "interleaved", 8, 1, False, 1, 100_003, 6),
+                (4097, "k1", 16, 2, False, 0, 300, 1)]
+
+
+@pytest.mark.parametrize("case", DEC_FLAT_GEO, ids=[
+    f"S{c[0]}-{c[1]}-{c[2]}in{c[3]}-{'planar' if c[4] else 'inter'}"
+    f"-d{c[5]}-n{c[6]}-cut{c[7]}" for c in DEC_FLAT_GEO])
+def test_decimate_flat_kernel_geometry(case):
+    """The persistent flat kernel against its plain version, bitwise,
+    across its paths: S = 1, 2 (the 16-byte fast path), 6, 8 and 4097
+    (lanes that jump per run); n not a multiple of the run, K inside a run,
+    a misaligned view, 24-bit, every container width, strides long enough
+    for lanes to loop."""
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    S, layout, bits, nbytes, planar, dither_type, n, cut = case
+    rng = np.random.default_rng(S + n)
+    buf = torch.from_numpy(rng.standard_normal((S, n + 1)) * 0.6).to(
+        dev, torch.float32)
+    x = {"k1": buf[:, :n].T, "misaligned": buf[:, 1:].T,
+         "interleaved": buf[:, :n].T.contiguous()}[layout]
+    K = n - cut
+    if cut:
+        x = x.clone()
+        x[K:] = float("nan")
+    kw = _dec_kw(dev, bits, nbytes, dither_type, S)
+    kw["gens"] = dd.states_tensor(rng.integers(
+        0, 1 << 32, S, dtype=np.uint64).astype(np.uint32), dev)
+    kw["feedback"] = torch.from_numpy(rng.uniform(-0.3, 0.3, S)).to(
+        dev, torch.float32)
+    kw["planar"] = planar
+    got = dd.decimate_flat(x, K, **kw)
+    want = dd.decimate_flat_reference(x, K, **kw)
+    torch.cuda.synchronize()
+    assert int(got[1]) == int(want[1]) > 0
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_decimate_chain_probe_matches_plain(dtype):
+    """The chain probe (the shaped kernel's latency bound) computes the
+    shaped quantizer's chain: its final state bitwise its plain version's."""
+    from art_tpu_torch.engines.decimator import Decimator
+    from art_tpu_torch.core import flags as F
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    sh = Decimator(1, 16, 2, 1.0, 48000, F.SHAPING_ATH_CURVE).noise_shaper
+    values = [*sh.a, *sh.b, 1234.567, 0.3, 0.01, *sh.xh[:, 0],
+              *sh.yh[:, 0]]
+    got = dd.chain_probe(values, 5000, dtype, dev)
+    torch.cuda.synchronize()
+    want = dd.chain_probe_reference(values, 5000, dtype)
+    assert np.array_equal(got.cpu().numpy().view(np.uint8),
+                          want.view(np.uint8))
+
+
 @pytest.mark.parametrize("flags", ["hp", "hp-ath", "lp-2nd"])
 def test_device_decimator_on_card_matches_host(flags):
     from art_tpu_torch.core import flags as F

@@ -478,3 +478,173 @@ def test_container_layout_equals_int64_quantize_pack(dtype, gain, bits,
                                     output_bits=bits, output_bytes=nbytes)
     assert torch.equal(inter.view(-1, 3, nbytes).transpose(0, 1)
                        .reshape(3, -1), got.view(torch.uint8))
+
+
+# ------------------------------------------- the kernels' host-side geometry
+def _lcg_steps(g: int, steps: int) -> int:
+    """The dither LCG stepped ``steps`` times in plain Python."""
+    for _ in range(steps):
+        g = (((g << 4) - g) ^ 1) & 0xFFFFFFFF
+    return g
+
+
+@pytest.mark.parametrize("pairs", [0, 1, 2, 5, 80, 999, 4097])
+def test_lcg_pair_map_equals_stepping(pairs):
+    """2*pairs steps take an even state to a*g + b and an odd one to a*g -
+    b: the map (decimate_geometry.h's pair_power) the flat kernel's lanes
+    and the shaped kernel's producers take instead of stepping."""
+    a, b = dd.lcg_pair_map(pairs)
+    for g in _gens(6, pairs).tolist():
+        want = _lcg_steps(g, 2 * pairs)
+        sign = -1 if g & 1 else 1
+        assert (a * g + sign * b) & 0xFFFFFFFF == want
+
+
+@pytest.mark.parametrize("n,S,sms,itemsize", [
+    (1 << 22, 2, 132, 4), (1 << 22, 2, 132, 8), (4565280 * 8, 2, 132, 4),
+    (17760, 2, 132, 4), (100_003, 6, 132, 4), (1 << 20, 33, 132, 8),
+    (300, 4097, 132, 4), (100_003, 1, 1, 4), (50_000, 6, 1, 8),
+    (50_001, 3, 2, 4), (3, 1, 132, 4)])
+def test_flat_geometry_strides_keep_channel_and_parity(n, S, sms, itemsize):
+    """The flat kernel's grid (decimate_geometry.h, the code its launch
+    runs): every element is some lane's; a lane's stride of frames*S
+    elements keeps each of its slots on its channel and moves it an even
+    number of frames, whose 5*frames LCG steps are the map (a, b) (checked
+    against plain stepping where that is short).  The design: runs of 8
+    elements in CTAs of 256, at least 4 CTAs an SM for float32 and 3 for
+    float64 once the lanes stride."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    geo = dd.library_geometry(n, S, n, dtype, sms)["flat"]
+    assert (geo["threads"], geo["run"]) == (256, 8)
+    lanes = geo["ctas"] * geo["threads"]
+    runs = -(-n * S // geo["run"])
+    per_sm = {4: 4, 8: 3}[itemsize]
+    if geo["frames"] == 0:
+        # one run a lane, or lanes that find each run's states by jumping
+        assert lanes >= runs or geo["ctas"] == sms * per_sm
+        return
+    assert geo["ctas"] >= sms * per_sm and lanes < runs
+    assert lanes * geo["run"] == geo["frames"] * S
+    assert geo["frames"] % 2 == 0
+    assert (geo["a"], geo["b"]) == dd.lcg_pair_map(5 * geo["frames"] // 2)
+    if 5 * geo["frames"] <= 200_000:
+        for g in _gens(4, S).tolist():
+            sign = -1 if g & 1 else 1
+            assert (geo["a"] * g + sign * geo["b"]) & 0xFFFFFFFF == \
+                _lcg_steps(g, 5 * geo["frames"])
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("S", [1, 2, 6, 32, 33, 64, 4097])
+def test_shaped_geometry_fits(S, itemsize):
+    """The shaped kernel's launch (decimate_geometry.h): a CTA per 32
+    channels, a power-of-two tile whose ring (xs and d a stage) and 3 copy
+    stages fit the card's 227 KB a block (and a multiple of every
+    channel's producer share), the zero tail's CTAs only where frames past
+    the last tile holding a frame < K exist."""
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    for n, K in ((17760, 17760), (1 << 22, 1 << 22), (200_000, 1000),
+                 (5000, 0), (0, 0)):
+        geo = dd.library_geometry(n, S, K, dtype, 132)["shaped"]
+        tile = geo["tile"]
+        assert geo["groups"] == -(-S // 32)
+        assert tile & (tile - 1) == 0 and 64 <= tile <= 2048
+        assert geo["smem"] <= 227 * 1024
+        cmax = min(S, 32)
+        assert geo["smem"] == 128 + tile * cmax * itemsize * (
+            2 * geo["stages"] + 3)
+        for cb in range(1, cmax + 1):
+            tpc = 1
+            while 2 * tpc * cb <= 64:
+                tpc *= 2
+            assert tile % tpc == 0
+        covered = -(-K // tile) * tile
+        assert (geo["zero"] > 0) == (covered < n) and geo["zero"] <= 64
+
+
+def test_geometry_refuses_what_the_kernels_do_not_take():
+    """The geometry's C interface returns an error, which library_geometry
+    raises, for what the kernels' entry points refuse."""
+    for n, S, K in ((-1, 2, 0), (10, 0, 0), (10, 2, 11), (10, 2, -1)):
+        with pytest.raises(ValueError):
+            dd.library_geometry(n, S, K, torch.float32, 132)
+    with pytest.raises(ValueError):
+        dd.library_geometry(10, 2, 10, torch.float32, 0)
+
+
+def test_float32_round_half_up_reformulation():
+    """The kernels' float32 round half up, fv + (v - fv >= 0.5) with fv =
+    floorf(v) and err = fl - code, against the quantizer's floor(float64(v)
+    + 0.5): the same integer for every float32 v (halves, their
+    neighbours, large, tiny, signed zeros, infinities), and the same error
+    term bit for bit."""
+    f32 = np.float32
+    rng = np.random.default_rng(11)
+    halves = np.arange(-70000, 70000, dtype=np.float64) + 0.5
+    v = np.concatenate([
+        rng.standard_normal(200_000) * 40000, halves,
+        np.nextafter(halves.astype(f32), f32(np.inf)),
+        np.nextafter(halves.astype(f32), f32(-np.inf)),
+        [0.0, -0.0, 1e-30, -1e-30, 2 ** -25, -2 ** -25, 0.49999997,
+         -0.49999997, 8388607.5, -8388608.5, 2 ** 23, 2 ** 24 - 1, 2 ** 24,
+         3e38, -3e38, np.inf, -np.inf]]).astype(f32)
+    with np.errstate(invalid="ignore"):
+        fv = np.floor(v)
+        up = (v - fv) >= f32(0.5)
+        fl = np.where(up, fv + f32(1), fv)
+    want = np.floor(v.astype(np.float64) + 0.5).astype(f32)
+    assert fl.dtype == want.dtype == f32
+    np.testing.assert_array_equal(fl, want)           # as numbers: -0 == 0
+    code = (v - rng.uniform(-1, 1, v.size).astype(f32)).astype(f32)
+    with np.errstate(invalid="ignore"):
+        err = np.where(up, (fv + f32(1)) - code, fv - code).astype(f32)
+        err_want = (want - code).astype(f32)
+    finite = np.isfinite(err_want)
+    np.testing.assert_array_equal(err[finite].view(np.int32),
+                                  err_want[finite].view(np.int32))
+
+
+@pytest.mark.parametrize("dither_type", [-1, 0, 1])
+def test_dither_reformulation_equals_plain_draw(dither_type):
+    """The kernels' dither, T(m) * 2^-31 with m the int32 of (first >> 1)
+    + (r5 >> 1) - 2^31, equals tpdf_dither_dev's float64 draw rounded to
+    float32 and its float64 draw, bit for bit."""
+    n, S = 500, 6
+    gens = _gens(S, 7 + dither_type)
+    d, seq = dd.tpdf_dither_dev(_t(gens.astype(np.int64)), *_tables(n),
+                                dither_type, n)
+    seq = seq.numpy().astype(np.uint32)
+    g0 = np.concatenate([gens[:, None], seq[:, 4:5 * n - 1:5]], axis=1)
+    r2, r5 = seq[:, 1::5], seq[:, 4::5]
+    first = {-1: ~g0, 1: g0}.get(dither_type, ~r2)
+    total = (first >> np.uint32(1)) + (r5 >> np.uint32(1))     # < 2^32
+    m = (total ^ np.uint32(1 << 31)).view(np.int32)
+    got32 = m.astype(np.float32) * np.float32(2.0 ** -31)
+    got64 = m.astype(np.float64) * 2.0 ** -31
+    np.testing.assert_array_equal(got32.view(np.int32),
+                                  d.numpy().astype(np.float32).view(np.int32))
+    np.testing.assert_array_equal(got64.view(np.int64),
+                                  d.numpy().view(np.int64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chain_probe_reference_is_the_shaped_quantizer(dtype):
+    """The chain probe's plain version (what the probe kernel must equal on
+    a card) is quantize_shaped_dev's scan on a constant scaled sample and
+    dither, state bitwise."""
+    sh = _shaper(JF.SHAPING_ENABLED | JF.SHAPING_ATH_CURVE, 48000,
+                 np.float32 if dtype == torch.float32 else np.float64)
+    npt = np.float32 if dtype == torch.float32 else np.float64
+    xs, d, f = npt(1234.567), npt(0.3), npt(0.01)
+    values = [*sh.a, *sh.b, xs, d, f, *sh.xh[:, 0], *sh.yh[:, 0]]
+    K = 300
+    got = dd.chain_probe_reference(values, K, dtype)
+    v = dd._probe_values(values, dtype)
+    t = lambda a: torch.from_numpy(np.asarray(a, npt))
+    _, _, fb, xh, yh = dd.quantize_shaped_dev(
+        torch.full((K, 1), float(v[10]), dtype=dtype),
+        torch.full((K, 1), float(v[11]), dtype=torch.float64), 1.0,
+        t(v[12:13]), t(v[0:5]), t(v[5:10]), t(v[13:17, None]),
+        t(v[17:21, None]), K, 1 << 30, -(1 << 30))
+    want = np.concatenate([fb.numpy(), xh.numpy()[:, 0], yh.numpy()[:, 0]])
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
