@@ -6,10 +6,10 @@ plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  The library lands in ``build/art_tpu_torch/`` at the root
 of the checkout, named by a hash of the sources, headers and flags, so
 editing a source rebuilds it and an unchanged tree reuses it.  Nothing is
-built at import: the first launch builds.  ``csrc/decimate_geometry.cpp``
-(the decimate kernels' host geometry, from the header ``decimate.cu``
-includes) is built apart, by the host's C++ compiler, so it needs no
-card.
+built at import: the first launch builds.  ``csrc/*_geometry.cpp`` (the
+decimate and biquad kernels' host geometry, from the headers ``decimate.cu``
+and ``biquad.cu`` include) are built apart, by the host's C++ compiler,
+so they need no card.
 """
 
 from __future__ import annotations
@@ -66,15 +66,16 @@ _SIGNATURES = {
                             _i, _i, _i, _vp, _ll, _ll, _vp, _vp],
     # in [21], K, kind, state [9], stream
     "art_decimate_chain_probe": [_vp, _ll, _i, _vp, _vp],
-    # x, n, S, x strides (frame, channel), kind, K, a|b, AB, ABQ, B, Q, xh,
-    # yh, work, new xh, new yh, y, y strides (frame, channel), stream
-    "art_biquad_section": [_vp, _ll, _ll, _ll, _ll, _i, _ll, _vp, _vp, _vp,
-                           _i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll,
-                           _vp],
+    # sections, x, n, S, x strides (frame, channel), kind, K, then for
+    # each of two sections its tables, xh, yh, new xh, new yh; mid and its
+    # strides, y and its strides, scratch, epoch, stream
+    "art_biquad_cascade": [_i, _vp, _ll, _ll, _ll, _ll, _i, _ll,
+                           *[_vp] * 10, _vp, _ll, _ll, _vp, _ll, _ll, _vp,
+                           ctypes.c_ulonglong, _vp],
 }
 
 
-# csrc/decimate_geometry.cpp, built by the host's C++ compiler
+# csrc/*_geometry.cpp, built by the host's C++ compiler
 _GEOMETRY_SIGNATURES = {
     # n, S, kind, SMs, out [6]: the flat kernel's CTAs, threads, run,
     # stride frames, LCG map
@@ -84,6 +85,11 @@ _GEOMETRY_SIGNATURES = {
     "art_decimate_shaped_geometry": [_ll, _ll, _ll, _i, _vp],
     # odd, pairs, out [2]: the LCG map of 2 * pairs steps
     "art_decimate_pair_power": [_i, ctypes.c_ulonglong, _vp],
+    # out [17]: the biquad kernel's span, table and record layout
+    "art_biquad_constants": [_vp],
+    # n, S, K, kind, out [5]: spans, active spans, CTAs, shared bytes,
+    # scratch words
+    "art_biquad_geometry": [_ll, _ll, _ll, _i, _vp],
 }
 CXX_FLAGS = ["-std=c++17", "-O2", "-fPIC", "-shared"]
 _geometry_lib = None
@@ -157,26 +163,27 @@ def _bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
 
 
 def geometry_library() -> ctypes.CDLL:
-    """csrc/decimate_geometry.cpp built with the host's C++ compiler (no
-    card, no nvcc): the decimate kernels' launch geometry from the header
-    their launches include.  Built on first use, beside the kernels'
-    library."""
+    """csrc/*_geometry.cpp built with the host's C++ compiler into one
+    library (no card, no nvcc): the decimate and biquad kernels' launch
+    geometry from the headers their launches include.  Built on first use,
+    beside the kernels' library."""
     global _geometry_lib
     if _geometry_lib is not None:
         return _geometry_lib
-    src = CSRC / "decimate_geometry.cpp"
-    so = BUILD_DIR / (f"libart_decimate_geometry_"
-                      f"{_digest(CXX_FLAGS, [src, *_headers()])}.so")
+    srcs = sorted(CSRC.glob("*_geometry.cpp"))
+    so = BUILD_DIR / (f"libart_geometry_"
+                      f"{_digest(CXX_FLAGS, [*srcs, *_headers()])}.so")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
-        r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
-                           capture_output=True, text=True)
+        r = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                            *map(str, srcs)], capture_output=True, text=True)
         if r.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"{cxx} failed ({r.returncode}) on "
-                               f"{src.name}:\n{r.stdout}{r.stderr}")
+                               f"{', '.join(p.name for p in srcs)}:\n"
+                               f"{r.stdout}{r.stderr}")
         os.replace(tmp, so)     # atomic, as for the kernels' library
     _geometry_lib = _bind(ctypes.CDLL(str(so)), _GEOMETRY_SIGNATURES)
     return _geometry_lib

@@ -23,9 +23,14 @@ the block, and across blocks e' = A^B e + v, v the block's zero-state end.
   ``assoc_core_full`` and their ``_T`` forms on channel-major [S, n] data,
   the ``_cascade2_step*`` and ``_comb4_step*`` wrappers,
   ``biquad_apply_buffer_assoc`` and ``DeviceBiquadCascade``) launch
-  ``csrc/biquad.cu`` on a CUDA tensor, three kernels a section (see its
-  header for what they compute, what bounds them and how they are laid
-  out), or raise; a CPU tensor takes the plain versions.
+  ``csrc/biquad.cu`` on a CUDA tensor, one kernel a section, and a
+  two-section cascade (``_cascade2_step*``, ``DeviceBiquadCascade``) from
+  one host call (see its header for what it computes, what bounds it and
+  how it is laid out), or raise; a CPU tensor takes the plain versions.
+- The kernel reads its own tables (``kernel_tables``, ``packed_tables``:
+  powers of A^32 and of a span's transition A^8192, built by the host once
+  a section and kept for later calls); a caller's ``tables`` (iir_tables,
+  JAX's or at ``KERNEL_BLOCK``) feed only the plain version.
 
 ``refine`` and ``tables32``: JAX's default solve is a mixed-precision
 iterative refinement (float32 block solves, float64 residuals), a
@@ -34,13 +39,16 @@ keywords and computes the exact float64 solve for every value of them; the
 tests hold it against JAX's refined path at JAX's own refined-vs-exact
 bound.
 
-``launches`` counts the kernel launches (three a section);
-``plain_calls`` counts the sections the plain version solved through an
-entry point (on the CPU).
+``launches`` counts the kernel launches (one a section); ``host_calls``
+the calls into the kernel's C entry point (one a cascade); ``plain_calls``
+the sections the plain version solved through an entry point (on the
+CPU).
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -49,13 +57,12 @@ import torch
 from . import _build
 
 launches = {"biquad": 0}
+host_calls = {"biquad": 0}
 plain_calls = {"biquad": 0}
 
 _IIR_BLOCK = 256
 _IIR_SUPER = 64          # carry-recurrence blocks per outer-scan step
-# the block of the tables DeviceBiquadCascade and pipeline_chunk build:
-# B = 64 gives the kernel 4x the threads of B = 256 (config 4b: 49,158
-# blocks of 6 streams) for a carry chain of nb/Q = 129 steps a chunk
+# the block of the plain version's tables where no caller gives them
 KERNEL_BLOCK = 64
 
 _KINDS = {torch.float32: 0, torch.float64: 1}
@@ -85,7 +92,8 @@ def iir_tables(b, B: int = _IIR_BLOCK, Q: int = _IIR_SUPER,
     G [B,4] boundary rows e0^T A^(t+1), Wv [4,B] / AB [4,4] the carry
     recurrence rows, and the _carry_power_tables bundle), as tensors on
     ``device``.  ``dtype``: table precision -- the tables are always
-    built in float64 and rounded once."""
+    built in float64 and rounded once.  They feed the plain version; the
+    CUDA kernel builds its own (``kernel_tables``)."""
     b = np.asarray(b, np.float64)
     A = np.zeros((4, 4))
     A[0] = [-b[1], -b[2], -b[3], -b[4]]
@@ -149,8 +157,8 @@ def _f64(t, device):
 
 
 def _tables_for(b, tables, device):
-    """``tables`` on ``device``, or iir_tables(b) at the kernel's block
-    built there."""
+    """``tables`` on ``device``, or iir_tables(b) at KERNEL_BLOCK built
+    there (the plain version's tables)."""
     if tables is None:
         bn = b.cpu().numpy() if isinstance(b, torch.Tensor) else b
         return iir_tables(bn, B=KERNEL_BLOCK, device=device)
@@ -190,6 +198,8 @@ def _iir_y(f, b, yh, tables=None, sp=None):
     products pick their summation order by."""
     del sp
     n, S = f.shape
+    if n == 0:
+        return f.clone()
     tables = _tables_for(b, tables, f.device)
     B = tables[0].shape[0]
     nb = -(-n // B)
@@ -232,74 +242,244 @@ def _assoc_run(x, a, b, xh, yh):
     return _iir_y(f, b, yh).to(x.dtype)
 
 
+# ----------------------------------------------------- the kernel's tables
+# csrc/biquad_geometry.h's span and table layout (tests/test_torch_biquad.py
+# holds this copy to the header through library_geometry)
+SPAN_THREADS, SPAN_FRAMES, WINDOW = 256, 32, 16
+SPAN = SPAN_THREADS * SPAN_FRAMES
+REC_WORDS = 16
+_TAB_WINDOW, _TAB_CARRY, _TAB_FREE, _TAB_M = 10, 11, 12, 16
+_TAB_MW = _TAB_M + 16 * 32
+_TAB_P = _TAB_MW + 16 * (SPAN_THREADS // 32)
+TAB_DOUBLES = _TAB_P + 16 * (WINDOW + 1)
+
+
+def _companion(b) -> np.ndarray:
+    b = np.asarray(b, np.float64)
+    A = np.zeros((4, 4))
+    A[0] = [-b[1], -b[2], -b[3], -b[4]]
+    A[1, 0] = A[2, 1] = A[3, 2] = 1.0
+    return A
+
+
+def _powers(M: np.ndarray, count: int) -> np.ndarray:
+    """[count, 4, 4]: M^0 .. M^(count-1) by repeated products."""
+    out = np.empty((count, 4, 4))
+    p = np.eye(4)
+    for d in range(count):
+        out[d] = p
+        p = p @ M
+    return out
+
+
+def kernel_tables(b, threads: int = SPAN_THREADS,
+                  frames: int = SPAN_FRAMES, window: int = WINDOW) -> dict:
+    """The kernel's own tables for feedback taps ``b`` at a span of
+    ``threads`` x ``frames`` frames, float64 numpy: with A the companion
+    matrix, M = A^frames and P = M^threads (a span's transition), "M":
+    M^d for d < 32 (a warp's lanes), "Mw": M^(32 w) for w < threads / 32
+    (the warps), "P": P^d for d <= window; "window": the least d <=
+    ``window`` with P^d exactly zero, else ``window``; "carry": whether
+    P^window is not zero (only then does a span's entering state reach
+    past the window); "free": the least w >= 1 with M^(32 w) exactly zero,
+    else threads / 32 (warps from it on start from their scan state alone,
+    without E).  Built once a section, by the host."""
+    M = np.linalg.matrix_power(_companion(b), frames)
+    Mp = _powers(M, 32)
+    M32 = Mp[31] @ M
+    Mw = _powers(M32, threads // 32)
+    Pp = _powers(Mw[-1] @ M32, window + 1)
+    zero = [d for d in range(1, window + 1) if not Pp[d].any()]
+    free = [w for w in range(1, threads // 32) if not Mw[w].any()]
+    return {"M": Mp, "Mw": Mw, "P": Pp,
+            "window": zero[0] if zero else window, "carry": not zero,
+            "free": free[0] if free else threads // 32}
+
+
+def packed_tables(a, b) -> np.ndarray:
+    """kernel_tables at the kernel's geometry in csrc/biquad_geometry.h's
+    layout: [TAB_DOUBLES] float64, a|b first."""
+    t = kernel_tables(b)
+    out = np.zeros(TAB_DOUBLES)
+    out[:5] = np.asarray(a, np.float64).reshape(5)
+    out[5:10] = np.asarray(b, np.float64).reshape(5)
+    out[_TAB_WINDOW] = t["window"]
+    out[_TAB_CARRY] = float(t["carry"])
+    out[_TAB_FREE] = t["free"]
+    for off, m in ((_TAB_M, t["M"]), (_TAB_MW, t["Mw"]), (_TAB_P, t["P"])):
+        out[off:off + m.size] = m.reshape(-1)
+    return out
+
+
+_ktab_cache: dict = {}
+
+
+def _kernel_tab(a: np.ndarray, b: np.ndarray, dev) -> torch.Tensor:
+    """packed_tables(a, b) on ``dev``, kept for later calls with the same
+    coefficients."""
+    key = (a.tobytes(), b.tobytes(), str(dev))
+    tab = _ktab_cache.get(key)
+    if tab is None:
+        if len(_ktab_cache) >= 64:
+            _ktab_cache.clear()
+        tab = torch.from_numpy(packed_tables(a, b)).to(dev)
+        _ktab_cache[key] = tab
+    return tab
+
+
+def library_geometry(n: int, S: int, K: int, dtype) -> dict:
+    """The kernel's constants and its launch for one section over n frames
+    of S streams of ``dtype``, K valid, from csrc/biquad_geometry.h (the
+    code the launch runs, built for the host, no card needed):
+    {"constants": {threads, frames, span, window, pad, min_blocks,
+    tab_doubles, tab_ab, tab_window, tab_carry, tab_free, tab_m, tab_mw,
+    tab_p, rec_words, rec_u, rec_e}, "launch":
+    {spans, active, ctas, smem, scratch}}."""
+    lib = _build.geometry_library()
+    co = (ctypes.c_longlong * 17)()
+    go = (ctypes.c_longlong * 5)()
+    lib.art_biquad_constants(co)
+    if lib.art_biquad_geometry(n, S, K, _KINDS[dtype], go):
+        raise ValueError(f"the biquad kernel takes no n={n}, S={S}, K={K}")
+    names = ("threads", "frames", "span", "window", "pad", "min_blocks",
+             "tab_doubles", "tab_ab", "tab_window", "tab_carry", "tab_free",
+             "tab_m", "tab_mw", "tab_p", "rec_words", "rec_u", "rec_e")
+    return {"constants": dict(zip(names, co)),
+            "launch": dict(zip(("spans", "active", "ctas", "smem",
+                                "scratch"), go))}
+
+
+def _scratch_words(n: int, S: int) -> int:
+    """biquad_geometry's scratch words for n frames of S streams."""
+    return (1 + max(1, -(-n // SPAN)) * S) * REC_WORDS
+
+
 # ------------------------------------------------------------ entry points
 class _Section(NamedTuple):
-    """One section's coefficients and tables on a device: a, b [5], a|b
-    [10], the iir_tables, and the kernel's AB = A^B, ABQ = (A^B)^Q, B and
-    Q."""
-    a: torch.Tensor
-    b: torch.Tensor
-    ab: torch.Tensor
-    tables: tuple
-    AB: torch.Tensor
-    ABQ: torch.Tensor
-    B: int
-    Q: int
+    """One section: a, b [5] (numpy float64), the plain version's
+    iir_tables on its device (a caller's, else built at KERNEL_BLOCK; None
+    on a card when the caller gave none) and, on a card, the kernel's
+    packed_tables ``ktab``."""
+    a: np.ndarray
+    b: np.ndarray
+    tables: tuple | None
+    ktab: torch.Tensor | None
+
+
+def _np64(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, np.float64).reshape(5)
 
 
 def _prepare(a, b, tables, dev) -> _Section:
-    a, b = _f64(a, dev).reshape(5), _f64(b, dev).reshape(5)
-    tables = _tables_for(b, tables, dev)
-    return _Section(a, b, torch.cat([a, b]), tables, tables[3].contiguous(),
-                    tables[7].contiguous(), tables[0].shape[0],
-                    tables[4].shape[0])
+    dev = torch.device(dev)
+    a, b = _np64(a), _np64(b)
+    cuda = dev.type == "cuda"
+    if tables is not None or not cuda:
+        tables = _tables_for(b, tables, dev)
+    return _Section(a, b, tables, _kernel_tab(a, b, dev) if cuda else None)
 
 
-def _solve(x_ns, sec: _Section, xh, yh, K: int, out_sn: bool):
-    """One section over x_ns [n, S] (any strides): (y, xh', yh'), y [S, n]
-    when ``out_sn`` else [n, S]."""
+_scratch: dict = {}     # (device, stream) -> int64 scratch, zero at first
+_epoch = [0]            # the launches' epochs: one number each, ever
+
+
+def _scratch_for(dev, stream: int, words: int) -> torch.Tensor:
+    """The scratch of ``stream``'s calls, at least ``words`` long: zeroed
+    when allocated (or grown), then kept; every value the kernel publishes
+    in it carries its launch's epoch, which no later launch takes, so it
+    is never cleared again.  Each stream has its own."""
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int64, device=dev)
+        _scratch[key] = buf
+    return buf
+
+
+def _pack(states, dev) -> torch.Tensor:
+    """States (xh1, yh1[, xh2, yh2]), each [4, S], as one contiguous
+    float64 tensor [len, 4, S] on ``dev``."""
+    return torch.stack([_f64(t, dev) for t in states])
+
+
+def _run(x_ns, secs, hist, K: int, out_sn: bool):
+    """Sections ``secs`` (one or two) in cascade over x_ns [n, S] (any
+    strides), from the packed states ``hist`` [2 * len(secs), 4, S] float64
+    (xh, yh of each section, newest first; see _pack): (y, the packed
+    states after K frames), y [S, n] when ``out_sn`` else [n, S], in x's
+    type.  On a card one host call and one launch a section; on the CPU the
+    plain version, a section at a time."""
     n, S = x_ns.shape
     dev = x_ns.device
+    ns = len(secs)
     if x_ns.dtype not in _KINDS:
         raise ValueError(f"the biquad section takes float32 or float64 "
                          f"data, got {x_ns.dtype}")
     if not 0 <= K <= n:
         raise ValueError(f"K={K} outside [0, {n}]")
+    if tuple(hist.shape) != (2 * ns, 4, S) or hist.dtype != torch.float64:
+        raise ValueError(f"xh, yh: {ns} pairs of float64 [4, {S}] expected, "
+                         f"got {hist.dtype} {tuple(hist.shape)}")
     if dev.type == "cpu":
-        plain_calls["biquad"] += 1
-        y, xh_n, yh_n = assoc_core_masked_reference(x_ns, sec.a, sec.b, xh,
-                                                    yh, K, sec.tables)
-        return (y.T.contiguous() if out_sn else y), xh_n, yh_n
+        y, out = x_ns, []
+        for i, sec in enumerate(secs):
+            plain_calls["biquad"] += 1
+            y, xh_n, yh_n = assoc_core_masked_reference(
+                y, sec.a, sec.b, hist[2 * i], hist[2 * i + 1], K, sec.tables)
+            out += [xh_n, yh_n]
+        return (y.T.contiguous() if out_sn else y), torch.stack(out)
     if dev.type != "cuda":
         raise ValueError(f"the biquad section runs on CPU or CUDA tensors, "
                          f"got {dev}")
-    xh, yh = (_f64(t, dev).contiguous() for t in (xh, yh))
-    if tuple(xh.shape) != (4, S) or tuple(yh.shape) != (4, S):
-        raise ValueError(f"xh, yh: [4, {S}] expected, got "
-                         f"{tuple(xh.shape)}, {tuple(yh.shape)}")
+    hist = hist.to(dev).contiguous()
+    new = torch.empty((2 * ns, 4, S), dtype=torch.float64, device=dev)
     y = torch.empty((S, n) if out_sn else (n, S), dtype=x_ns.dtype,
                     device=dev)
-    y_ns = y.T if out_sn else y
-    nb = -(-n // sec.B)
-    # the scratch (v, u, E of every block and superblock), then the state
-    work = torch.empty(4 * S * (nb + 2 * -(-nb // sec.Q) + 2),
-                       dtype=torch.float64, device=dev)
-    new_xh, new_yh = work[-8 * S:].view(2, 4, S)
+    ysi, ysc = (1, n) if out_sn else (S, 1)     # y as [n, S]
+    mid, msi, msc = y, ysi, ysc
+    if ns == 2:         # section 1's output, [S, n] in rows padded to 16 B
+        ld = -(-n // 4) * 4
+        mid, msi, msc = torch.empty((S, ld), dtype=x_ns.dtype,
+                                    device=dev), 1, ld
+    row = 4 * S * 8                             # bytes of one [4, S] state
+    ptrs = []
+    for i in range(2):
+        if i < ns:
+            h, w = hist.data_ptr() + 2 * i * row, new.data_ptr() + 2 * i * row
+            ptrs += [secs[i].ktab.data_ptr(), h, h + row, w, w + row]
+        else:
+            ptrs += [None] * 5
     lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.art_biquad_section(
-            x_ns.data_ptr(), n, S, x_ns.stride(0), x_ns.stride(1),
-            _KINDS[x_ns.dtype], int(K), sec.ab.data_ptr(), sec.AB.data_ptr(),
-            sec.ABQ.data_ptr(), sec.B, sec.Q, xh.data_ptr(), yh.data_ptr(),
-            work.data_ptr(), new_xh.data_ptr(), new_yh.data_ptr(),
-            y.data_ptr(), y_ns.stride(0), y_ns.stride(1), stream)
+    cur = torch.cuda.current_device()
+    idx = cur if dev.index is None else dev.index
+    with contextlib.nullcontext() if idx == cur else torch.cuda.device(idx):
+        # the current stream's handle, without the Stream object that
+        # torch.cuda.current_stream builds (a call's largest host cost)
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        scratch = _scratch_for(dev, stream, _scratch_words(n, S))
+        epoch = _epoch[0] + 1
+        _epoch[0] += ns
+        rc = lib.art_biquad_cascade(
+            ns, x_ns.data_ptr(), n, S, x_ns.stride(0), x_ns.stride(1),
+            _KINDS[x_ns.dtype], int(K), *ptrs, mid.data_ptr(), msi, msc,
+            y.data_ptr(), ysi, ysc, scratch.data_ptr(), epoch, stream)
+    host_calls["biquad"] += 1
     if rc != 0:
-        raise RuntimeError(f"art_biquad_section launch failed: cudaError "
-                           f"{rc} (n={n}, S={S}, B={sec.B}, Q={sec.Q}, "
+        raise RuntimeError(f"art_biquad_cascade launch failed: cudaError "
+                           f"{rc} (sections={ns}, n={n}, S={S}, "
                            f"{x_ns.dtype})")
-    launches["biquad"] += 3 if n else 1
-    return y, new_xh, new_yh
+    launches["biquad"] += ns
+    return y, new
+
+
+def _solve(x_ns, sec: _Section, xh, yh, K: int, out_sn: bool):
+    """One section over x_ns [n, S] (any strides): (y, xh', yh'), y [S, n]
+    when ``out_sn`` else [n, S]."""
+    y, new = _run(x_ns, (sec,), _pack((xh, yh), x_ns.device), K, out_sn)
+    return y, new[0], new[1]
 
 
 def _section(x_ns, a, b, xh, yh, K: int, tables, out_sn: bool):
@@ -312,10 +492,10 @@ def assoc_core_masked(x, a, b, xh, yh, K, tables=None, sp=None,
     """Masked block-IIR section for the fused device pipeline.
 
     x [n, S] (rows at k >= K ignored); a/b [5]; xh/yh [4, S] newest-first;
-    ``tables`` optional iir_tables(b) (their B and Q set the kernel's
-    blocks).  Forcing beyond K is zeroed, so y below K is exact and the
-    state extraction at K advances the filter by exactly K samples on
-    ragged chunks.  Runs in float64 internally; returns (y [n, S] in
+    ``tables`` optional iir_tables(b), which feed the plain version only
+    (the kernel reads its own, built once from b: kernel_tables).  Forcing
+    beyond K is zeroed, so y below K is exact and the state extraction at
+    K advances the filter by exactly K samples on ragged chunks.  Runs in float64 internally; returns (y [n, S] in
     x.dtype, zeroed beyond K, and the newest-first float64 xh'/yh' after
     K samples).  ``sp`` and ``tables32`` change nothing (module
     docstring)."""
@@ -345,14 +525,22 @@ def assoc_core_full_T(x_sn, a, b, xh, yh, tables=None, sp=None,
                     out_sn=True)
 
 
+def _cascade2(x_ns, a1, b1, xh1, yh1, a2, b2, xh2, yh2, K: int, t1, t2,
+              out_sn: bool):
+    dev = x_ns.device
+    secs = (_prepare(a1, b1, t1, dev), _prepare(a2, b2, t2, dev))
+    y, new = _run(x_ns, secs, _pack((xh1, yh1, xh2, yh2), dev), K, out_sn)
+    return (y, *new)
+
+
 def _cascade2_step(x, a1, b1, xh1, yh1, a2, b2, xh2, yh2, K, t1, t2,
                    sp=None, t1_32=None, t2_32=None):
     """Two cascaded masked sections (the ART CLI's pre/post filter is
     always a 2-section cascade, reference art.c:847-876); section 2 reads
-    section 1's output in x's type."""
-    y1, xh1n, yh1n = assoc_core_masked(x, a1, b1, xh1, yh1, K, t1)
-    y2, xh2n, yh2n = assoc_core_masked(y1, a2, b2, xh2, yh2, K, t2)
-    return y2, xh1n, yh1n, xh2n, yh2n
+    section 1's output in x's type.  On a card one host call, two
+    launches."""
+    return _cascade2(x, a1, b1, xh1, yh1, a2, b2, xh2, yh2, int(K), t1, t2,
+                     out_sn=False)
 
 
 def _cascade2_step_full(x, a1, b1, xh1, yh1, a2, b2, xh2, yh2, t1, t2,
@@ -375,9 +563,8 @@ def _comb4_step_full(x, a, b, xh, yh, t, sp=None, t32=None):
 def _cascade2_step_T(x_sn, a1, b1, xh1, yh1, a2, b2, xh2, yh2, K, t1,
                      t2, sp=None, t1_32=None, t2_32=None):
     """_cascade2_step on channel-major [S, n] data."""
-    y1, xh1n, yh1n = assoc_core_masked_T(x_sn, a1, b1, xh1, yh1, K, t1)
-    y2, xh2n, yh2n = assoc_core_masked_T(y1, a2, b2, xh2, yh2, K, t2)
-    return y2, xh1n, yh1n, xh2n, yh2n
+    return _cascade2(x_sn.T, a1, b1, xh1, yh1, a2, b2, xh2, yh2, int(K), t1,
+                     t2, out_sn=True)
 
 
 def _comb4_step_T(x_sn, a, b, xh, yh, K, t, sp=None, t32=None):
@@ -447,7 +634,7 @@ class DeviceBiquadCascade:
             self._sections = (section(*combine_biquads(bq1, bq2)),)
         else:
             self._sections = (section(bq1.a, bq1.b), section(bq2.a, bq2.b))
-        self._state = None          # (xh1, yh1, xh2, yh2) on the device
+        self._state = None          # [xh1, yh1, xh2, yh2] on the device
 
     def push_from(self, bq1, bq2) -> None:
         """Adopt the host pair's streaming state (the device takes over).
@@ -455,8 +642,8 @@ class DeviceBiquadCascade:
         final output history) = (bq1.xh, bq2.yh)."""
         src = (bq1.xh, bq2.yh) if self._combined else (bq1.xh, bq1.yh,
                                                        bq2.xh, bq2.yh)
-        self._state = tuple(_f64(np.asarray(v, np.float64), self.device)
-                            for v in src)
+        self._state = _pack([np.asarray(v, np.float64) for v in src],
+                            self.device)
 
     def pull_to(self, bq1, bq2) -> None:
         """Hand the streaming state back to the host pair."""
@@ -466,7 +653,7 @@ class DeviceBiquadCascade:
                 "internal section-1 output history; use "
                 "DeviceBiquadCascade(combined=False) where mid-stream "
                 "host handoff is needed")
-        xh1, yh1, xh2, yh2 = (s.cpu().numpy() for s in self._state)
+        xh1, yh1, xh2, yh2 = self._state.cpu().numpy()
         bq1.xh = xh1.astype(bq1.xh.dtype)
         bq1.yh = yh1.astype(bq1.yh.dtype)
         bq2.xh = xh2.astype(bq2.xh.dtype)
@@ -476,11 +663,7 @@ class DeviceBiquadCascade:
     def process(self, dev_out, K: int):
         """Filter dev_out [ch, cap] (first K columns valid) through both
         sections (the combined one); returns the filtered [ch, cap] tensor
-        (zero past K)."""
-        y, state = dev_out, []
-        for i, sec in enumerate(self._sections):
-            xh, yh = self._state[2 * i:2 * i + 2]
-            y, xh, yh = _solve(y.T, sec, xh, yh, int(K), out_sn=True)
-            state += [xh, yh]
-        self._state = tuple(state)
+        (zero past K): on a card one host call, one launch a section."""
+        y, self._state = _run(dev_out.T, self._sections, self._state,
+                              int(K), out_sn=True)
         return y

@@ -107,8 +107,9 @@ def pipeline_chunk(x, hist, P_local, start, K, gens, fb, xh, yh,
     history) over ``P_local`` [qn_pad*M, L]; ``post_bq`` ((a1, b1), (a2,
     b2)) with ``bq_state`` (xh1, yh1, xh2, yh2), each [4, S], filters K1's
     output, read in place, through two sections of the biquad kernel
-    (masked at K; ``post_bq_tables``: their iir_tables, else built at the
-    kernel's block), and the power is taken after the filter; the rest is
+    (masked at K; one host call, one launch a section;
+    ``post_bq_tables``: iir_tables for the plain version, the kernel
+    building its own), and the power is taken after the filter; the rest is
     one launch of ``decimate_flat_kernel`` (``shaper_a`` None) or
     ``decimate_shaped_kernel``.  ``gens``: int32 LCG state bits [S] (or
     uint32 numpy); the dither tables (A, V0, V1) are not read, since the

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py               # every phase; needs one card
     python3 chip_smoke.py --checksum    # only K1's output hashes (3 lines)
-    python3 chip_smoke.py --profile-biquad  # the biquad kernels' device times
+    python3 chip_smoke.py --profile-biquad  # the biquad kernel's device times
     python3 chip_smoke.py --decimate-ab build/parent  # decimate A/B, in turns
+    python3 chip_smoke.py --biquad-ab build/parent    # biquad A/B, in turns
 
 Drives the port's paths on the card -- the fixed-ratio streaming
 resampler (preset -3, 2 channels, 380 taps, 44.1k<->48k, reduced; and
@@ -23,9 +24,8 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    accumulators and float64, reduced and interpolated, three tiles; the
    ASRC step's two and the apply's two; the decimate stage's flat and shaped
    kernels and the shaped chain's probe in float32 and float64; the biquad
-   section's block and apply kernels in float32 and float64 and its carry)
-   may spill, and the six decimate instances' SASS (cuobjdump) may hold no
-   FFMA or DFMA;
+   section's span kernel in float32 and float64) may spill, and the six
+   decimate instances' SASS (cuobjdump) may hold no FFMA or DFMA;
 3. K1 against its plain PyTorch version on the card, at the main path's
    shapes (~2^22-frame stereo chunks), its edge cases, BASELINE config 1's
    interpolated chunk and the large input periods (preset -3 192k->44.1k,
@@ -148,24 +148,29 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    of decimate_chain_probe_kernel (its per-frame chain alone, in one
    thread, on values in registers) at the art block's K, its final state
    bitwise its plain version's;
-14. the biquad cascade (csrc/biquad.cu, three launches a section): the
-   kernel against its float64 plain version at BASELINE config 4b's chunk
-   (6 x 524,320 float64; the combined section and the cascade's two) and
-   at art -3 -r96k -p's steady block (float32, 2 channels), at K = n, n -
-   777 with NaN past it, 0, 3 and 256 (float64 within 1e-12 of scale,
-   float32 within 1 ulp, zero past K, xh' bitwise, yh' within 1e-12);
+14. the biquad cascade (csrc/biquad.cu, one launch a section, a cascade
+   one host call): the kernel against its float64 plain version at
+   BASELINE config 4b's chunk (6 x 524,320 float64; the combined section
+   and the cascade's two) and at art -3 -r96k -p's steady block (float32,
+   2 channels), at K = n, n - 777 with NaN past it, 0, 3, 256 and around
+   the 8192-frame span edges (float64 within 1e-12 of scale, float32
+   within 1 ulp, zero past K, xh' bitwise, yh' within 1e-12);
    DeviceBiquadCascade against the native host pair over a 60 s 5.1
-   float64 stream with a mid-stream pull_to / push_from (within 1e-12);
-   config 4b's chain (the combined cascade into the float64 resampler,
-   bench.py:297-335) for windows of 8 chunks, M output frames/s, 3
-   launches a process() and K1's float64 instance once a chunk;
-   pipeline_chunk with the -p post filter at the preset -3 shapes against
-   the plain chain; art -3 -r96k -p -o16 -n0 with --backend=cuda beside
-   numpy (codes within the floor, one cascade per steady block); then the
-   times in turns: one section and the cascade at config 4b's chunk, the
-   plain version, one torch.matmul of JAX's Toeplitz product (the library
-   yardstick), the native host cascade, the bound, and the cascade on the
-   art block beside the host pair;
+   float64 stream with a mid-stream pull_to / push_from (within 1e-12),
+   2 launches and 1 host call a block; config 4b's chain (the combined
+   cascade into the float64 resampler, bench.py:297-335) for windows of 8
+   chunks, M output frames/s, 1 launch a process() and K1's float64
+   instance once a chunk; pipeline_chunk with the -p post filter at the
+   preset -3 shapes against the plain chain (2 launches); art -3 -r96k -p
+   -o16 -n0 with --backend=cuda beside numpy (codes within the floor, one
+   cascade, 2 launches, per steady block); then the times (biquad_times,
+   the A/B's harness): a section and the cascade at config 4b's chunk, a
+   call's with CUDA events and the kernel's on the card with the L2
+   flushed, the cascade on the art block (CUDA events and host time a
+   call), beside the plain version in turns, one torch.matmul of JAX's
+   Toeplitz product (one stage of JAX's method, printed, not the
+   library yardstick: there is none), the native host cascade and pair,
+   and the bound;
 15. the host engines' accelerator backend (``backend="torch"``, JAX's
    ``backend="jax"``): K5's float64 instance against its plain version at
    config 5's shapes and on an art block's interpolated apply (within
@@ -186,10 +191,16 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound (the shaped decimate kernel's bound by latency; ``ms`` a call's
-CUDA-events time, ``device_ms`` the decimate kernels' device time with the
-L2 flushed, null for the others), then, last, the {"ok": true, "device":
+CUDA-events time, ``device_ms`` the decimate and biquad kernels' device
+time with the L2 flushed, null for the others), then, last, the {"ok":
+true, "device":
 ...} line.  Without a usable CUDA device it exits 2
 and prints no result.
+
+``--biquad-ab build/parent`` does the same for the biquad cascade
+(biquad_times, four processes in turns, each writing its outputs under
+build/biquad_ab/): the same tree's outputs bitwise equal in its two turns,
+the change's within the class of the parent's.
 
 ``--decimate-ab build/parent`` times the decimate stage against an older
 tree unpacked there (git archive), in four processes in turns (parent,
@@ -327,12 +338,11 @@ def phase_build():
         # accumulators and double; reduced and interpolated; 3 tiles), 4
         # ASRC ones (step and apply, float32 and float64), 6 decimate ones
         # (the flat and shaped kernels and the shaped chain's probe, float
-        # and double), 5 biquad ones (block and apply, float and double;
-        # carry)
+        # and double), 2 biquad ones (the span kernel, float and double)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 33 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 30 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
     _require_no_fma("decimate", 6)
 
@@ -1378,6 +1388,8 @@ def _reset_launches():
         dd.launches[name] = 0
     if bk is not None:
         bk.launches["biquad"] = 0
+        if hasattr(bk, "host_calls"):
+            bk.host_calls["biquad"] = 0
 
 
 # the decimate kernels' launches on the main paths (process_flat_packed's
@@ -2393,17 +2405,22 @@ def _bq_within(got, want):
     return err, bool(((g - w).abs() <= ulp.double()).all())
 
 
+# K around the kernel's 8192-frame span edges and inside a span's first
+# four frames
+BQ_EDGE_KS = (8191, 8192, 8193, 8195, 16388)
+
+
 def _bq_cases(label, x, sections, dev, seed):
     """Each section of ``sections`` by the kernel and by its plain version
     on the same input (at K = n section 2 reads the kernel's section 1
     output on both sides, at the other K the same input as section 1), at
-    K = n, n - 777 with NaN past it, 0, 3 and 256, from
+    K = n, n - 777 with NaN past it, 0, 3, 256 and BQ_EDGE_KS, from
     random states: outputs within the class, zero past K, xh' bitwise, yh'
     within 1e-12.  Returns the largest |kernel - plain|."""
     S, n = x.shape
     rng = np.random.default_rng(seed)
     worst = 0.0
-    for K in (n, n - 777, 0, 3, 256):
+    for K in [k for k in (n, n - 777, 0, 3, 256, *BQ_EDGE_KS) if k <= n]:
         inp = x
         if K < n:
             inp = x.clone()
@@ -2496,24 +2513,18 @@ def phase_biquad_paths(dev, seconds=60, block=1 << 17, n_c4=C4_CHUNK,
         nblk += 1
     got = np.concatenate(out)
     err = float(np.abs(got - want).max())
-    launches = bk.launches["biquad"]
+    launches, calls = bk.launches["biquad"], bk.host_calls["biquad"]
     BIQUAD_PATH_LAUNCHES["biquad"] += launches
     print(f"  DeviceBiquadCascade vs the native host pair, 60 s 5.1 float64 "
           f"({n} frames, {nblk} blocks of {block} on the card, 2 on the "
-          f"host): max |card - host| {err:.3e}; launches {launches}; host "
-          f"pair alone {host_s:.3f} s (host clock)")
+          f"host): max |card - host| {err:.3e}; launches {launches}, host "
+          f"calls {calls}; host pair alone {host_s:.3f} s (host clock)")
     _require(err <= 1e-12, "DeviceBiquadCascade vs the native host pair")
-    _require(dev.type != "cuda" or launches == 6 * nblk,
-             "DeviceBiquadCascade: launches != 6 per block")
+    _require(dev.type != "cuda" or (launches == 2 * nblk and calls == nblk),
+             "DeviceBiquadCascade: launches != 2 and host calls != 1 per "
+             "block")
     # 2. BASELINE config 4b's chain
-    eng = DeviceStreamResampler(*CONFIG4, dtype=np.float64, device=dev)
-    eng.advance_position(190)
-    eng.prewarm()
-    nc = roundtrip.m_multiple(n_c4, eng.M)
-    cas = bk.DeviceBiquadCascade(*_bq_pair(BQ_C4, 1), combined=True,
-                                 device=dev)
-    cas.push_from(*_bq_pair(BQ_C4, 6))
-    x4 = _noise_dev(dev, (6, nc), 86, 0.25, torch.float64)
+    eng, cas, x4, nc = _c4_setup(dev, n_c4)
     first = cas._state
     y = cas.process(x4, nc)
     (a, b), = _bq_sections(BQ_C4, True)
@@ -2527,29 +2538,16 @@ def phase_biquad_paths(dev, seconds=60, block=1 << 17, n_c4=C4_CHUNK,
     acc = torch.zeros((), dtype=torch.float64, device=dev)
     eng.process(y, nc, acc)                       # the first chunk
     _reset_launches()
-    rates = []
-    for w in range(windows):
-        _sync(dev)
-        t0 = time.perf_counter()
-        produced = 0
-        for _ in range(nchunks):
-            y = cas.process(x4, nc)
-            _, K, acc = eng.process(y, nc, acc)
-            produced += K
-        _sync(dev)
-        dt = time.perf_counter() - t0
-        rates.append(produced / dt / 1e6)
-        print(f"  config 4b chain window {w}: {nchunks} chunks x 6 x {nc} "
-              f"float64 frames -> {produced} output frames in "
-              f"{dt * 1e3:.3f} ms = {rates[-1]:.2f} M output frames/s")
+    rates, acc = _c4_windows(dev, eng, cas, x4, nc, acc, nchunks, windows,
+                             verbose=True)
     bl, kl = bk.launches["biquad"], k1.instance_launches["f64"]
     BIQUAD_PATH_LAUNCHES["biquad"] += bl
     print(f"  config 4b chain: median {sorted(rates)[len(rates) // 2]:.2f} M "
-          f"output frames/s; launches biquad {bl} (design: 3 a section, 1 "
+          f"output frames/s; launches biquad {bl} (design: 1 a section, 1 "
           f"section a chunk), K1 float64 {kl}; power {float(acc):.6e}")
     _require(bool(torch.isfinite(acc)) and float(acc) > 0,
              "config 4b chain: power not finite")
-    _require(dev.type != "cuda" or (bl == 3 * nchunks * windows
+    _require(dev.type != "cuda" or (bl == nchunks * windows
                                     and kl == nchunks * windows),
              "config 4b chain: launches off the design")
     # 3. pipeline_chunk with the post filter, preset -3 shapes
@@ -2600,7 +2598,7 @@ def phase_biquad_paths(dev, seconds=60, block=1 << 17, n_c4=C4_CHUNK,
           f": {ok}; launches K1 {launches[0]}, biquad {launches[1]}, "
           f"decimate {launches[2]}")
     _require(ok, "pipeline_chunk with the post filter")
-    _require(dev.type != "cuda" or (launches[0] == 1 and launches[1] == 6
+    _require(dev.type != "cuda" or (launches[0] == 1 and launches[1] == 2
                                     and sum(launches[2].values()) == 1),
              "pipeline_chunk with the post filter: launches")
 
@@ -2608,7 +2606,7 @@ def phase_biquad_paths(dev, seconds=60, block=1 << 17, n_c4=C4_CHUNK,
 def _cli_post_filter(dev, tag, seconds=60):
     """art -3 -r96k -p -o16 -n0 with --backend=cuda beside --backend=numpy
     on the 60 s file: the post filter on the card between K1 and the
-    decimate kernel, one cascade (6 launches) per steady block; lengths
+    decimate kernel, one cascade (2 launches) per steady block; lengths
     and clip warnings equal, codes within the resample-then-decimate
     floor."""
     from art_tpu_torch.cli import art
@@ -2628,7 +2626,7 @@ def _cli_post_filter(dev, tag, seconds=60):
             print(f"  {cmd}: biquad launches {bl}, K1 launches {kl}, "
                   f"decimate launches {dl}, steady blocks {steady}")
             _require(dev.type != "cuda" or (
-                bl == 6 * steady and kl["f32"] == steady
+                bl == 2 * steady and kl["f32"] == steady
                 and dl["decimate_flat"] >= steady + 2),
                 f"{cmd}: launches off the design")
             BIQUAD_PATH_LAUNCHES["biquad"] += bl
@@ -2646,119 +2644,250 @@ def _cli_post_filter(dev, tag, seconds=60):
     _rate_line(cmd, legs, tag)
 
 
-def _kernel_times_us(fn, calls):
-    """{kernel: device us per call} of the biquad kernels over ``calls``
-    calls of ``fn`` (torch.profiler; empty where it records none)."""
+def _biquad_device_ms(dev, fn, calls, sections=1):
+    """The card's ms a call of ``fn`` in the biquad kernels
+    (torch.profiler), each call after a 128 MB write that flushes the 50
+    MB L2, so the kernels read their inputs from memory, as the byte bound
+    counts them: for each biquad kernel its time over the launches the
+    trace holds, summed over the kernels and times the ``sections`` a call
+    launches each of them for (an older tree's three kernels a section
+    too).  nan off the card or where the trace holds none."""
+    if dev.type != "cuda":
+        return float("nan")
+    flush = torch.empty(1 << 25, device=dev)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        m = re.search(r"(biquad_\w+_kernel)", e.key)
-        t = getattr(e, "self_device_time_total", 0)
-        if m and t:
-            out[m.group(1)] = round(t / calls, 2)
-    return out
+    for _ in range(3):      # a trace now and then records no kernel
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        per = [getattr(e, "self_device_time_total", 0) / e.count
+               for e in prof.key_averages()
+               if re.search(r"biquad_\w+_kernel", e.key) and e.count]
+        us = sections * sum(per)
+        if us:
+            return us / 1e3
+    return float("nan")
 
 
-def profile_biquad(dev, n_c4=C4_CHUNK, blocks=(64, 32, 128)):
-    """``--profile-biquad``: one section at config 4b's chunk (the combined
-    one) with tables of each block size B, its three kernels' device time
-    per call (torch.profiler) and the CUDA-event time of 20 calls; also
-    from an older checkout, as ``--checksum`` is."""
-    n = roundtrip.m_multiple(n_c4, 160)
-    x = _noise_dev(dev, (6, n), 88, 0.25, torch.float64)
-    (ac, bc), = _bq_sections(BQ_C4, True)
-    z = torch.zeros((4, 6), dtype=torch.float64, device=dev)
-    for B in blocks:
-        sec = bk._prepare(ac, bc, bk.iir_tables(bc, B=B, device=dev), dev)
-
-        def call():
-            return bk._solve(x.T, sec, z, z, n, True)
-
-        for _ in range(3):
-            call()
-        _sync(dev)
-        print(f"B={B}: device us per call {_kernel_times_us(call, 20)}; "
-              f"{_time_ms(dev, call, 20):.4f} ms a call (CUDA events)")
+def _bq_art_block(dev, block=16384, seed=89):
+    """K1's float32 output of art -3 -r96k's steady block [2, rows] and
+    its K."""
+    eng, n1, K, start, P, fracv, kw = _steady_chunk(R96, dev, block)
+    out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), seed, 0.6), P,
+                        start, K, torch.zeros((), device=dev), **kw)[1]
+    return out, K
 
 
-def phase_biquad_timing(dev, tag, n_c4=C4_CHUNK, block=16384, reps=20):
-    """The kernel's times with CUDA events, in turns: one section at
-    BASELINE config 4b's chunk (the combined one, what the chain runs),
-    the cascade's two, the plain version, and the library yardstick (one
-    torch.matmul of JAX's [B, B+4] x [B+4, nb*S] float64 Toeplitz product,
-    B = 256, at the same shape: cuBLAS DGEMM); the native host cascade on
-    the same chunk (host clock); the bound.  Then DeviceBiquadCascade on
-    art -3 -r96k -p's steady block beside the native host pair on it.
-    Returns (ms, plain ms, bound, library ms)."""
-    from art_tpu_torch.engines.biquad import apply_cascade
+def biquad_times(dev, save=None, n_c4=C4_CHUNK, reps=100, chain=True):
+    """The biquad cascade's times, on entry points every tree with the
+    cascade has (so the A/B runs it on an older tree too): one section
+    (the combined one, what config 4b's chain runs) and the -p cascade of
+    two at config 4b's chunk (6 x 524,320 float64), each a call's ms (CUDA
+    events, back to back, after 10 calls of warm-up) and the kernels'
+    device ms a call with the L2 flushed (_biquad_device_ms, taken after
+    every call is timed);
+    DeviceBiquadCascade.process on art -3 -r96k -p's steady block (CUDA
+    events, and the host's ms to issue a call); with ``chain``, config
+    4b's chain in M output frames/s (the median of 3 windows of 8
+    chunks).  ``save``: a directory the first outputs of each case go to
+    as .npy (the A/B compares them)."""
     n = roundtrip.m_multiple(n_c4, 160)
     S = 6
     x = _noise_dev(dev, (S, n), 88, 0.25, torch.float64)
     (ac, bc), = _bq_sections(BQ_C4, True)
-    sec = bk._prepare(ac, bc, bk.iir_tables(bc, B=bk.KERNEL_BLOCK,
-                                            device=dev), dev)
     (a, b), _ = _bq_sections(BQ_C4, False)
-    sec2 = bk._prepare(a, b, bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev),
-                       dev)
+    sec = bk._prepare(ac, bc, None, dev)
+    st = [torch.from_numpy(np.random.default_rng(90 + i).standard_normal(
+        (4, S)) * 0.1).to(dev) for i in range(4)]
+    out, K = _bq_art_block(dev)
+    pair = _bq_pair(BQ_R96, 2, np.float32)
+    cas = bk.DeviceBiquadCascade(*pair, device=dev)
+    cas.push_from(*pair)
+    cases = {
+        "section, config 4b": (lambda: bk._solve(x.T, sec, st[0], st[1], n,
+                                                 True), 1),
+        "cascade, config 4b": (lambda: bk._cascade2_step_T(
+            x, a, b, st[0], st[1], a, b, st[2], st[3], n, None, None), 2),
+    }
+    times, outs = {}, {}
+    for label, (fn, _) in cases.items():
+        outs[label] = fn()
+        for _ in range(10):
+            fn()
+        times[f"{label}: ms a call"] = _time_ms(dev, fn, reps)
+    outs["art block"] = (cas.process(out, K), *cas._state)
+    for _ in range(10):
+        cas.process(out, K)
+    times["art -r96k -p block: ms a call"] = _time_ms(
+        dev, lambda: cas.process(out, K), reps)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        cas.process(out, K)
+    times["art -r96k -p block: host ms a call"] = \
+        (time.perf_counter() - t0) * 1e3 / reps
+    _sync(dev)
+    if chain:
+        times["config 4b chain: M output frames/s"] = _c4_chain(dev, n_c4)
+    for label, (fn, sections) in cases.items():
+        times[f"{label}: device ms"] = _biquad_device_ms(dev, fn, 20,
+                                                         sections)
+    if save is not None:
+        save = Path(save)
+        save.mkdir(parents=True, exist_ok=True)
+        for label, ts in outs.items():
+            for i, t in enumerate(ts):
+                np.save(save / f"{re.sub(r'\W+', '_', label)}.{i}.npy",
+                        t.cpu().numpy())
+    return times
+
+
+def _c4_setup(dev, n_c4):
+    """Config 4b's chain (the combined -p cascade into the float64
+    DeviceStreamResampler, bench.py:297-335): (engine, cascade, a chunk of
+    6 x nc float64 noise, nc)."""
+    eng = DeviceStreamResampler(*CONFIG4, dtype=np.float64, device=dev)
+    eng.advance_position(190)
+    eng.prewarm()
+    nc = roundtrip.m_multiple(n_c4, eng.M)
+    cas = bk.DeviceBiquadCascade(*_bq_pair(BQ_C4, 1), combined=True,
+                                 device=dev)
+    cas.push_from(*_bq_pair(BQ_C4, 6))
+    return eng, cas, _noise_dev(dev, (6, nc), 86, 0.25, torch.float64), nc
+
+
+def _c4_windows(dev, eng, cas, x, nc, acc, nchunks, windows,
+                verbose=False):
+    """``windows`` windows of ``nchunks`` chunks through config 4b's
+    chain (host clock, one sync a window): (M output frames/s of each
+    window, the power accumulator)."""
+    rates = []
+    for w in range(windows):
+        _sync(dev)
+        t0 = time.perf_counter()
+        produced = 0
+        for _ in range(nchunks):
+            _, K, acc = eng.process(cas.process(x, nc), nc, acc)
+            produced += K
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        rates.append(produced / dt / 1e6)
+        if verbose:
+            print(f"  config 4b chain window {w}: {nchunks} chunks x 6 x "
+                  f"{nc} float64 frames -> {produced} output frames in "
+                  f"{dt * 1e3:.3f} ms = {rates[-1]:.2f} M output frames/s")
+    return rates, acc
+
+
+def _c4_chain(dev, n_c4, nchunks=8, windows=3):
+    """Config 4b's chain: the median M output frames/s of ``windows``
+    windows of ``nchunks`` chunks after a first chunk."""
+    eng, cas, x, nc = _c4_setup(dev, n_c4)
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    eng.process(cas.process(x, nc), nc, acc)
+    rates, _ = _c4_windows(dev, eng, cas, x, nc, acc, nchunks, windows)
+    return sorted(rates)[len(rates) // 2]
+
+
+def profile_biquad(dev, n_c4=C4_CHUNK):
+    """``--profile-biquad``: the biquad kernels' device time a launch
+    (torch.profiler, by kernel) for one section at config 4b's chunk (the
+    combined one), the -p cascade there and DeviceBiquadCascade on art -3
+    -r96k -p's block, with a call's CUDA-event time; also from an older
+    checkout, as ``--checksum`` is."""
+    n = roundtrip.m_multiple(n_c4, 160)
+    x = _noise_dev(dev, (6, n), 88, 0.25, torch.float64)
+    (ac, bc), = _bq_sections(BQ_C4, True)
+    (a, b), _ = _bq_sections(BQ_C4, False)
+    z = torch.zeros((4, 6), dtype=torch.float64, device=dev)
+    sec = bk._prepare(ac, bc, None, dev)
+    out, K = _bq_art_block(dev)
+    pair = _bq_pair(BQ_R96, 2, np.float32)
+    cas = bk.DeviceBiquadCascade(*pair, device=dev)
+    cas.push_from(*pair)
+    for label, fn in (
+            ("section, config 4b", lambda: bk._solve(x.T, sec, z, z, n,
+                                                     True)),
+            ("cascade, config 4b", lambda: bk._cascade2_step_T(
+                x, a, b, z, z, a, b, z, z, n, None, None)),
+            ("art -r96k -p block", lambda: cas.process(out, K))):
+        for _ in range(3):
+            fn()
+        _sync(dev)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            m = re.search(r"(biquad_\w+_kernel)", e.key)
+            t = getattr(e, "self_device_time_total", 0)
+            if m and t and e.count:
+                per[m.group(1)] = (round(t / e.count, 2), e.count)
+        print(f"{label}: device us a launch (launches) {per or 'none'}; "
+              f"{_time_ms(dev, fn, 20):.4f} ms a call (CUDA events)")
+
+
+def phase_biquad_timing(dev, tag, n_c4=C4_CHUNK, reps=10):
+    """The kernel's times (biquad_times, the A/B's harness, without the
+    chain phase_biquad_paths times) beside, in turns with one section,
+    the plain version and one torch.matmul of JAX's [B, B+4] x [B+4,
+    nb*S] float64 Toeplitz product at B = 256 (cuBLAS DGEMM: one stage of
+    JAX's method, printed as a line, not a library yardstick: no PyTorch
+    call computes the section); the native host cascade on the same chunk
+    and the pair on art's block (host clock); the bound.  Returns (ms a
+    call, device ms, plain ms, bound)."""
+    from art_tpu_torch.engines.biquad import apply_cascade
+    t = biquad_times(dev, n_c4=n_c4, chain=False)
+    for label, v in t.items():
+        print(f"  biquad {label}: {v:.4f} {tag}")
+    n = roundtrip.m_multiple(n_c4, 160)
+    S = 6
+    x = _noise_dev(dev, (S, n), 88, 0.25, torch.float64)
+    (ac, bc), = _bq_sections(BQ_C4, True)
+    sec = bk._prepare(ac, bc, None, dev)
     z = torch.zeros((4, S), dtype=torch.float64, device=dev)
     B = 256
     nb = -(-n // B)
     TG = torch.randn((B, B + 4), dtype=torch.float64, device=dev)
     FS = torch.randn((B + 4, nb * S), dtype=torch.float64, device=dev)
-
-    def cascade():
-        y = bk._solve(x.T, sec2, z, z, n, True)[0]
-        return bk._solve(y.T, sec2, z, z, n, True)
-
+    tables = bk.iir_tables(bc, B=bk.KERNEL_BLOCK, device=dev)
     variants = {
         "biquad kernel, one section": lambda: bk._solve(x.T, sec, z, z, n,
                                                         True),
-        "biquad kernel, cascade of two": cascade,
         "biquad plain, one section": lambda: bk.assoc_core_masked_reference(
-            x.T, ac, bc, z, z, n, sec.tables),
-        "torch.matmul library (DGEMM, B = 256)": lambda: TG @ FS,
+            x.T, ac, bc, z, z, n, tables),
+        "torch.matmul DGEMM, B = 256 (one stage of JAX's method)":
+            lambda: TG @ FS,
     }
     names = list(variants)
-    order = [names[2], names[0], names[1], names[3], names[3], names[1],
-             names[0], names[2]]
+    order = [names[1], names[0], names[2], names[2], names[0], names[1]]
     med = _time_in_turns(dev, variants, order, reps,
                          f"per {S} x {n}-frame float64 chunk", tag)
-    if dev.type == "cuda":
-        # each of the section's three kernels on the card (torch.profiler):
-        # where the calls above outpace the host, their time is the host's
-        busy = _kernel_times_us(variants[names[0]], 20)
-        print(f"  biquad kernel, one section, device time per call "
-              f"(torch.profiler): {busy or 'not measured'} {tag}")
     xnp = np.ascontiguousarray(x.T.cpu().numpy())
     host = _bq_pair(BQ_C4, S)
     host_ms = _host_ms(lambda: apply_cascade(host, xnp), 3)
     # each sample read once and written once, float64; 9 multiply-adds a
     # sample a section (5 FIR taps, 4 feedback) on the FP64 rate
     bound = _bound_ms(2 * 8 * S * n + 4 * 8 * 4 * S, 18 * S * n, PEAK_F64)
-    kms = med.get(names[0], float("nan"))
+    dms = t["section, config 4b: device ms"]
     print(f"  native host cascade (two sections), same chunk: {host_ms:.4f} "
           f"ms (host clock); one section's bound {bound[0]:.4f} ms "
-          f"({bound[1]}: {2 * 8 * S * n / 1e6:.1f} MB), kernel at "
-          f"{bound[0] / kms:.1%} of it {tag}")
-    eng, n1, K, start, P, fracv, kw = _steady_chunk(R96, dev, block)
-    out = k1.fixed_step(eng.hist, _noise_dev(dev, (2, n1), 89, 0.6), P,
-                        start, K, torch.zeros((), device=dev), **kw)[1]
+          f"({bound[1]}: {2 * 8 * S * n / 1e6:.1f} MB), the kernel's device "
+          f"time at {bound[0] / dms:.1%} of it {tag}")
+    out, K = _bq_art_block(dev)
     pair = _bq_pair(BQ_R96, 2, np.float32)
-    cas = bk.DeviceBiquadCascade(*pair, device=dev)
-    cas.push_from(*pair)
     bnp = np.ascontiguousarray(out[:, :K].T.cpu().numpy())
-    if dev.type == "cuda":
-        ms = _time_ms(dev, lambda: cas.process(out, K), reps)
-        hms = _host_ms(lambda: apply_cascade(pair, bnp), reps)
-        print(f"  DeviceBiquadCascade, art -3 -r96k -p steady block (2 x "
-              f"{out.shape[1]} float32, K {K}): {ms:.4f} ms (CUDA events); "
-              f"native host pair {hms:.4f} ms (host clock) {tag}")
-    return kms, med[names[2]], bound, med.get(names[3])
+    hms = _host_ms(lambda: apply_cascade(pair, bnp), reps)
+    print(f"  native host pair, art -3 -r96k -p steady block (2 x "
+          f"{out.shape[1]} float32, K {K}): {hms:.4f} ms (host clock) {tag}")
+    return (t["section, config 4b: ms a call"], dms,
+            med["biquad plain, one section"], bound)
 
 
 # ------------------------------------------- phase 15: host-engine backends
@@ -3185,6 +3314,55 @@ def decimate_ab(parent):
     _require(same, "the decimate stage's bytes differ from the parent's")
 
 
+# ------------------------------------------------- the biquad cascade's A/B
+BQ_AB_DIR = Path(__file__).resolve().parent / "build" / "biquad_ab"
+
+
+def biquad_ab(parent):
+    """The biquad cascade against an older tree unpacked in ``parent``
+    (git archive into build/parent/): this script is copied there as
+    chip_smoke_new.py, and biquad_times runs in four processes, one a
+    turn, in the order parent, change, change, parent (each process
+    imports its own tree's package and builds its own library), each
+    saving its outputs under build/biquad_ab/turn<i>/; a tree's outputs
+    must be bitwise equal in its two turns, and the change's within the
+    class of the parent's."""
+    here = Path(__file__).resolve()
+    parent = Path(parent).resolve()
+    _require((parent / "art_tpu_torch").is_dir(),
+             f"no art_tpu_torch in {parent}")
+    shutil.copy(here, parent / "chip_smoke_new.py")
+    script = {"parent": parent / "chip_smoke_new.py", "change": here}
+    shutil.rmtree(BQ_AB_DIR, ignore_errors=True)
+    turns = []
+    for i, name in enumerate(("parent", "change", "change", "parent")):
+        out = BQ_AB_DIR / f"turn{i}"
+        r = subprocess.run([sys.executable, str(script[name]),
+                            "--biquad-times", str(out)],
+                           cwd=script[name].parent, capture_output=True,
+                           text=True, timeout=900)
+        _require(r.returncode == 0, f"the {name} turn failed:\n"
+                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        turns.append((name, json.loads(r.stdout.strip().splitlines()[-1])))
+        print(f"  turn {i + 1}, {name}: {json.dumps(turns[-1][1])}")
+    for case in turns[0][1]:
+        runs = [f"{name} {t[case]:.4f}" for name, t in turns]
+        print(f"  {case}: {', '.join(runs)}")
+    files = sorted(p.name for p in (BQ_AB_DIR / "turn0").glob("*.npy"))
+    _require(bool(files), "the biquad A/B saved no outputs")
+    same = within = True
+    for f in files:
+        o = [np.load(BQ_AB_DIR / f"turn{i}" / f) for i in range(4)]
+        same &= o[0].tobytes() == o[3].tobytes()
+        same &= o[1].tobytes() == o[2].tobytes()
+        within &= (o[1].shape == o[0].shape and o[1].dtype == o[0].dtype
+                   and _bq_within(torch.from_numpy(o[1]),
+                                  torch.from_numpy(o[0]))[1])
+    print(f"  outputs ({len(files)} tensors): bitwise equal within a tree "
+          f"{same}; the change within the class of the parent {within}")
+    _require(same and within, "the biquad A/B's outputs")
+
+
 def _kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                   bound, library_ms=None, device_ms=None):
     """One entry of the kernels line: ``ms`` is a call's time with CUDA
@@ -3217,6 +3395,13 @@ def main(argv) -> int:
     if argv[1:2] == ["--decimate-ab"] and len(argv) == 3:
         print(phase_device()[2])
         decimate_ab(argv[2])
+        return 0
+    if argv[1:2] == ["--biquad-times"] and len(argv) == 3:
+        print(json.dumps(biquad_times(dev, save=argv[2])))
+        return 0
+    if argv[1:2] == ["--biquad-ab"] and len(argv) == 3:
+        print(phase_device()[2])
+        biquad_ab(argv[2])
         return 0
     t_start = time.perf_counter()
     print("phase 1: device")
@@ -3356,11 +3541,11 @@ def main(argv) -> int:
             f"art_tpu/ops/decimate_device.py:{line}",
             DEC_PATH_LAUNCHES[key], worst[key], ms, plain_ms, bound,
             device_ms=device_ms))
-    ms, plain_ms, bound, lib_ms = bq_timed
+    ms, device_ms, plain_ms, bound = bq_timed
     kernels.append(_kernel_entry(
         "biquad", src + "biquad.cu", "art_tpu/ops/biquad_kernel.py:206",
         BIQUAD_PATH_LAUNCHES["biquad"], worst["biquad"], ms, plain_ms, bound,
-        lib_ms))
+        device_ms=device_ms))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -336,3 +336,254 @@ def test_entry_points_count_plain_sections_and_refuse():
     with pytest.raises(ValueError, match="float32 or float64"):
         bk.assoc_core_full(x.half(), a, b, np.zeros((4, 2)),
                            np.zeros((4, 2)))
+
+
+# ------------------------------------------------- the kernel's geometry
+def test_geometry_header_matches_the_module():
+    """csrc/biquad_geometry.h (built for the host) and the module's copy
+    of its layout agree: the span, the window, the table offsets
+    packed_tables writes, the scratch records."""
+    c = bk.library_geometry(1, 1, 1, torch.float64)["constants"]
+    assert (c["threads"], c["frames"], c["span"], c["window"]) == (
+        bk.SPAN_THREADS, bk.SPAN_FRAMES, bk.SPAN, bk.WINDOW)
+    assert c["pad"] == bk.SPAN_FRAMES + 1
+    assert (c["tab_doubles"], c["tab_ab"], c["tab_window"], c["tab_carry"],
+            c["tab_free"], c["tab_m"], c["tab_mw"], c["tab_p"]) == (
+        bk.TAB_DOUBLES, 0, bk._TAB_WINDOW, bk._TAB_CARRY, bk._TAB_FREE,
+        bk._TAB_M, bk._TAB_MW, bk._TAB_P)
+    assert c["rec_words"] == bk.REC_WORDS
+    assert (c["rec_u"], c["rec_e"]) == (0, 8)
+    # min_blocks CTAs an SM fit the H100's 228 KB of shared memory a SM,
+    # each with 1 KB reserved and the kernel's 6,160 bytes of static
+    # shared memory (ptxas -v, sm_90a)
+    smem = bk.library_geometry(1, 1, 1, torch.float64)["launch"]["smem"]
+    assert c["min_blocks"] * (smem + 6160 + 1024) <= 233472
+
+
+# (n, S, K, dtype, spans, active): config 4b's chunk, art -3 -r96k -p's
+# steady block, and edge shapes
+GEOMETRY_CASES = [
+    (524320, 6, 524320, torch.float64, 65, 65),
+    (524320, 6, 524320 - 777, torch.float64, 65, 64),
+    (35664, 2, 35664, torch.float32, 5, 5),
+    (0, 3, 0, torch.float32, 1, 0),
+    (1, 1, 1, torch.float64, 1, 1),
+    (1, 2, 0, torch.float32, 1, 0),
+    (8192, 2, 8192, torch.float64, 1, 1),
+    (8193, 2, 8192, torch.float64, 2, 1),
+    (8193, 2, 8193, torch.float32, 2, 2),
+    ((1 << 22) + 5, 2, (1 << 22) + 2, torch.float64, 513, 513),
+]
+
+
+@pytest.mark.parametrize("n,S,K,dtype,spans,active", GEOMETRY_CASES)
+def test_launch_geometry(n, S, K, dtype, spans, active):
+    g = bk.library_geometry(n, S, K, dtype)["launch"]
+    assert (g["spans"], g["active"]) == (spans, active)
+    assert g["ctas"] == spans * S
+    # staged in float64 whatever the data's type
+    assert g["smem"] == bk.SPAN_THREADS * (bk.SPAN_FRAMES + 1) * 8
+    assert g["scratch"] == bk._scratch_words(n, S)
+
+
+def test_geometry_refuses_what_the_kernel_does_not_take():
+    for n, S, K in ((-1, 1, 0), (10, 0, 0), (10, 1, 11), (10, 1, -1)):
+        with pytest.raises(ValueError, match="takes no"):
+            bk.library_geometry(n, S, K, torch.float32)
+
+
+def test_packed_tables_layout():
+    """packed_tables: a|b, W, the carry flag and the first E-free warp,
+    then M^d (M = A^32), M^(32 w) and P^d (P = A^8192), each against
+    numpy's matrix_power of the companion matrix (a resonator's: its
+    powers are well scaled and P^W does not vanish)."""
+    a, b = _resonator(0.995, 0.7)
+    t = bk.packed_tables(a, b)
+    assert t.shape == (bk.TAB_DOUBLES,)
+    assert t[:5].tobytes() == a.tobytes() and t[5:10].tobytes() == b.tobytes()
+    assert t[bk._TAB_WINDOW] == bk.WINDOW and t[bk._TAB_CARRY] == 1.0
+    assert t[bk._TAB_FREE] == bk.SPAN_THREADS // 32
+    A = bk._companion(b)
+    mp = np.linalg.matrix_power
+    for off, count, step in ((bk._TAB_M, 32, 32), (bk._TAB_MW, 8, 1024),
+                             (bk._TAB_P, bk.WINDOW + 1, bk.SPAN)):
+        for d in range(count):
+            want = mp(A, step * d)
+            got = t[off + 16 * d:off + 16 * d + 16].reshape(4, 4)
+            np.testing.assert_allclose(got, want, rtol=1e-12,
+                                       atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("freq,combined,window,carry,free", [
+    (0.45 * 44100 / 48000, True, 1, False, 2),
+    (0.45 * 44100 / 48000, False, 1, False, 2),
+    (44100 * 0.45 / 96000, True, 1, False, 1),
+    (44100 * 0.45 / 96000, False, 1, False, 1),
+    (1e-3, False, bk.WINDOW, True, 8)])
+def test_window_is_where_the_span_transition_vanishes(freq, combined,
+                                                      window, carry, free):
+    """The -p lowpasses' span transition P = A^8192 is exactly zero in
+    float64 (W = 1: no span waits on another's entering state), and so is
+    A^(1024 w) from warp ``free`` on (those warps never wait for E); a
+    biquad lowpass at 1e-3 of the rate keeps P^W nonzero (W = 16 and the
+    carry) and every warp's factor."""
+    q = Biquad.init(biquad_lowpass(freq), 1.0, 1, np.float64)
+    b = bk.combine_biquads(q, q)[1] if combined else q.b
+    t = bk.kernel_tables(b)
+    assert (t["window"], t["carry"], t["free"]) == (window, carry, free)
+
+
+# ------------------------------------- a numpy model of the kernel's arithmetic
+def _run_blocks(f, st, b):
+    """Each row of f [threads, frames] through the recurrence from its
+    state st [threads, 4] (newest first): (outputs, end states)."""
+    st = st.copy()
+    out = np.empty_like(f)
+    for t in range(f.shape[1]):
+        y = (f[:, t] - b[1] * st[:, 0] - b[2] * st[:, 1] - b[3] * st[:, 2]
+             - b[4] * st[:, 3])
+        st = np.column_stack([y, st[:, :3]])
+        out[:, t] = y
+    return out, st
+
+
+def _hillis_steele(z, powers, width):
+    """Inclusive scans of z [groups, width, 4]: z_l = sum_{k<=l}
+    M^(l-k) z_k, with powers[d] = M^d, in log2(width) steps."""
+    d = 1
+    while d < width:
+        nz = z.copy()
+        nz[:, d:] += np.einsum("ab,glb->gla", powers[d], z[:, :-d])
+        z, d = nz, 2 * d
+    return z
+
+
+def span_model(x, a, b, xh, yh, K, threads, frames, window):
+    """csrc/biquad.cu's arithmetic in numpy, at a span of threads x frames
+    and a look-back window: per span the threads' zero-state runs, the
+    warps' and the warps' totals' scans, the span's u_j, the windowed
+    E_j formula, each warp's entering state (C_w alone from the first
+    warp whose M^(32w) is exactly zero) and each thread's, and its rerun.
+    Returns (y
+    [n, S] in x's type, xh', yh')."""
+    t = bk.kernel_tables(b, threads, frames, window)
+    M, Mw, P, W, carry = t["M"], t["Mw"], t["P"], t["window"], t["carry"]
+    n, S = x.shape
+    span, warps = threads * frames, threads // 32
+    nsp = max(1, -(-n // span))
+    live = np.arange(nsp * span) < K
+    xm = np.zeros((nsp * span, S))
+    xm[:K] = x[:K]
+    xs = np.concatenate([xh[::-1], xm])
+    f = sum(a[i] * xs[4 - i:4 - i + nsp * span] for i in range(5))
+    f = np.where(live[:, None], f, 0.0)
+    y = np.zeros((nsp * span, S))
+    lane = np.arange(threads) % 32
+    for s in range(S):
+        u, E = {}, {}
+        for j in range(-(-K // span)):
+            fb = f[j * span:(j + 1) * span, s].reshape(threads, frames)
+            _, v = _run_blocks(fb, np.zeros((threads, 4)), b)
+            z = _hillis_steele(v.reshape(warps, 32, 4), M, 32)
+            xw = np.concatenate([np.zeros((warps, 1, 4)), z[:, :-1]], 1)
+            c = _hillis_steele(z[None, :, 31], Mw, warps)[0]
+            u[j] = c[-1]
+            cw = np.concatenate([np.zeros((1, 4)), c[:-1]])
+            Ej = sum((P[i] @ u[j - 1 - i] for i in range(min(W, j))),
+                     np.zeros(4))
+            if j < W:
+                Ej = Ej + P[j] @ yh[:, s]
+            elif carry:
+                Ej = Ej + P[W] @ E[j - W]
+            E[j] = Ej
+            D = cw + np.einsum("wab,b->wa", Mw, Ej)
+            D[t["free"]:] = cw[t["free"]:]      # M^(32w) exactly zero
+            e = (np.einsum("tab,tb->ta", M[lane], D[np.arange(threads) // 32])
+                 + xw.reshape(threads, 4))
+            out, _ = _run_blocks(fb, e, b)
+            y[j * span:(j + 1) * span, s] = out.reshape(-1)
+    y = np.where(live[:, None], y, 0.0)[:n]
+    ys = np.concatenate([yh[::-1], y])
+    return (y.astype(x.dtype), xs[K:K + 4][::-1].copy(),
+            ys[K:K + 4][::-1].copy())
+
+
+def _resonator(r, theta):
+    """A unit-gain two-pole resonator at radius r and angle theta: poles
+    near the unit circle away from DC, so the companion matrix's powers
+    stay well scaled while a span's transition does not vanish."""
+    b = np.array([0.0, -2 * r * np.cos(theta), r * r, 0.0, 0.0])
+    return np.array([1 - r, 0.0, 0.0, 0.0, 0.0]), b
+
+
+MODEL_N = 1500
+MODEL_KS = [0, 1, 3, 4, 5, 252, 253, 255, 256, 257, 258, 259, 260, 511,
+            512, 513, 1000, MODEL_N - 1, MODEL_N]
+
+
+def _model_case(filt, S, n, K, seed, dtype=np.float64):
+    if filt == "resonator":
+        a, b = _resonator(0.995, 0.7)
+    else:
+        a, b = _section(filt == "combined", S)
+    x, xh, yh = _inputs(S, n, seed, dtype)
+    x[K:] = np.nan                    # never read past K
+    return a, b, x, xh, yh
+
+
+def _model_vs_reference(a, b, x, xh, yh, K, geometry):
+    got = span_model(x, a, b, xh, yh, K, *geometry)
+    want = [o.numpy() for o in bk.assoc_core_masked_reference(
+        _t(x), a, b, xh, yh, K, bk.iir_tables(b, B=bk.KERNEL_BLOCK))]
+    scale = max(np.abs(want[0]).max(initial=0), np.abs(want[2]).max(),
+                1e-300)
+    assert got[0].dtype == want[0].dtype and got[0].shape == want[0].shape
+    assert (np.abs(got[0].astype(np.float64) - want[0]).max(initial=0)
+            <= 1e-12 * scale)
+    assert not np.any(got[0][K:])
+    assert got[1].tobytes() == want[1].tobytes()
+    assert np.abs(got[2] - want[2]).max() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("K", MODEL_KS)
+@pytest.mark.parametrize("filt", ["biquad", "combined", "resonator"])
+def test_span_model_matches_plain(filt, K):
+    """Spans of 64 x 4 = 256 frames, W = 4: six spans a stream, so the
+    look-back reaches past its window (P^W is not zero at this span for
+    any of the three sections) and hops; K at and around span edges and
+    inside a span's first four frames."""
+    a, b, x, xh, yh = _model_case(filt, 2, MODEL_N, K, K + 3)
+    assert bk.kernel_tables(b, 64, 4, 4)["carry"]
+    _model_vs_reference(a, b, x, xh, yh, K, (64, 4, 4))
+
+
+@pytest.mark.parametrize("n,K", [(600, 600), (600, 257), (100, 97),
+                                 (3, 3), (0, 0)])
+def test_span_model_window_covers_every_span(n, K):
+    """Fewer spans than the window (W >= spans): every entering state is
+    P^j yh plus the aggregates before it."""
+    a, b, x, xh, yh = _model_case("resonator", 3, n, K, n + K)
+    _model_vs_reference(a, b, x, xh, yh, K, (64, 4, 4))
+
+
+@pytest.mark.parametrize("filt", ["biquad", "combined"])
+@pytest.mark.parametrize("K", [0, 4, 2047, 2048, 2049, 2052, 5000, 6000])
+def test_span_model_vanishing_transition(filt, K):
+    """Spans of 64 x 32 = 2048 frames: the -p lowpass's span transition is
+    exactly zero (W = 1, no carry), so E_j is u_{j-1} alone."""
+    a, b, x, xh, yh = _model_case(filt, 2, 6000, K, K)
+    t = bk.kernel_tables(b, 64, 32, 4)
+    assert (t["window"], t["carry"]) == (1, False)
+    _model_vs_reference(a, b, x, xh, yh, K, (64, 32, 4))
+
+
+def test_span_model_float32_rounds_once():
+    """float32 data: the model's float64 outputs rounded once, within one
+    float32 ulp of the plain version's."""
+    a, b, x, xh, yh = _model_case("biquad", 2, MODEL_N, 1400, 9, np.float32)
+    got = span_model(x, a, b, xh, yh, 1400, 64, 4, 4)[0]
+    want = bk.assoc_core_masked_reference(_t(x), a, b, xh, yh, 1400)[0]
+    want = want.numpy()
+    assert got.dtype == want.dtype == np.float32
+    ulp = np.spacing(np.maximum(np.abs(got), np.abs(want)))
+    assert np.all(np.abs(got.astype(np.float64) - want) <= ulp)

@@ -1049,13 +1049,116 @@ def test_biquad_kernel_matches_plain(case):
     t = bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev)
     before = bk.launches["biquad"]
     got = bk.assoc_core_masked(x, a, b, xh, yh, K, t)
-    assert bk.launches["biquad"] == before + 3
-    want = bk.assoc_core_masked_reference(x, a, b, xh, yh, K, t)
+    assert bk.launches["biquad"] == before + 1
+    _bq_check(got, bk.assoc_core_masked_reference(x, a, b, xh, yh, K, t),
+              K, dtype)
+
+
+def _bq_check(got, want, K, dtype):
+    """The kernel's (y, xh', yh') against the plain version's: y within
+    the class, zero past K and finite, xh' bitwise, yh' within 1e-12."""
     torch.cuda.synchronize()
     assert got[0].dtype == dtype and _within_class(got[0], want[0])
     assert not got[0][K:].any() and torch.isfinite(got[0]).all()
     assert torch.equal(got[1], want[1])                 # xh' is a copy
     assert np.abs((got[2] - want[2]).cpu().numpy()).max() <= 1e-12
+
+
+# (dtype, layout, n, K): K at and around the 8192-frame span edges and
+# inside a span's first four frames, and streams shorter than one span
+BQ_EDGES = [
+    (torch.float64, "sn", 20_000, 8191), (torch.float64, "sn", 20_000, 8192),
+    (torch.float64, "ns", 20_000, 8193), (torch.float32, "sn", 20_000, 8194),
+    (torch.float32, "sn", 20_000, 8195), (torch.float64, "sn", 20_000, 8196),
+    (torch.float64, "sn", 20_000, 16_380), (torch.float32, "sn", 20_000, 16_384),
+    (torch.float64, "sn", 16_384, 16_384), (torch.float32, "sn", 5_000, 5_000),
+    (torch.float64, "ns", 5_000, 4_999), (torch.float64, "sn", 3, 2),
+    (torch.float32, "sn", 8_191, 1)]
+
+
+@pytest.mark.parametrize("case", BQ_EDGES, ids=[
+    f"{str(c[0])[6:]}-{c[1]}-n{c[2]}-K{c[3]}" for c in BQ_EDGES])
+def test_biquad_kernel_span_edges(case):
+    from art_tpu_torch.ops import biquad_kernel as bk
+    dev = _card()
+    dtype, layout, n, K = case
+    a, b = _bq_section(True)
+    x, K, xh, yh = _bq_case(dev, dtype, layout, K, n=n, seed=K)
+    t = bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev)
+    before = bk.launches["biquad"]
+    got = bk.assoc_core_masked(x, a, b, xh, yh, K, t)
+    assert bk.launches["biquad"] == before + 1
+    _bq_check(got, bk.assoc_core_masked_reference(x, a, b, xh, yh, K, t),
+              K, dtype)
+
+
+def _resonator(r=0.99985, theta=0.7):
+    """A unit-gain two-pole resonator whose 8192-frame span transition P
+    keeps ~0.29 of the state (P^16 ~ 3e-9): the kernel's look-back waits on
+    E_{j-16} and the carry changes the outputs; its poles lie away from DC,
+    so the companion matrix's powers stay well scaled."""
+    b = np.array([0.0, -2 * r * np.cos(theta), r * r, 0.0, 0.0])
+    return np.array([1 - r, 0.0, 0.0, 0.0, 0.0]), b
+
+
+def test_biquad_kernel_look_back_hops():
+    """2^22 + 5 frames at S = 2 (513 spans a stream) through the
+    resonator: the look-back carries E over 16 spans at a time, 32 hops a
+    stream; within the class of the plain version."""
+    from art_tpu_torch.ops import biquad_kernel as bk
+    dev = _card()
+    a, b = _resonator()
+    t = bk.kernel_tables(b)
+    assert (t["window"], t["carry"]) == (bk.WINDOW, True)
+    n = (1 << 22) + 5
+    x, K, xh, yh = _bq_case(dev, torch.float64, "sn", n - 3, S=2, n=n)
+    got = bk.assoc_core_masked(x, a, b, xh, yh, K)
+    _bq_check(got, bk.assoc_core_masked_reference(x, a, b, xh, yh, K),
+              K, torch.float64)
+
+
+def test_biquad_kernel_bitwise_run_to_run():
+    """Two calls on the same input give equal tensors: the span formula
+    never depends on which CTA finished first (the resonator, whose
+    carry reaches across spans, and the -p section)."""
+    from art_tpu_torch.ops import biquad_kernel as bk
+    dev = _card()
+    for (a, b), dtype in ((_resonator(), torch.float64),
+                          (_bq_section(True), torch.float32),
+                          (_bq_section(False), torch.float64)):
+        x, K, xh, yh = _bq_case(dev, dtype, "sn", "cut", n=300_001)
+        one = bk.assoc_core_masked(x, a, b, xh, yh, K)
+        for _ in range(3):
+            two = bk.assoc_core_masked(x, a, b, xh, yh, K)
+            for g, w in zip(one, two):
+                assert torch.equal(g, w)
+
+
+def test_biquad_cascade_is_one_host_call():
+    """_cascade2_step_T on the card: one call into the C entry point, two
+    launches; section 2 reads section 1's output in the data's type, as
+    the plain cascade does."""
+    from art_tpu_torch.ops import biquad_kernel as bk
+    dev = _card()
+    a, b = _bq_section(False)
+    for dtype in (torch.float32, torch.float64):
+        x, K, xh, yh = _bq_case(dev, dtype, "sn", "cut", n=40_001)
+        x_sn = x.T
+        calls, before = bk.host_calls["biquad"], bk.launches["biquad"]
+        got = bk._cascade2_step_T(x_sn, a, b, xh, yh, a, b, yh, xh, K, None,
+                                  None)
+        assert bk.host_calls["biquad"] == calls + 1
+        assert bk.launches["biquad"] == before + 2
+        y1, xh1, yh1 = bk.assoc_core_masked_reference(x, a, b, xh, yh, K)
+        y2, xh2, yh2 = bk.assoc_core_masked_reference(y1, a, b, yh, xh, K)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dtype and _within_class(got[0].T, y2)
+        assert not got[0][:, K:].any() and torch.isfinite(got[0]).all()
+        assert torch.equal(got[1], xh1)                 # x's rows: a copy
+        # section 2's xh' holds section 1's outputs: within their class
+        assert _within_class(got[3].to(dtype), xh2.to(dtype))
+        for g, w in ((got[2], yh1), (got[4], yh2)):
+            assert np.abs((g - w).cpu().numpy()).max() <= 1e-12
 
 
 def test_biquad_kernel_bitwise_independent_of_batch_width():
@@ -1097,7 +1200,10 @@ def test_device_biquad_cascade_on_card_matches_host_pair():
                                                    60_000)):
         blk = torch.zeros((6, cap), dtype=torch.float64, device=dev)
         blk[:, :hi - lo] = torch.from_numpy(x[lo:hi].T).to(dev)
+        calls, before = bk.host_calls["biquad"], bk.launches["biquad"]
         out.append(cas.process(blk, hi - lo)[:, :hi - lo].T.cpu().numpy())
+        assert bk.host_calls["biquad"] == calls + 1
+        assert bk.launches["biquad"] == before + 2
     cas.pull_to(*mixed)
     out.append(apply_cascade(mixed, x[200_001:]))
     assert np.abs(np.concatenate(out) - want).max() < 1e-13
