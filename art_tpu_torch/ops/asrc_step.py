@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.spans import LAUNCH, span
 from . import _build
 
 launches = {"asrc_step": 0, "asrc_step_f64": 0, "asrc_apply": 0,
@@ -200,41 +201,42 @@ def asrc_step_kernel(hist, x, bank, offsets, ratios, Ks, shift: int, *,
     """Launch the ASRC step kernel (float32 or float64 by ``hist``'s type)
     over buf = hist ++ x, read in place.  Returns out [S, k_max] with
     k >= Ks zeroed."""
-    dev = hist.device
-    if dev.type != "cuda":
-        raise ValueError(f"the ASRC step kernel runs on CUDA tensors, got "
-                         f"{dev}")
-    if hist.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"the ASRC step kernel takes float32 or float64, "
-                         f"got {hist.dtype}")
-    S, H = hist.shape
-    n = x.shape[1]
-    _check("hist", hist, dev, hist.dtype, (S, H))
-    _check("x", x, dev, hist.dtype, (S, n))
-    _check("bank", bank, dev, hist.dtype, (num_filters + 1, num_taps))
-    _check_bank(bank, num_taps)
-    _check("offsets", offsets, dev, torch.float64, (S,))
-    _check("ratios", ratios, dev, torch.float64, (S,))
-    _check("Ks", Ks, dev, torch.int32, (S,))
-    if k_max <= 0 or not 1 <= H + n < 2**31:
-        raise ValueError(f"bad step: k_max={k_max}, H={H}, n={n} (the "
-                         f"kernel takes 1 <= H + n < 2**31 per stream)")
-    geo = step_geometry(num_taps, num_filters, hist.dtype)
     f64 = hist.dtype == torch.float64
     name = "asrc_step_f64" if f64 else "asrc_step"
-    lib = _build.library()
-    fn = lib.art_asrc_step_f64 if f64 else lib.art_asrc_step_f32
-    out = torch.empty((S, k_max), dtype=hist.dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(hist.data_ptr(), H, x.data_ptr(), n, S, bank.data_ptr(),
-                num_taps, num_filters, geo.piece_taps, geo.lane_span,
-                geo.outputs_per_block, geo.threads, offsets.data_ptr(),
-                ratios.data_ptr(), Ks.data_ptr(), int(shift), int(k_max),
-                out.data_ptr(), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"art_{name} launch failed: cudaError {rc}")
-    launches[name] += 1
-    return out
+    with span(LAUNCH + name):
+        dev = hist.device
+        if dev.type != "cuda":
+            raise ValueError(f"the ASRC step kernel runs on CUDA tensors, "
+                             f"got {dev}")
+        if hist.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"the ASRC step kernel takes float32 or "
+                             f"float64, got {hist.dtype}")
+        S, H = hist.shape
+        n = x.shape[1]
+        _check("hist", hist, dev, hist.dtype, (S, H))
+        _check("x", x, dev, hist.dtype, (S, n))
+        _check("bank", bank, dev, hist.dtype, (num_filters + 1, num_taps))
+        _check_bank(bank, num_taps)
+        _check("offsets", offsets, dev, torch.float64, (S,))
+        _check("ratios", ratios, dev, torch.float64, (S,))
+        _check("Ks", Ks, dev, torch.int32, (S,))
+        if k_max <= 0 or not 1 <= H + n < 2**31:
+            raise ValueError(f"bad step: k_max={k_max}, H={H}, n={n} (the "
+                             f"kernel takes 1 <= H + n < 2**31 per stream)")
+        geo = step_geometry(num_taps, num_filters, hist.dtype)
+        lib = _build.library()
+        fn = lib.art_asrc_step_f64 if f64 else lib.art_asrc_step_f32
+        out = torch.empty((S, k_max), dtype=hist.dtype, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(hist.data_ptr(), H, x.data_ptr(), n, S,
+                    bank.data_ptr(), num_taps, num_filters, geo.piece_taps,
+                    geo.lane_span, geo.outputs_per_block, geo.threads,
+                    offsets.data_ptr(), ratios.data_ptr(), Ks.data_ptr(),
+                    int(shift), int(k_max), out.data_ptr(), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"art_{name} launch failed: cudaError {rc}")
+        launches[name] += 1
+        return out
 
 
 def asrc_step(hist, x, bank, offsets, ratios, Ks, shift: int, *,
@@ -264,45 +266,46 @@ def asrc_apply_kernel(buf, bank, base, fi, frac):
     type), float32 or float64 by ``buf``'s type: out [S, K], unmasked.
     Phase rows are read at fi and fi + 1, so fi must lie in [0, F - 1]
     for a bank of F + 1 rows."""
-    dev = buf.device
-    if dev.type != "cuda":
-        raise ValueError(f"the ASRC apply kernel runs on CUDA tensors, got "
-                         f"{dev}")
     dt = buf.dtype
-    if dt not in (torch.float32, torch.float64):
-        raise ValueError(f"the ASRC apply kernel takes float32 or float64, "
-                         f"got {dt}")
-    S, B = buf.shape
-    K = base.shape[1]
-    num_taps = bank.shape[1]
-    _check("buf", buf, dev, dt, (S, B))
-    _check("bank", bank, dev, dt, (bank.shape[0], num_taps))
-    _check_bank(bank, num_taps)
-    _check("base", base, dev, torch.int32, (S, K))
-    _check("fi", fi, dev, torch.int32, (S, K))
-    _check("frac", frac, dev, dt, (S, K))
-    if K <= 0 or not num_taps <= B < 2**31:
-        raise ValueError(f"bad apply: K={K}, B={B}, bank "
-                         f"{tuple(bank.shape)} (the kernel takes taps <= B "
-                         f"< 2**31)")
-    # the step's bank pieces and runs of this type
-    geo = step_geometry(num_taps, bank.shape[0] - 1, dt)
     f64 = dt == torch.float64
     name = "asrc_apply_f64" if f64 else "asrc_apply"
-    lib = _build.library()
-    fn = lib.art_asrc_apply_f64 if f64 else lib.art_asrc_apply_f32
-    out = torch.empty((S, K), dtype=dt, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(buf.data_ptr(), S, B, bank.data_ptr(), num_taps,
-                bank.shape[0] - 1, geo.piece_taps, geo.lane_span,
-                geo.outputs_per_block, geo.threads, base.data_ptr(),
-                fi.data_ptr(), frac.data_ptr(), K, out.data_ptr(),
-                _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"art_asrc_apply_{'f64' if f64 else 'f32'} "
-                           f"launch failed: cudaError {rc}")
-    launches[name] += 1
-    return out
+    with span(LAUNCH + name):
+        dev = buf.device
+        if dev.type != "cuda":
+            raise ValueError(f"the ASRC apply kernel runs on CUDA tensors, "
+                             f"got {dev}")
+        if dt not in (torch.float32, torch.float64):
+            raise ValueError(f"the ASRC apply kernel takes float32 or "
+                             f"float64, got {dt}")
+        S, B = buf.shape
+        K = base.shape[1]
+        num_taps = bank.shape[1]
+        _check("buf", buf, dev, dt, (S, B))
+        _check("bank", bank, dev, dt, (bank.shape[0], num_taps))
+        _check_bank(bank, num_taps)
+        _check("base", base, dev, torch.int32, (S, K))
+        _check("fi", fi, dev, torch.int32, (S, K))
+        _check("frac", frac, dev, dt, (S, K))
+        if K <= 0 or not num_taps <= B < 2**31:
+            raise ValueError(f"bad apply: K={K}, B={B}, bank "
+                             f"{tuple(bank.shape)} (the kernel takes taps "
+                             f"<= B < 2**31)")
+        # the step's bank pieces and runs of this type
+        geo = step_geometry(num_taps, bank.shape[0] - 1, dt)
+        lib = _build.library()
+        fn = lib.art_asrc_apply_f64 if f64 else lib.art_asrc_apply_f32
+        out = torch.empty((S, K), dtype=dt, device=dev)
+        with torch.cuda.device(dev):
+            rc = fn(buf.data_ptr(), S, B, bank.data_ptr(), num_taps,
+                    bank.shape[0] - 1, geo.piece_taps, geo.lane_span,
+                    geo.outputs_per_block, geo.threads, base.data_ptr(),
+                    fi.data_ptr(), frac.data_ptr(), K, out.data_ptr(),
+                    _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"art_asrc_apply_{'f64' if f64 else 'f32'} "
+                               f"launch failed: cudaError {rc}")
+        launches[name] += 1
+        return out
 
 
 def asrc_apply(buf, bank, base, fi, frac):

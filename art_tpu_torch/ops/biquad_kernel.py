@@ -54,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.spans import LAUNCH, span
 from . import _build
 
 launches = {"biquad": 0}
@@ -431,48 +432,51 @@ def _run(x_ns, secs, hist, K: int, out_sn: bool):
                 y, sec.a, sec.b, hist[2 * i], hist[2 * i + 1], K, sec.tables)
             out += [xh_n, yh_n]
         return (y.T.contiguous() if out_sn else y), torch.stack(out)
-    if dev.type != "cuda":
-        raise ValueError(f"the biquad section runs on CPU or CUDA tensors, "
-                         f"got {dev}")
-    hist = hist.to(dev).contiguous()
-    new = torch.empty((2 * ns, 4, S), dtype=torch.float64, device=dev)
-    y = torch.empty((S, n) if out_sn else (n, S), dtype=x_ns.dtype,
-                    device=dev)
-    ysi, ysc = (1, n) if out_sn else (S, 1)     # y as [n, S]
-    mid, msi, msc = y, ysi, ysc
-    if ns == 2:         # section 1's output, [S, n] in rows padded to 16 B
-        ld = -(-n // 4) * 4
-        mid, msi, msc = torch.empty((S, ld), dtype=x_ns.dtype,
-                                    device=dev), 1, ld
-    row = 4 * S * 8                             # bytes of one [4, S] state
-    ptrs = []
-    for i in range(2):
-        if i < ns:
-            h, w = hist.data_ptr() + 2 * i * row, new.data_ptr() + 2 * i * row
-            ptrs += [secs[i].ktab.data_ptr(), h, h + row, w, w + row]
-        else:
-            ptrs += [None] * 5
-    lib = _build.library()
-    cur = torch.cuda.current_device()
-    idx = cur if dev.index is None else dev.index
-    with contextlib.nullcontext() if idx == cur else torch.cuda.device(idx):
-        # the current stream's handle, without the Stream object that
-        # torch.cuda.current_stream builds (a call's largest host cost)
-        stream = torch._C._cuda_getCurrentRawStream(idx)
-        scratch = _scratch_for(dev, stream, _scratch_words(n, S))
-        epoch = _epoch[0] + 1
-        _epoch[0] += ns
-        rc = lib.art_biquad_cascade(
-            ns, x_ns.data_ptr(), n, S, x_ns.stride(0), x_ns.stride(1),
-            _KINDS[x_ns.dtype], int(K), *ptrs, mid.data_ptr(), msi, msc,
-            y.data_ptr(), ysi, ysc, scratch.data_ptr(), epoch, stream)
-    host_calls["biquad"] += 1
-    if rc != 0:
-        raise RuntimeError(f"art_biquad_cascade launch failed: cudaError "
-                           f"{rc} (sections={ns}, n={n}, S={S}, "
-                           f"{x_ns.dtype})")
-    launches["biquad"] += ns
-    return y, new
+    with span(LAUNCH + "biquad"):
+        if dev.type != "cuda":
+            raise ValueError(f"the biquad section runs on CPU or CUDA "
+                             f"tensors, got {dev}")
+        hist = hist.to(dev).contiguous()
+        new = torch.empty((2 * ns, 4, S), dtype=torch.float64, device=dev)
+        y = torch.empty((S, n) if out_sn else (n, S), dtype=x_ns.dtype,
+                        device=dev)
+        ysi, ysc = (1, n) if out_sn else (S, 1)     # y as [n, S]
+        mid, msi, msc = y, ysi, ysc
+        if ns == 2:     # section 1's output, [S, n] in rows padded to 16 B
+            ld = -(-n // 4) * 4
+            mid, msi, msc = torch.empty((S, ld), dtype=x_ns.dtype,
+                                        device=dev), 1, ld
+        row = 4 * S * 8                         # bytes of one [4, S] state
+        ptrs = []
+        for i in range(2):
+            if i < ns:
+                h = hist.data_ptr() + 2 * i * row
+                w = new.data_ptr() + 2 * i * row
+                ptrs += [secs[i].ktab.data_ptr(), h, h + row, w, w + row]
+            else:
+                ptrs += [None] * 5
+        lib = _build.library()
+        cur = torch.cuda.current_device()
+        idx = cur if dev.index is None else dev.index
+        with contextlib.nullcontext() if idx == cur else \
+                torch.cuda.device(idx):
+            # the current stream's handle, without the Stream object that
+            # torch.cuda.current_stream builds (a call's largest host cost)
+            stream = torch._C._cuda_getCurrentRawStream(idx)
+            scratch = _scratch_for(dev, stream, _scratch_words(n, S))
+            epoch = _epoch[0] + 1
+            _epoch[0] += ns
+            rc = lib.art_biquad_cascade(
+                ns, x_ns.data_ptr(), n, S, x_ns.stride(0), x_ns.stride(1),
+                _KINDS[x_ns.dtype], int(K), *ptrs, mid.data_ptr(), msi, msc,
+                y.data_ptr(), ysi, ysc, scratch.data_ptr(), epoch, stream)
+        host_calls["biquad"] += 1
+        if rc != 0:
+            raise RuntimeError(f"art_biquad_cascade launch failed: "
+                               f"cudaError {rc} (sections={ns}, n={n}, "
+                               f"S={S}, {x_ns.dtype})")
+        launches["biquad"] += ns
+        return y, new
 
 
 def _solve(x_ns, sec: _Section, xh, yh, K: int, out_sn: bool):

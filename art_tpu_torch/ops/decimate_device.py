@@ -39,6 +39,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.spans import LAUNCH, span
 from . import _build
 from .decimate_kernel import _INV15_32, _M32
 
@@ -347,36 +348,37 @@ def decimate_flat(samples, K: int, *, scaler: float, highclip: int,
             samples, K, scaler=scaler, highclip=highclip, lowclip=lowclip,
             output_bits=output_bits, output_bytes=output_bytes, gens=gens,
             dither_type=dither_type, feedback=feedback, planar=planar)
-    if dev.type != "cuda":
-        raise ValueError(f"decimate_flat runs on CPU or CUDA tensors, got "
-                         f"{dev}")
-    dithered = dither_type is not None
-    if dithered and (gens is None or gens.dtype != torch.int32
-                     or tuple(gens.shape) != (S,)):
-        raise ValueError("gens: needs int32 state bits [S]")
-    if feedback is not None:
-        feedback = feedback.to(dt).contiguous()
-    out, osi, osc = _out(dev, n, S, output_bytes, planar)
-    clips = torch.zeros((), dtype=torch.int32, device=dev)
-    new_gens = torch.empty_like(gens) if dithered else gens
-    if n:
-        gens = gens.contiguous() if dithered else None
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.art_decimate_flat(
-                samples.data_ptr(), n, S, samples.stride(0),
-                samples.stride(1), _KINDS[dt], int(K),
-                float(torch.tensor(scaler, dtype=dt)),
-                None if feedback is None else feedback.data_ptr(),
-                None if gens is None else gens.data_ptr(), int(dithered),
-                int(dither_type or 0),
-                new_gens.data_ptr() if dithered else None, highclip,
-                lowclip, output_bits, output_bytes, out.data_ptr(), osi,
-                osc, clips.data_ptr(), stream)
-        _raise_on(rc, "decimate_flat", n, S, dt)
-        launches["decimate_flat"] += 1
-    return out, clips, new_gens
+    with span(LAUNCH + "decimate_flat"):
+        if dev.type != "cuda":
+            raise ValueError(f"decimate_flat runs on CPU or CUDA tensors, "
+                             f"got {dev}")
+        dithered = dither_type is not None
+        if dithered and (gens is None or gens.dtype != torch.int32
+                         or tuple(gens.shape) != (S,)):
+            raise ValueError("gens: needs int32 state bits [S]")
+        if feedback is not None:
+            feedback = feedback.to(dt).contiguous()
+        out, osi, osc = _out(dev, n, S, output_bytes, planar)
+        clips = torch.zeros((), dtype=torch.int32, device=dev)
+        new_gens = torch.empty_like(gens) if dithered else gens
+        if n:
+            gens = gens.contiguous() if dithered else None
+            lib = _build.library()
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = lib.art_decimate_flat(
+                    samples.data_ptr(), n, S, samples.stride(0),
+                    samples.stride(1), _KINDS[dt], int(K),
+                    float(torch.tensor(scaler, dtype=dt)),
+                    None if feedback is None else feedback.data_ptr(),
+                    None if gens is None else gens.data_ptr(), int(dithered),
+                    int(dither_type or 0),
+                    new_gens.data_ptr() if dithered else None, highclip,
+                    lowclip, output_bits, output_bytes, out.data_ptr(), osi,
+                    osc, clips.data_ptr(), stream)
+            _raise_on(rc, "decimate_flat", n, S, dt)
+            launches["decimate_flat"] += 1
+        return out, clips, new_gens
 
 
 def decimate_shaped(samples, K: int, *, scaler: float, a, b, xh, yh,
@@ -399,45 +401,49 @@ def decimate_shaped(samples, K: int, *, scaler: float, a, b, xh, yh,
             feedback=feedback, highclip=highclip, lowclip=lowclip,
             output_bits=output_bits, output_bytes=output_bytes, gens=gens,
             dither_type=dither_type)
-    if dev.type != "cuda":
-        raise ValueError(f"decimate_shaped runs on CPU or CUDA tensors, "
-                         f"got {dev}")
-    dithered = dither_type is not None
-    if dithered and (gens is None or gens.dtype != torch.int32
-                     or tuple(gens.shape) != (S,)):
-        raise ValueError("gens: needs int32 state bits [S]")
-    dt = samples.dtype
-    a, b, xh, yh, feedback = (torch.as_tensor(t, dtype=dt, device=dev)
-                              for t in (a, b, xh, yh, feedback))
-    if tuple(a.shape) != (5,) or tuple(b.shape) != (5,) or \
-            tuple(xh.shape) != (4, S) or tuple(yh.shape) != (4, S) or \
-            tuple(feedback.shape) != (S,):
-        raise ValueError("shaper: a, b [5], xh, yh [4, S], feedback [S]")
-    ab = torch.cat([a, b])
-    xh, yh, feedback = xh.contiguous(), yh.contiguous(), feedback.contiguous()
-    out, osi, osc = _out(dev, n, S, output_bytes, False)
-    clips = torch.zeros((), dtype=torch.int32, device=dev)
-    new_fb, new_xh, new_yh = (torch.empty_like(t)
-                              for t in (feedback, xh, yh))
-    new_gens = torch.empty_like(gens) if dithered else gens
-    if not n:
-        return out, clips, gens, feedback, xh, yh
-    gens = gens.contiguous() if dithered else None
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.art_decimate_shaped(
-            samples.data_ptr(), n, S, samples.stride(0), samples.stride(1),
-            _KINDS[dt], int(K), float(torch.tensor(scaler, dtype=dt)),
-            feedback.data_ptr(), ab.data_ptr(), xh.data_ptr(), yh.data_ptr(),
-            None if gens is None else gens.data_ptr(), int(dithered),
-            int(dither_type or 0), new_gens.data_ptr() if dithered else None,
-            new_fb.data_ptr(), new_xh.data_ptr(), new_yh.data_ptr(),
-            highclip, lowclip, output_bits, output_bytes, out.data_ptr(),
-            osi, osc, clips.data_ptr(), stream)
-    _raise_on(rc, "decimate_shaped", n, S, dt)
-    launches["decimate_shaped"] += 1
-    return out, clips, new_gens, new_fb, new_xh, new_yh
+    with span(LAUNCH + "decimate_shaped"):
+        if dev.type != "cuda":
+            raise ValueError(f"decimate_shaped runs on CPU or CUDA tensors, "
+                             f"got {dev}")
+        dithered = dither_type is not None
+        if dithered and (gens is None or gens.dtype != torch.int32
+                         or tuple(gens.shape) != (S,)):
+            raise ValueError("gens: needs int32 state bits [S]")
+        dt = samples.dtype
+        a, b, xh, yh, feedback = (torch.as_tensor(t, dtype=dt, device=dev)
+                                  for t in (a, b, xh, yh, feedback))
+        if tuple(a.shape) != (5,) or tuple(b.shape) != (5,) or \
+                tuple(xh.shape) != (4, S) or tuple(yh.shape) != (4, S) or \
+                tuple(feedback.shape) != (S,):
+            raise ValueError("shaper: a, b [5], xh, yh [4, S], feedback [S]")
+        ab = torch.cat([a, b])
+        xh, yh = xh.contiguous(), yh.contiguous()
+        feedback = feedback.contiguous()
+        out, osi, osc = _out(dev, n, S, output_bytes, False)
+        clips = torch.zeros((), dtype=torch.int32, device=dev)
+        new_fb, new_xh, new_yh = (torch.empty_like(t)
+                                  for t in (feedback, xh, yh))
+        new_gens = torch.empty_like(gens) if dithered else gens
+        if not n:
+            return out, clips, gens, feedback, xh, yh
+        gens = gens.contiguous() if dithered else None
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.art_decimate_shaped(
+                samples.data_ptr(), n, S, samples.stride(0),
+                samples.stride(1), _KINDS[dt], int(K),
+                float(torch.tensor(scaler, dtype=dt)), feedback.data_ptr(),
+                ab.data_ptr(), xh.data_ptr(), yh.data_ptr(),
+                None if gens is None else gens.data_ptr(), int(dithered),
+                int(dither_type or 0),
+                new_gens.data_ptr() if dithered else None,
+                new_fb.data_ptr(), new_xh.data_ptr(), new_yh.data_ptr(),
+                highclip, lowclip, output_bits, output_bytes, out.data_ptr(),
+                osi, osc, clips.data_ptr(), stream)
+        _raise_on(rc, "decimate_shaped", n, S, dt)
+        launches["decimate_shaped"] += 1
+        return out, clips, new_gens, new_fb, new_xh, new_yh
 
 
 # ------------------------------------------------- the kernels' geometry

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from ..parallel.pipeline import resample_block, window_at, window_dots
+from ..utils.spans import LAUNCH, span
 from . import _build
 
 launches = 0
@@ -95,32 +96,33 @@ def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
     type and ``precise``: out [ch, nb*L] of buf's type, block i = buf[:,
     start + i*M : +qn*M] @ P (reads past W are zero), zeroed at and beyond
     K.  Returns (out, instance)."""
-    dev = buf.device
-    if dev.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
-    ch, W = buf.shape
-    L2 = 2 * L if fracv is not None else L
-    inst = instance(buf.dtype, precise)
-    _check("buf", buf, dev, buf.dtype)
-    _check("P", P, dev, buf.dtype, (qn * M, L2))
-    if fracv is not None:
-        _check("fracv", fracv, dev, buf.dtype, (L,))
-    if not (0 <= start <= W and 0 <= K <= nb * L and nb >= 1):
-        raise ValueError(f"bad plan: start={start} W={W} K={K} nb={nb} "
-                         f"L={L}")
-    lib = _build.library()
-    out = torch.empty((ch, nb * L), dtype=buf.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.art_fixed_step(
-            buf.data_ptr(), ch, W, int(start), int(K), P.data_ptr(), qn * M,
-            L2, fracv.data_ptr() if fracv is not None else None, M, L, qn,
-            int(nb), out.data_ptr(), _KINDS[inst], stream)
-    if rc != 0:
-        raise RuntimeError(f"art_fixed_step launch failed: cudaError {rc} "
-                           f"({inst}, ch={ch}, M={M}, L={L}, qn={qn}, "
-                           f"nb={nb})")
-    return out, inst
+    with span(LAUNCH + "fixed_step"):
+        dev = buf.device
+        if dev.type != "cuda":
+            raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
+        ch, W = buf.shape
+        L2 = 2 * L if fracv is not None else L
+        inst = instance(buf.dtype, precise)
+        _check("buf", buf, dev, buf.dtype)
+        _check("P", P, dev, buf.dtype, (qn * M, L2))
+        if fracv is not None:
+            _check("fracv", fracv, dev, buf.dtype, (L,))
+        if not (0 <= start <= W and 0 <= K <= nb * L and nb >= 1):
+            raise ValueError(f"bad plan: start={start} W={W} K={K} nb={nb} "
+                             f"L={L}")
+        lib = _build.library()
+        out = torch.empty((ch, nb * L), dtype=buf.dtype, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.art_fixed_step(
+                buf.data_ptr(), ch, W, int(start), int(K), P.data_ptr(),
+                qn * M, L2, fracv.data_ptr() if fracv is not None else None,
+                M, L, qn, int(nb), out.data_ptr(), _KINDS[inst], stream)
+        if rc != 0:
+            raise RuntimeError(f"art_fixed_step launch failed: cudaError "
+                               f"{rc} ({inst}, ch={ch}, M={M}, L={L}, "
+                               f"qn={qn}, nb={nb})")
+        return out, inst
 
 
 def fixed_step_kernel(buf, P, start: int, K: int, *, M: int, L: int,

@@ -42,7 +42,8 @@ from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                           validate_taps_filters)
 from ..engines.resampler import ResampleResult
 from ..ops.asrc_step import apply_prologue, asrc_apply, asrc_step
-from .streams import _TORCH_DTYPES
+from ..utils.spans import CALL, PLAN, span, spanned, upload
+from .streams import _TORCH_DTYPES, _upload
 
 KERNELS = ("auto", "hankel", "dense", "pallas", "xla")
 
@@ -191,12 +192,14 @@ class BatchedASRC:
             raise ValueError(f"k_max too small for {what}")
 
     def _input(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=self._tdtype, device=self.device)
+        with upload(x, self.device):
+            x = torch.as_tensor(x, dtype=self._tdtype, device=self.device)
         if x.ndim != 2 or x.shape[0] != self.S:
             raise ValueError(f"x must be [{self.S}, n], got "
                              f"{tuple(x.shape)}")
         return x.contiguous()
 
+    @spanned(CALL)
     def process(self, x, ratios, k_max: int | None = None):
         """x: [S, n] (a tensor on the engine's device, or anything
         torch.as_tensor takes); ratios: [S] per-call drifting ratios.
@@ -206,7 +209,8 @@ class BatchedASRC:
         on the device, Ks int32 [S] on the host)."""
         x = self._input(x)
         n = x.shape[1]
-        ratios, Ks, k_max, req_k_max = self._plan(n, ratios, k_max)
+        with span(PLAN):
+            ratios, Ks, k_max, req_k_max = self._plan(n, ratios, k_max)
         new_hist, out = self._run_step(x, ratios, Ks, k_max, req_k_max)
         self.hist = new_hist
 
@@ -259,6 +263,7 @@ class BatchedASRC:
         self._check_capacity(kmx, k_max, req_k_max, "requested chunk")
         return ratios, Ks, k_max, req_k_max
 
+    @spanned(CALL)
     def flush(self, ratios, mask=None, k_max: int | None = None):
         """End the masked streams: emit their final half-filter of output
         from a zero postfill and latch them FLUSHED (reference
@@ -271,8 +276,9 @@ class BatchedASRC:
         Returns (out [S, k_max], Ks [S]) with rows outside ``mask`` zero.
         """
         half = self.num_taps // 2
-        ratios, mask, Ks, k_max, req_k_max, shift = self._plan_flush(
-            ratios, mask, k_max)
+        with span(PLAN):
+            ratios, mask, Ks, k_max, req_k_max, shift = self._plan_flush(
+                ratios, mask, k_max)
         if Ks.max(initial=0) == 0:
             # nothing to emit (empty/already-flushed mask): no launch
             out_cols = req_k_max if req_k_max is not None else k_max
@@ -335,9 +341,9 @@ class BatchedASRC:
         to req_k_max columns when one was requested) without committing any
         engine state."""
         dev = self.device
-        offsets = torch.from_numpy(self.offsets).to(dev)
-        ratios_t = torch.from_numpy(ratios).to(dev)
-        Ks_t = torch.from_numpy(Ks).to(dev)
+        offsets = _upload(self.offsets, dev)
+        ratios_t = _upload(ratios, dev)
+        Ks_t = _upload(Ks, dev)
         shift = self.num_samples - self.input_index
         geometry = dict(num_taps=self.num_taps,
                         num_filters=self.num_filters, k_max=k_max,

@@ -55,9 +55,16 @@ from ..engines.resampler import ResampleResult, Resampler
 from ..ops import decimate_device as dd
 from ..ops import fixed_step as k1
 from ..ops.polyphase import PolyphaseMatrix
+from ..utils.spans import CALL, PLAN, UPLOAD, span, spanned, upload
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """The host array ``a`` copied to ``device``, in an upload span."""
+    with span(UPLOAD):
+        return torch.from_numpy(a).to(device)
 
 
 def _group_buf(hist, xs_flat, G: int, n: int, hist_len: int):
@@ -295,7 +302,7 @@ class DeviceStreamResampler:
                                  bool(self.flags & INCLUDE_LOWPASS))
             P = np.zeros((self.qn * self.M, self.L), dtype=self.dtype)
             P[:pm.S, :] = pm.P.T
-            m = torch.from_numpy(P).to(self.device)
+            m = _upload(P, self.device)
             self._mats[j0] = m
         return m
 
@@ -403,13 +410,13 @@ class DeviceStreamResampler:
         m = self._interp_cache.get(key)
         if m is None:
             if self._bank_dev is None:
-                self._bank_dev = torch.from_numpy(self.bank).to(self.device)
+                self._bank_dev = _upload(self.bank, self.device)
             P2 = _build_interp_matrix(
-                self._bank_dev, torch.from_numpy(d).to(self.device),
-                torch.from_numpy(fi).to(self.device), self.qn * self.M,
-                self.L, self.num_taps)
-            m = (P2, torch.from_numpy(frac.astype(self.dtype))
-                 .to(self.device), d, fi, frac)
+                self._bank_dev, _upload(d, self.device),
+                _upload(fi, self.device), self.qn * self.M, self.L,
+                self.num_taps)
+            m = (P2, _upload(frac.astype(self.dtype), self.device), d, fi,
+                 frac)
             if len(self._interp_cache) > 64:
                 # evict ONE oldest entry (dict preserves insertion order):
                 # clearing everything made a 65-pattern working set rebuild
@@ -481,7 +488,8 @@ class DeviceStreamResampler:
 
     # ------------------------------------------------------------- process
     def _as_input(self, x):
-        return torch.as_tensor(x, dtype=self._tdtype, device=self.device)
+        with upload(x, self.device):
+            return torch.as_tensor(x, dtype=self._tdtype, device=self.device)
 
     def _step(self, x, P, fracv, start: int, K: int, acc):
         """One chunk step on the engine's history: (out [ch, nb*L] zeroed
@@ -493,11 +501,15 @@ class DeviceStreamResampler:
             precise=bool(self._precise))
         return out, acc
 
+    @spanned(CALL)
     def process(self, x, n_in: int, acc=None):
         """x: [ch, n_in] (wider buffers are cut to n_in).  Returns (out
         [ch, nb*L] with entries beyond K zeroed, K), or (out, K, acc') when
         a running output-power accumulator is passed.  All n_in inputs are
         consumed."""
+        return self._process(x, n_in, acc)
+
+    def _process(self, x, n_in: int, acc):
         if self._flushed:
             out = torch.zeros((self.num_channels, self.L),
                               dtype=self._tdtype, device=self.device)
@@ -508,16 +520,17 @@ class DeviceStreamResampler:
                 raise ValueError(f"x has {x.shape[1]} columns < n_in "
                                  f"{n_in}")
             x = x[:, :n_in]
-        K, start, j0, pos0, plan = self._plan_compute(n_in)
-        fracv = None
-        if self.interp:
-            nb = -(-K // self.L) if K else 1
-            P, fracv, _d, _fi, _fr, safe = self._interp_pattern(
-                pos0, plan, n_in, K, nb)
-            if not safe:
-                return self._process_split(x, n_in, acc)
-        else:
-            P = self._matrix(j0)
+        with span(PLAN):
+            K, start, j0, pos0, plan = self._plan_compute(n_in)
+            fracv, safe = None, True
+            if self.interp:
+                nb = -(-K // self.L) if K else 1
+                P, fracv, _d, _fi, _fr, safe = self._interp_pattern(
+                    pos0, plan, n_in, K, nb)
+            else:
+                P = self._matrix(j0)
+        if not safe:
+            return self._process_split(x, n_in, acc)
         self.output_offset = plan.new_output_offset
         self.input_index = plan.new_input_index
         acc_in = acc if acc is not None else torch.zeros(
@@ -534,9 +547,9 @@ class DeviceStreamResampler:
         if n_in <= 1:
             raise AssertionError("single-input chunk cannot be period-tied")
         n1 = n_in // 2
-        r1 = self.process(x[:, :n1], n1, acc)
+        r1 = self._process(x[:, :n1], n1, acc)
         acc1 = r1[2] if acc is not None else None
-        r2 = self.process(x[:, n1:], n_in - n1, acc1)
+        r2 = self._process(x[:, n1:], n_in - n1, acc1)
         K1, K2 = r1[1], r2[1]
         K = K1 + K2
         nb = max(1, -(-K // self.L))
@@ -557,6 +570,7 @@ class DeviceStreamResampler:
         outs = _stack_padded(outs)
         return (outs, Ks) if acc is None else (outs, Ks, acc_out)
 
+    @spanned(CALL)
     def process_scan(self, xs, n_in: int, acc=None, stats: bool = False):
         """G chunks of ``xs`` [G, ch, n_in] in order, bitwise equal to G
         sequential process() calls: all G are planned first, then each runs
@@ -579,9 +593,10 @@ class DeviceStreamResampler:
             return self._process_scan_interp(xs, n_in, acc, stats)
         state0 = (self.output_offset, self.input_index, self.hist)
         try:
-            plans = [self._plan(n_in) for _ in range(len(xs))]
-            steps = [(self._matrix(j0), None, start, K)
-                     for K, start, j0, _ in plans]
+            with span(PLAN):
+                plans = [self._plan(n_in) for _ in range(len(xs))]
+                steps = [(self._matrix(j0), None, start, K)
+                         for K, start, j0, _ in plans]
             return self._run_scan(xs, steps, acc, stats)
         except BaseException:
             self.output_offset, self.input_index, self.hist = state0
@@ -606,30 +621,34 @@ class DeviceStreamResampler:
         sequential process() calls with the same output shapes."""
         state0 = (self.output_offset, self.input_index, self.hist)
         steps = []
-        for _ in range(len(xs)):
-            K, start, _j0, pos0, plan = self._plan_compute(n_in)
-            nb = -(-K // self.L) if K else 1
-            P2, fracv, _d, _fi, _fr, ok = self._interp_pattern(
-                pos0, plan, n_in, K, nb)
-            if not ok:
-                self.output_offset, self.input_index = state0[:2]
-                outs, Ks, accs = [], [], acc
-                for x in xs:
-                    r = self.process(x, n_in, accs)
-                    outs.append(r[0])
-                    Ks.append(r[1])
-                    if acc is not None:
-                        accs = r[2]
-                return self._scan_result(outs, Ks, acc, accs, stats)
-            self.output_offset = plan.new_output_offset
-            self.input_index = plan.new_input_index
-            steps.append((P2, fracv, start, K))
+        with span(PLAN):
+            for _ in range(len(xs)):
+                K, start, _j0, pos0, plan = self._plan_compute(n_in)
+                nb = -(-K // self.L) if K else 1
+                P2, fracv, _d, _fi, _fr, ok = self._interp_pattern(
+                    pos0, plan, n_in, K, nb)
+                if not ok:
+                    break
+                self.output_offset = plan.new_output_offset
+                self.input_index = plan.new_input_index
+                steps.append((P2, fracv, start, K))
+        if len(steps) < len(xs):
+            self.output_offset, self.input_index = state0[:2]
+            outs, Ks, accs = [], [], acc
+            for x in xs:
+                r = self._process(x, n_in, accs)
+                outs.append(r[0])
+                Ks.append(r[1])
+                if acc is not None:
+                    accs = r[2]
+            return self._scan_result(outs, Ks, acc, accs, stats)
         try:
             return self._run_scan(xs, steps, acc, stats)
         except BaseException:
             self.output_offset, self.input_index, self.hist = state0
             raise
 
+    @spanned(PLAN)
     def _flat_plan(self, xs_flat, n_in: int):
         """Shared flat-group plan validation: checks the group shape,
         advances the consume/emit state G chunks, and returns (G, K0,
@@ -688,6 +707,7 @@ class DeviceStreamResampler:
         nb = max(-(-K0 // self.L), 1)
         return G, K0, start0, nb, self._matrix(j0), None, state0
 
+    @spanned(CALL)
     def process_flat(self, xs_flat, n_in: int, acc):
         """G periodic steady-state chunks of a FLAT [ch, G*n_in] buffer,
         outputs consumed by the power accumulator, summed chunk by chunk in
@@ -700,7 +720,8 @@ class DeviceStreamResampler:
         ValueError otherwise, with no state consumed.  Returns (Ks int
         array [G], acc')."""
         xs_flat = self._as_input(xs_flat)
-        acc = torch.as_tensor(acc, dtype=self._tdtype, device=self.device)
+        with upload(acc, self.device):
+            acc = torch.as_tensor(acc, dtype=self._tdtype, device=self.device)
         G, K0, start0, nb, Pm, fracv, state0 = self._flat_plan(xs_flat,
                                                                n_in)
         if G == 0:
@@ -738,6 +759,7 @@ class DeviceStreamResampler:
                                f"not nb={nb} whole periods")
         return k1.fixed_step_kernel(buf, Pm, start0, G * K0, nb=G * nb, **kw)
 
+    @spanned(CALL)
     def process_flat_out(self, xs_flat, n_in: int):
         """Flat-group steady state DELIVERING the audio: the plan contract
         of process_flat; the result is the valid output samples [ch, G*K0]
@@ -762,6 +784,7 @@ class DeviceStreamResampler:
         self.hist = new_hist
         return out, np.full((G,), K0, np.int64)
 
+    @spanned(CALL)
     def process_flat_packed(self, xs_flat, n_in: int, clips, *,
                             scaler: float, highclip: int, lowclip: int,
                             output_bits: int = 16, output_bytes: int = 2):
@@ -778,7 +801,9 @@ class DeviceStreamResampler:
                              "1, 2 or 4 (dense LE containers); 3-byte "
                              "packing goes through the decimator path")
         xs_flat = self._as_input(xs_flat)
-        clips = torch.as_tensor(clips, dtype=torch.int32, device=self.device)
+        with upload(clips, self.device):
+            clips = torch.as_tensor(clips, dtype=torch.int32,
+                                    device=self.device)
         G, K0, start0, nb, Pm, fracv, state0 = self._flat_plan(xs_flat,
                                                                n_in)
         if G == 0:
