@@ -14,9 +14,9 @@
 //   out = d1 * (1 - fracv[l]) + d2 * fracv[l]
 // (reference subsample_interpolate, dot-then-lerp as in the JAX body).
 //
-// Three instances of one template, fixed_step_kernel<T, Acc, ...>, serve the
-// engine's precision tiers (art_tpu/parallel/streams.py:604-620, which runs
-// them as XLA dots, art_tpu/parallel/pipeline.py:39-143):
+// Three instances serve the engine's precision tiers
+// (art_tpu/parallel/streams.py:604-620, which runs them as XLA dots,
+// art_tpu/parallel/pipeline.py:39-143):
 //   <float, float>    float32 data, the default tier;
 //   <float, double>   precise=True and precise="int8": every product of two
 //                     float32 values is exact in double, the dot is one
@@ -30,91 +30,130 @@
 // single-rounding result; the <float, double> instance computes that
 // function directly.
 //
-// What bounds it.  Per 2^22-frame stereo chunk at the main path's shapes
-// (44.1k->48k, M=147, L=160, qn=4) the function needs 2 x 4.57M outputs x
-// 380 FMAs (a phase's filter covers 380 of each P column's 588 rows; the
-// other 208 are structural zeros) ~ 6.9 GFLOP against ~70 MB of input and
-// output, ~100 FLOP/byte, so it is bound by the float32 FMA rate (67
-// TFLOP/s on an H100 SXM at 700 W: a floor of about 0.1036 ms).  The
-// double-accumulated instances do the same count of FP64 FMAs (67 TFLOP/s
-// on the FP64 tensor cores, 34 on the CUDA cores these run on).  That is
-// arithmetic from shapes and the data sheet, not a measurement.
+// The sum.  In float32 each output's KQ-term dot is summed slice by slice,
+// in blocks of 32 terms (m = 0, 32, 64, ... of each slice) whose partial
+// sums, each started at +0 and accumulated by FFMA in m order, are then
+// added to the total in slice order, instead of one sequential FMA chain:
+// the chain's rounding error grows with the ~190 terms added after the
+// filter's centre to a full-size sum (summed in one chain, the 60 s round
+// trip read -133.91 dB on an H100, the CPU's blocked sgemm -136.49 dB;
+// blocks of 32 cost ~3% more adds).  The double accumulators need no
+// blocks: one DFMA chain over k = 0, 1, ... .  Both designs below skip or
+// add only terms whose P entry is zero for every column of the CTA, and
+// fma(a, 0, part) == part for finite audio (a partial sum that starts at
+// +0 never becomes -0), so the bytes are those of a kernel that multiplied
+// every row, whatever the design or tile.  IEEE FFMA on the CUDA cores: no
+// TF32, no tensor cores (Hopper's tensor cores have no IEEE float32 mode).
 //
-// Design.  IEEE FMAs on the CUDA cores: no TF32, no tensor cores (Hopper's
-// tensor cores have no IEEE float32 mode).  The TPU kernel's workarounds --
-// the residue split, the 8-tile halo BlockSpec, split_out, rounding nb up
-// to a multiple of qn -- are not carried over: exactly nb blocks are
-// computed.  A CTA owns kBM output blocks (128 at the main path's shapes,
-// see below) x 32 phases of one channel:
-//   - the hull: the phase-l column of P is nonzero only on rows [carry(l),
-//     carry(l) + taps), so a CTA's 32 columns (both banks' in the
-//     interpolated form) are nonzero only inside a hull [klo, khi) of the
-//     KQ rows: ~409 of 588 at the main path, ~78 of 294 at BASELINE
-//     config 1.  Each CTA first reads its columns of P once (coalesced,
-//     through L2) and finds its hull from P's values (first and last row
-//     holding a nonzero), so a dense P (K6) keeps every row and no host
-//     state or API decides it.  Staging and FMAs then cover the hull only;
+// What bounds it.  The main path (44.1k->48k, M=147, L=160, qn=4) needs,
+// for each output, the 380 taps of its phase's filter (a P column's other
+// 208 of 588 rows are structural zeros): 2 FLOP a tap, ~100 FLOP a byte of
+// input and output, so it is bound by the float32 FMA rate (67 TFLOP/s on
+// an H100 SXM at 700 W): a 2^22-frame stereo chunk 0.1036 ms, a group of 8
+// x 8,388,555 frames 1.657 ms.  The double-accumulated instances do the
+// same count of FP64 FMAs (34 TFLOP/s on the CUDA cores they run on).
+// That is arithmetic from shapes and the data sheet, not a measurement.
+//
+// The shared loads feed the FMAs.  An SM issues 4 warp-FFMAs a cycle; its
+// shared memory answers one 16-byte-a-lane load (LDS.128) in 2 cycles when
+// the warp's distinct addresses fit 128 bytes in distinct banks (lanes
+// reading one address share it), a 4-byte one in 1 (measured on an H100).
+// A thread's register tile of TM blocks x TN phases takes, each 4 terms,
+// TM window float4s (4 terms of a block) and 4 P float4s a TN/4 for
+// 4*TM*TN FMAs: 2*(TM + TN) shared cycles a warp against TM*TN FFMA
+// cycles.  4 x 4 needs the shared memory as long as the FMAs, 8 x 4 three
+// quarters of it.  Each CTA also has to find which rows of P its 32
+// columns use (the hull: a column l is nonzero only on rows [carry(l),
+// carry(l) + taps), so a CTA's 32 columns, both banks' in the interpolated
+// form, are nonzero only inside [klo, khi): ~409 of 588 rows at the main
+// path, ~78 of 294 at BASELINE config 1) and bring those rows and its
+// window into shared memory.  Two designs, the host choosing by the shape
+// (fixed_step_geometry.h::fixed_step_launch; no option):
+//
+// Design: resident (fixed_step_kernel_resident; float32 data summed in
+// float32, M >= 32, where the CTA's whole P and two window buffers fit).
+//   - Persistent CTAs, one an SM at the shapes that take it (the grid is
+//     the card's resident CTAs, never more than the tiles): R CTAs a
+//     column group of 32 phases, each a contiguous run of the group's row
+//     tiles, every channel's (P is the same for each), so the groups' CTAs
+//     read the same window rows at about the same time and the window
+//     comes from DRAM once.  A CTA copies its group's columns of every row
+//     of P into shared memory once (75,776 B at the main path: 4 slices of
+//     M rounded up to 148 rows, the pad rows zero; a dense P keeps every
+//     row), finds the hull there, and keeps both for the whole launch.
+//     Where the card holds fewer CTAs than there are groups, a CTA takes
+//     its groups one after another.
+//   - Two warp groups of 128 threads take the CTA's tiles in turn, each
+//     through a window buffer of its own: while one copies its next tile's
+//     window (cp.async, then its own named barrier), the other's FMAs run.
+//     The second group starts one copy after the first, so that their
+//     copies fall apart.  (Two buffers of one 128-block tile each and P
+//     fill the 227 KB; a 256-thread CTA over one ring of two would need a
+//     4 x 4 tile, whose loads keep the shared memory as busy as the FMAs:
+//     4.33 ms a p3_flat_bulk group against 3.92 on an H100.)  A tile's window rows
+//     i0 + r (r < BM + qn - 1; row r + q holds the samples block r reads
+//     from slice q) land at a stride S = M rounded up to a multiple of 4
+//     (148 at the main path; +4 where that is a multiple of 16, so the
+//     four consecutive rows a warp reads fall in four bank quads), with
+//     columns [M, S) zero.  The rows start at any offset of buf, so they
+//     come in as 4-byte cp.async, a warp a row; the aligned rows are what
+//     let the FMAs read 4 terms of the window in one 16-byte load.
+//   - A thread computes 8 blocks x 4 phases (BM = 128; interpolated, 4 x
+//     4 of both banks, BM = 64): each 4 terms it loads 8 window float4s
+//     and 4 P float4s (8 interpolated) for 128 FFMAs, the next group's
+//     loads issued from a second register set before this group's FMAs
+//     need theirs.  Terms go in 4-row groups over each slice's hull rows,
+//     rounded out to multiples of 4 (the extra rows are zero in every
+//     column of the CTA).
+//   main path: 256 threads, P 75,776 B + 2 x 131 rows x 148 floats + the
+//   hull's reduction = 230,944 B, one CTA an SM.
+//
+// Design: template (fixed_step_kernel<T, Acc, kInterp, kTM>; the float64
+// accumulators, M < 32, and shapes whose P and ring do not fit, such as
+// large M).  A CTA owns kBM output blocks x 32 phases of one channel:
+//   - it first reads its columns of P once through L2 and finds its hull
+//     from P's values, so staging and FMAs then cover the hull only;
 //   - where it fits, the CTA's window segment [i0*M, (i0+kBM)*M + KQ) is
 //     staged once, as rows of M samples at an odd row stride S, so row
 //     i0+r+q holds the samples block r needs from slice q: element k =
 //     q*M + m of block r's window is win_s[(r + q)*S + m], and the four
-//     rows a warp reads at one m fall in four different banks (~77 KB at
-//     M=147; for 8-byte elements the four rows' words are 2S apart, so
-//     they still take four different bank pairs).  It is copied with
-//     element-wide cp.async (rows start at any offset), a warp per row, so
-//     no element needs a division, and it lands while the hull is found;
-//   - P (376 KB at the main path's shapes) does not fit shared memory, so
-//     it passes through in pieces of PR rows of one M-row slice of the
-//     CTA's 32 (or 2x32) columns, the hull's rows only, copied with
-//     cp.async; where two piece buffers still fit the CTA's share of the SM
-//     (two CTAs per SM at the main path), piece p + 1 is copied while
-//     piece p is used, else one buffer;
+//     rows a warp reads at one m fall in four different banks (for 8-byte
+//     elements the four rows' words are 2S apart, so they still take four
+//     different bank pairs), copied with element-wide cp.async, a warp per
+//     row, while the hull is found;
+//   - P passes through in pieces of PR rows of one M-row slice of the
+//     CTA's 32 (or 2x32) columns, the hull's rows only; where two piece
+//     buffers still fit the CTA's share of the SM, piece p + 1 is copied
+//     while piece p is used, else one buffer;
 //   - where the whole window does not fit (M above ~1700 in float32), each
 //     piece carries the window too: columns [m0, m0 + PR) of the kBM
 //     window rows its slice's blocks read, at an odd row stride, so any M
 //     fits.  The pieces and each output's terms keep their order;
 //   - each thread accumulates a 4x4 register tile (4 blocks strided by 32,
 //     4 phases: adjacent ones read as one float4, or, in double, two
-//     pairs 16 phases apart read as two double2, so a quarter warp's
-//     16-byte loads cover 128 contiguous bytes), so every k step does 5
+//     pairs 16 phases apart read as two double2), so every k step does 5
 //     (double: 6) shared loads for 16 FMAs;
 //   - two CTAs share an SM where their shared memory allows, so one CTA's
-//     hull scan and staging overlap the other's FMAs;
-//   - in float32 each output's KQ-term dot is summed slice by slice, in
-//     blocks of 32 terms (m = 0, 32, 64, ... of each slice) whose partial
-//     sums, each started at +0, are then added to the total, instead of
-//     one sequential FMA chain.  The chain's rounding error grows with the
-//     ~190 terms added after the filter's centre to a full-size sum:
-//     summed in one chain, the 60 s round trip read -133.91 dB on an H100
-//     (the CPU's blocked sgemm -136.49 dB); blocks of 32 cost 16 registers
-//     and ~3% more adds.  The double accumulators need no blocks: one DFMA
-//     chain over k = 0, 1, ... .  The hull skips only terms whose P entry
-//     is zero for every column of the CTA, and fma(a, 0, part) == part for
-//     finite audio, so the bytes are those of the kernel that multiplied
-//     every row, whatever the tile.
+//     hull scan and staging overlap the other's FMAs.
+//   The host picks the row tile kBM = 32 * TM, TM in {4, 2, 1}, and the P
+//   piece (fixed_step_geometry.h::pick_tile): the largest tile whose whole
+//   window fits with PR = M, else the largest whose whole window fits with
+//   PR a multiple of 32; failing both, the window in column pieces; then
+//   two piece buffers where they fit in the same occupancy.
 //
-// Shared memory and M.  The window tile grows as (kBM + qn - 1) * M
-// elements and a P piece as PR * BNt elements (BNt = 32, or 64
-// interpolated), so a fixed 128-block tile runs out of the 227 KB a block
-// may use near M = 360 (float32, reduced) and M = 300 (interpolated).  The
-// host therefore picks the row tile kBM = 32 * TM, TM in {4, 2, 1}, and the
-// P piece (PR rows of the slice): the largest tile whose whole window fits
-// with PR = M, else the largest whose whole window fits with PR a multiple
-// of kKB; failing both, the window in column pieces, the largest tile with
-// the most whole 32-row blocks (pick_tile); then two piece buffers where
-// they fit in the same occupancy (two CTAs per SM, or one), else one:
-//   float32, M = 147, qn = 4 (the main path)   kBM = 128, PR = M, 2 buffers  114736 B
-//   float32, M = 147, qn = 2, interpolated     kBM = 128, PR = M, 1 buffer   113552 B
-//   float32, M = 320, qn = 2, reduced          kBM = 128, PR = M, 1 buffer   206672 B
-//   float32, M = 320, qn = 2, interpolated     kBM =  64, PR = M, 1 buffer   165456 B
-//   float32, M = 640, qn = 2, reduced          kBM =  32, PR = M, 1 buffer   166608 B
-//   float32, M = 640, qn = 2, interpolated     kBM =  64, PR = 256, 1 buffer 232272 B
-//   float32, M = 2560, qn = 2, reduced         column pieces, kBM = 128, PR = 352, 1 buffer 225856 B
-//   float32, M = 2560, qn = 2, interpolated    column pieces, kBM = 128, PR = 288, 1 buffer 221760 B
-//   float64, M = 160, qn = 4 (config 4)        kBM = 128, PR = M, 1 buffer   209760 B
-// (two CTAs share an SM up to 115712 B each).  A piece holds whole 32-term
-// blocks, so each output's partial sums are taken over the same terms k =
-// q*M + m in the same order whatever the tile.
+// The launch each shape takes (fixed_step_geometry.h; two CTAs share an SM
+// up to 115712 B each):
+//   float32, M = 147, qn = 4 (the main path)   resident, BM = 128            230944 B
+//   float32, M = 147, qn = 2, interpolated     resident, BM = 64             152800 B
+//   float32, M = 160, qn = 4 (48k->44.1k)      template kBM = 128, PR = M, 1 buffer  104912 B
+//   float32, M = 320, qn = 2, reduced          template kBM = 128, PR = M, 1 buffer  206672 B
+//   float32, M = 320, qn = 2, interpolated     template kBM =  64, PR = M, 1 buffer  165456 B
+//   float32, M = 640, qn = 2, reduced          template kBM =  32, PR = M, 1 buffer  166608 B
+//   float32, M = 640, qn = 2, interpolated     template kBM =  64, PR = 256, 1 buffer 232272 B
+//   float32, M = 2560, qn = 2, reduced         template, column pieces, kBM = 128, PR = 352 225856 B
+//   float32, M = 2560, qn = 2, interpolated    template, column pieces, kBM = 128, PR = 288 221760 B
+//   float32 with float64 sums, M = 147, qn = 4 template kBM = 128, PR = M, 2 buffers 114736 B
+//   float64, M = 160, qn = 4 (config 4)        template kBM = 128, PR = M, 1 buffer  209760 B
 // Offsets into buf and out are 64-bit: c*W and c*nb*L outgrow 2^31 for
 // grouped flat buffers.
 
@@ -123,37 +162,11 @@
 #include <climits>
 #include <type_traits>
 
+#include "fixed_step_geometry.h"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 32;                             // phases per CTA
-constexpr int kTN = 4;                              // phases per thread
-constexpr int kColThreads = kBN / kTN;              // 8
-constexpr int kRowThreads = kThreads / kColThreads; // 32
-// blocks per thread, the largest tile first
-constexpr int kTM0 = 4, kTM1 = 2, kTM2 = 1;
-constexpr int kKB = 32;                             // terms per partial sum
-constexpr size_t kMaxSmem = 227 * 1024;
-// the most shared memory each of two CTAs on one SM may take: an SM has
-// 228 KB, less 1 KB reserved per CTA
-constexpr size_t kTwoPerSm = (228 * 1024 - 2 * 1024) / 2;
-constexpr size_t kRedBytes = 2 * kWarps * sizeof(int);  // the hull's reduction
-
-// The instances, as the host names them (art_fixed_step's ``kind``).
-enum Kind { kF32 = 0, kF32Acc64 = 1, kF64 = 2 };
-
-// Elements of the whole window segment of a kBM-block CTA: rows of stride
-// S = M | 1, padded so what follows starts 16B-aligned.
-__host__ __device__ inline int win_elems(int kBM, int M, int qn) {
-    return (((kBM + qn - 1) * (M | 1)) + 3) & ~3;
-}
-
-// Elements of a window column piece: kBM rows of PR columns at the odd
-// stride PR | 1, padded as above.
-__host__ __device__ inline int wpiece_elems(int kBM, int PR) {
-    return ((kBM * (PR | 1)) + 3) & ~3;
-}
 
 template <typename T>
 __device__ __forceinline__ void cp_async(T* dst, const T* src) {
@@ -479,66 +492,337 @@ cudaError_t launch_tile(const T* buf, long long ch, long long W,
     return cudaGetLastError();
 }
 
-// The tile for elements of esz bytes: the largest row tile (kTM = 4, 2, 1)
-// whose whole window fits with a P piece of all M rows; failing that, the
-// largest whose whole window fits with a piece of the most whole 32-row
-// blocks that fit; failing that (M above ~1700 in float32), the window in
-// column pieces beside P's, the largest tile with the most whole 32-row
-// blocks; then two piece buffers where they keep the CTAs per SM that one
-// allows.  Every M fits the last form.
-bool pick_tile(int M, int qn, int BNt, int esz, int* tm, int* pr, int* nbuf,
-               int* wpiece, size_t* smem) {
-    constexpr int kTMs[] = {kTM0, kTM1, kTM2};
-    size_t win = 0, piece = 0;
-    bool found = false;
-    for (int whole = 1; whole >= 0 && !found; --whole)
-        for (const int t : kTMs) {
-            win = static_cast<size_t>(win_elems(kRowThreads * t, M, qn)) *
-                  esz + kRedBytes;
-            if (win >= kMaxSmem) continue;
-            const long long fit = static_cast<long long>(kMaxSmem - win) /
-                                  (static_cast<long long>(esz) * BNt);
-            const int rows = fit >= M ? M
-                                      : static_cast<int>(fit / kKB) * kKB;
-            if (rows <= 0 || (whole && rows != M)) continue;
-            *tm = t;
-            *pr = rows;
-            *wpiece = 0;
-            piece = static_cast<size_t>(rows) * BNt * esz;
-            found = true;
-            break;
-        }
-    for (int k = 0; k < 3 && !found; ++k) {
-        const int t = kTMs[k];
-        int rows = 0;
-        for (int r = kKB; r - kKB < M; r += kKB) {
-            const int rr = min(r, M);
-            const size_t bytes =
-                (static_cast<size_t>(rr) * BNt +
-                 wpiece_elems(kRowThreads * t, rr)) * esz;
-            if (bytes + kRedBytes > kMaxSmem) break;
-            rows = rr;
-        }
-        if (rows <= 0) continue;
-        *tm = t;
-        *pr = rows;
-        *wpiece = 1;
-        win = kRedBytes;
-        piece = (static_cast<size_t>(rows) * BNt +
-                 wpiece_elems(kRowThreads * t, rows)) * esz;
-        found = true;
-    }
-    if (!found) return false;
-    const size_t cap = win + piece <= kTwoPerSm ? kTwoPerSm : kMaxSmem;
-    *nbuf = win + 2 * piece <= cap ? 2 : 1;
-    *smem = win + *nbuf * piece;
-    return true;
+// =================================================== the resident design
+// Element kk of a float4, kk a constant once unrolled.
+__device__ __forceinline__ float elem(const float4& v, int kk) {
+    return kk == 0 ? v.x : kk == 1 ? v.y : kk == 2 ? v.z : v.w;
 }
 
+// One group of 4 terms of a thread's tile: its blocks' window float4s and
+// the 4 rows of its 4 phases of P (and of the second bank).
+template <bool kInterp>
+struct Terms {
+    static constexpr int kTM = res_tm(kInterp);
+    float4 a[kTM];
+    float4 p[4];
+    float4 p2[kInterp ? 4 : 1];
+};
+
+// Named barrier ``id`` over ``count`` threads (0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// See the header ("Design: resident").  Warp group g (barrier 1 + g)
+// takes tiles t0 + g, t0 + g + kResGroups, ... of the CTA's run; its
+// thread (tx, ty) computes blocks ty + r * (BM / kTM), r < kTM, at phases
+// n0 + 4 tx + j, j < 4, of each.  ``tiles`` row tiles a channel,
+// ``per_group`` CTAs a column group (resident_grid).
+template <bool kInterp>
+__global__ void __launch_bounds__(kResThreads, 1)
+fixed_step_kernel_resident(const float* __restrict__ buf, long long W,
+                           long long start, long long K,
+                           const float* __restrict__ P, int L2,
+                           const float* __restrict__ fracv, int M, int L,
+                           int qn, long long nb, long long tiles,
+                           long long units, long long per_group,
+                           float* __restrict__ out) {
+    constexpr int kTM = res_tm(kInterp);
+    constexpr int BM = res_bm(kInterp);
+    constexpr int kGroupWarps = kResGroupThreads / 32;
+    constexpr int BNt = kInterp ? 2 * kBN : kBN;
+    constexpr int RS = BM / kTM;            // a thread's blocks RS apart
+    static_assert(kResGroups == 2, "the groups' handshake pairs two");
+    extern __shared__ float4 smem4[];
+    const int Mp = res_mp(M);
+    const int S = res_stride(M);
+    const int rows = BM + qn - 1;
+    const long long stage = res_stage_elems(M, qn, kInterp);
+    float* P_s = reinterpret_cast<float*>(smem4);   // row (q, m) at (q*Mp + m)*BNt
+    float* ring = P_s + static_cast<long long>(qn) * Mp * BNt;
+    int* red = reinterpret_cast<int*>(ring + kResGroups * stage);
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const int grp = tid / kResGroupThreads;
+    const int gwarp = warp % kGroupWarps;
+    const int tx = tid % kColThreads;
+    const int ty = tid % kResGroupThreads / kColThreads;
+    const int G = (L + kBN - 1) / kBN;
+    int first;
+    long long t0, t1;
+    resident_range(blockIdx.x, per_group, units, &first, &t0, &t1);
+    const int gstride = static_cast<int>(gridDim.x / per_group);
+    float* win = ring + grp * stage;        // the group's window buffer
+
+    // the window buffers' columns [M, S) stay zero: the last 4-term group
+    // of a slice reads them against P's zero pad rows
+    const int pad = S - M;
+    for (int e = tid; e < kResGroups * rows * pad; e += kResThreads)
+        ring[(e / pad) * S + M + e % pad] = 0.f;
+
+    // tile u's window, rows r < rows of M samples from buf[c, start + (i0
+    // + r)*M] (zero past W) at r*S of the group's buffer, a warp a row
+    auto stage_window = [&](long long u) {
+        const long long c = u / tiles;
+        const long long g0 = start + (u - c * tiles) * BM * M;
+        const float* src = buf + c * W + g0;
+        if (g0 + static_cast<long long>(rows) * M <= W) {
+            for (int r = gwarp; r < rows; r += kGroupWarps) {
+                const float* s = src + static_cast<long long>(r) * M;
+                float* d = win + r * S;
+                for (int m = lane; m < M; m += 32) cp_async(d + m, s + m);
+            }
+        } else {
+            for (int r = gwarp; r < rows; r += kGroupWarps)
+                for (int m = lane; m < M; m += 32) {
+                    const long long o = static_cast<long long>(r) * M + m;
+                    if (g0 + o < W) cp_async(win + r * S + m, src + o);
+                    else win[r * S + m] = 0.f;
+                }
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+    };
+
+    for (int cg = first; cg < G; cg += gstride) {
+        const int n0 = cg * kBN;
+        // the group's columns of every row of P (zero past L and on the
+        // pad rows)
+        for (int q = 0; q < qn; ++q)
+            for (int e = tid; e < Mp * BNt; e += kResThreads) {
+                const int m = e / BNt, jc = e % BNt;
+                const int col = n0 + jc % kBN;
+                float* d = P_s + (q * Mp + m) * BNt + jc;
+                if (m < M && col < L)
+                    cp_async(d, P + static_cast<long long>(q * M + m) * L2 +
+                                    (jc >= kBN ? L : 0) + col);
+                else
+                    *d = 0.f;
+            }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+
+        // the hull [slo, shi) in rows of P_s: the first and last row in
+        // which any of the group's columns is nonzero
+        int lo = INT_MAX, hi = -1;
+        for (int e = tid; e < qn * Mp * BNt; e += kResThreads)
+            if (P_s[e] != 0.f) {
+                lo = min(lo, e / BNt);
+                hi = max(hi, e / BNt);
+            }
+        lo = __reduce_min_sync(0xffffffffu, lo);
+        hi = __reduce_max_sync(0xffffffffu, hi);
+        if (lane == 0) {
+            red[warp] = lo;
+            red[kResThreads / 32 + warp] = hi;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int w = 0; w < kResThreads / 32; ++w) {
+            lo = min(lo, red[w]);
+            hi = max(hi, red[kResThreads / 32 + w]);
+        }
+        const int slo = lo, shi = hi + 1;       // empty when shi <= slo
+
+        float f[kTN];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+            const int l = n0 + tx * kTN + j;
+            f[j] = kInterp && l < L ? fracv[l] : 0.f;
+        }
+
+        // the groups out of step by one window copy, so that each one's
+        // copies fall in the other's FMAs
+        if (grp > 0) bar_sync(kResGroups + 1, kResThreads);
+        for (long long u = t0 + grp; u < t1; u += kResGroups) {
+            stage_window(u);
+            if (grp == 0 && u == t0)
+                bar_arrive(kResGroups + 1, kResThreads);
+            bar_sync(1 + grp, kResGroupThreads);    // tile u's window in place
+
+            float acc[kTM][kTN] = {};
+            float acc2[kInterp ? kTM : 1][kTN] = {};
+            for (int q = 0; q < qn; ++q) {
+                // the slice's hull rows, out to 4-row groups
+                const int r0 = max(slo - q * Mp, 0);
+                const int r1 = min(shi - q * Mp, M);
+                if (r0 >= r1) continue;
+                const int m_lo = r0 & ~3, m_hi = (r1 + 3) & ~3;
+                const float* wr[kTM];
+#pragma unroll
+                for (int r = 0; r < kTM; ++r)
+                    wr[r] = win + (ty + q + r * RS) * S;
+                const float* pq = P_s + q * Mp * BNt + tx * kTN;
+                auto load = [&](Terms<kInterp>& t, int m) {
+#pragma unroll
+                    for (int r = 0; r < kTM; ++r)
+                        t.a[r] = *reinterpret_cast<const float4*>(wr[r] + m);
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk) {
+                        t.p[kk] = *reinterpret_cast<const float4*>(
+                            pq + (m + kk) * BNt);
+                        if constexpr (kInterp)
+                            t.p2[kk] = *reinterpret_cast<const float4*>(
+                                pq + (m + kk) * BNt + kBN);
+                    }
+                };
+                float part[kTM][kTN] = {};
+                float part2[kInterp ? kTM : 1][kTN] = {};
+                // the FMAs of the group at m, then, at the end of its
+                // 32-term block or of the slice, the partial sums into
+                // the totals; returns whether a group follows
+                auto fmas = [&](const Terms<kInterp>& t, int m) {
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                        for (int r = 0; r < kTM; ++r) {
+                            const float av = elem(t.a[r], kk);
+#pragma unroll
+                            for (int j = 0; j < kTN; ++j) {
+                                part[r][j] = __fmaf_rn(av, elem(t.p[kk], j),
+                                                       part[r][j]);
+                                if constexpr (kInterp)
+                                    part2[r][j] = __fmaf_rn(
+                                        av, elem(t.p2[kk], j), part2[r][j]);
+                            }
+                        }
+                    const bool more = m + 4 < m_hi;
+                    if (!more || ((m + 4) & (kKB - 1)) == 0) {
+#pragma unroll
+                        for (int r = 0; r < kTM; ++r)
+#pragma unroll
+                            for (int j = 0; j < kTN; ++j) {
+                                acc[r][j] += part[r][j];
+                                part[r][j] = 0.f;
+                                if constexpr (kInterp) {
+                                    acc2[r][j] += part2[r][j];
+                                    part2[r][j] = 0.f;
+                                }
+                            }
+                    }
+                    return more;
+                };
+                // two register sets in turn: the next group's loads go
+                // out before this group's FMAs, unconditionally (past the
+                // slice's last group they reload it), so that nothing
+                // holds them back behind the FMAs
+                Terms<kInterp> ta, tb;
+                load(ta, m_lo);
+                for (int m = m_lo;; m += 8) {
+                    load(tb, min(m + 4, m_hi - 4));
+                    if (!fmas(ta, m)) break;
+                    load(ta, min(m + 8, m_hi - 4));
+                    if (!fmas(tb, m + 4)) break;
+                }
+            }
+
+            const long long c = u / tiles;
+            const long long i0 = (u - c * tiles) * BM;
+            float* outc = out + c * nb * L;
+#pragma unroll
+            for (int r = 0; r < kTM; ++r) {
+                const long long blk = i0 + ty + r * RS;
+                if (blk >= nb) continue;
+                float v[kTN];
+#pragma unroll
+                for (int j = 0; j < kTN; ++j) {
+                    float x = acc[r][j];
+                    if constexpr (kInterp)
+                        x = x * (1.f - f[j]) + acc2[r][j] * f[j];
+                    v[j] = blk * L + n0 + tx * kTN + j < K ? x : 0.f;
+                }
+                const int l0 = n0 + tx * kTN;
+                float* o = outc + blk * L + l0;
+                if (L % kTN == 0) {
+                    if (l0 < L)
+                        *reinterpret_cast<float4*>(o) =
+                            make_float4(v[0], v[1], v[2], v[3]);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < kTN; ++j)
+                        if (l0 + j < L) o[j] = v[j];
+                }
+            }
+            bar_sync(1 + grp, kResGroupThreads);    // the buffer is free
+        }
+        __syncthreads();        // P_s and red may be refilled
+    }
+}
+
+// The SMs of the current device, cached per device.
+int sm_count() {
+    static int cached[64] = {0};
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+    if (!cached[dev])
+        cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    return cached[dev];
+}
+
+template <bool kInterp>
+cudaError_t launch_resident(const float* buf, long long ch, long long W,
+                            long long start, long long K, const float* P,
+                            int L2, const float* fracv, int M, int L, int qn,
+                            long long nb, float* out, size_t smem,
+                            cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fixed_step_kernel_resident<kInterp>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    // CTAs an SM: a function of the device and the shared memory, kept
+    // for the last pair this thread asked about
+    thread_local int dev = -1, per_sm = 0;
+    thread_local size_t for_smem = 0;
+    int now = 0;
+    err = cudaGetDevice(&now);
+    if (err != cudaSuccess) return err;
+    if (now != dev || smem != for_smem) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fixed_step_kernel_resident<kInterp>, kResThreads, smem);
+        if (err != cudaSuccess) return err;
+        dev = now;
+        for_smem = smem;
+    }
+    const int sms = sm_count();
+    if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
+    constexpr int BM = res_bm(kInterp);
+    const long long tiles = (nb + BM - 1) / BM;
+    const ResidentGrid g = resident_grid((L + kBN - 1) / kBN, ch * tiles,
+                                         static_cast<long long>(sms) * per_sm);
+    fixed_step_kernel_resident<kInterp>
+        <<<static_cast<unsigned>(g.ctas), kResThreads, smem, stream>>>(
+        buf, W, start, K, P, L2, fracv, M, L, qn, nb, tiles, ch * tiles,
+        g.per_group, out);
+    return cudaGetLastError();
+}
+
+// =================================================== both designs
+// One launch of the design and tile fixed_step_launch picks; *resident
+// says which design ran.
 template <typename T, typename Acc, bool kInterp>
 cudaError_t launch(const T* buf, long long ch, long long W, long long start,
                    long long K, const T* P, int L2, const T* fracv, int M,
-                   int L, int qn, long long nb, T* out, cudaStream_t stream) {
+                   int L, int qn, long long nb, T* out, int kind,
+                   int* resident, cudaStream_t stream) {
+    Launch lc;
+    if (!fixed_step_launch(M, qn, kInterp, kind, &lc))
+        return cudaErrorInvalidValue;
+    *resident = lc.resident;
+    if constexpr (std::is_same<T, float>::value &&
+                  std::is_same<Acc, float>::value) {
+        if (lc.resident)
+            return launch_resident<kInterp>(buf, ch, W, start, K, P, L2,
+                                            fracv, M, L, qn, nb, out, lc.smem,
+                                            stream);
+    }
     int tm = 0, pr = 0, nbuf = 0, wpiece = 0;
     size_t smem = 0;
     if (!pick_tile(M, qn, kInterp ? 2 * kBN : kBN, sizeof(T), &tm, &pr,
@@ -561,62 +845,49 @@ template <typename T, typename Acc>
 cudaError_t launch_any(const void* buf, long long ch, long long W,
                        long long start, long long K, const void* P, int L2,
                        const void* fracv, int M, int L, int qn, long long nb,
-                       void* out, cudaStream_t s) {
+                       void* out, int kind, int* resident, cudaStream_t s) {
     const T* b = static_cast<const T*>(buf);
     const T* p = static_cast<const T*>(P);
     const T* f = static_cast<const T*>(fracv);
     T* o = static_cast<T*>(out);
     if (fracv)
         return launch<T, Acc, true>(b, ch, W, start, K, p, L2, f, M, L, qn,
-                                    nb, o, s);
+                                    nb, o, kind, resident, s);
     return launch<T, Acc, false>(b, ch, W, start, K, p, L2, f, M, L, qn, nb,
-                                 o, s);
+                                 o, kind, resident, s);
 }
 
 }  // namespace
 
-// The tile art_fixed_step would launch for (M, qn, interpolated, kind):
-// writes blocks per CTA, P rows per piece and shared-memory bytes, and
-// returns 0, or cudaErrorInvalidValue for arguments no launch takes.
-extern "C" int art_fixed_step_tile(int M, int qn, int interp, int kind,
-                                   int* bm, int* pr, long long* smem) {
-    int tm = 0, rows = 0, nbuf = 0, wpiece = 0;
-    size_t bytes = 0;
-    if (M <= 0 || qn <= 0 || kind < kF32 || kind > kF64 ||
-        !pick_tile(M, qn, interp ? 2 * kBN : kBN, kind == kF64 ? 8 : 4, &tm,
-                   &rows, &nbuf, &wpiece, &bytes))
-        return cudaErrorInvalidValue;
-    *bm = kRowThreads * tm;
-    *pr = rows;
-    *smem = static_cast<long long>(bytes);
-    return 0;
-}
-
 // buf [ch, W] and P [KQ, L2] contiguous on the device, fracv [L] or null,
 // out [ch, nb*L]: float32 for kind kF32 and kF32Acc64 (accumulated in
-// double), float64 for kF64.  Returns the launch's cudaError_t (0 on
-// success); arguments the kernel does not take return
+// double), float64 for kF64.  Sets *resident to 1 where the launch took
+// the resident design, 0 for the template.  Returns the launch's
+// cudaError_t (0 on success); arguments the kernel does not take return
 // cudaErrorInvalidValue.
 extern "C" int art_fixed_step(const void* buf, long long ch, long long W,
                               long long start, long long K, const void* P,
                               int KQ, int L2, const void* fracv, int M,
                               int L, int qn, long long nb, void* out,
-                              int kind, void* stream) {
+                              int kind, int* resident, void* stream) {
     if (M <= 0 || L <= 0 || qn <= 0 || nb <= 0 || ch <= 0 || start < 0 ||
         K < 0 || K > nb * L || KQ != qn * M ||
-        L2 != (fracv ? 2 * L : L))
+        L2 != (fracv ? 2 * L : L) || !resident)
         return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (kind) {
         case kF32:
             return launch_any<float, float>(buf, ch, W, start, K, P, L2,
-                                            fracv, M, L, qn, nb, out, s);
+                                            fracv, M, L, qn, nb, out, kind,
+                                            resident, s);
         case kF32Acc64:
             return launch_any<float, double>(buf, ch, W, start, K, P, L2,
-                                             fracv, M, L, qn, nb, out, s);
+                                             fracv, M, L, qn, nb, out, kind,
+                                             resident, s);
         case kF64:
             return launch_any<double, double>(buf, ch, W, start, K, P, L2,
-                                              fracv, M, L, qn, nb, out, s);
+                                              fracv, M, L, qn, nb, out, kind,
+                                              resident, s);
         default:
             return cudaErrorInvalidValue;
     }

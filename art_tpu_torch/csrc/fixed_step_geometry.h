@@ -1,0 +1,214 @@
+// K1's host geometry: which of its two designs a launch takes, and each
+// design's tile, shared memory and grid.  One source for fixed_step.cu
+// (nvcc: the kernels, their launches) and for fixed_step_geometry.cpp (the
+// host's C++ compiler: the same functions behind a C interface that needs
+// no card, which the tests and chip_smoke.py read through
+// ops/fixed_step.py::kernel_tile).  Plain C++ but for the __host__
+// __device__ qualifiers nvcc sees.  fixed_step.cu's header says what each
+// design does; the numbers here follow from it.
+
+#ifndef ART_FIXED_STEP_GEOMETRY_H
+#define ART_FIXED_STEP_GEOMETRY_H
+
+#include <cstddef>
+
+#ifdef __CUDACC__
+#define K1_HD __host__ __device__ inline
+#else
+#define K1_HD inline
+#endif
+
+namespace {
+
+constexpr int kBN = 32;                     // phases a CTA (a column group)
+constexpr int kTN = 4;                      // phases a thread
+constexpr int kColThreads = kBN / kTN;      // 8 threads across the phases
+constexpr int kKB = 32;                     // terms a partial sum
+constexpr size_t kMaxSmem = 227 * 1024;     // a block's dynamic shared bytes
+// the most shared memory each of two CTAs on one SM may take: an SM has
+// 228 KB, less 1 KB reserved per CTA
+constexpr size_t kTwoPerSm = (228 * 1024 - 2 * 1024) / 2;
+
+// The instances, as the host names them (art_fixed_step's ``kind``).
+enum Kind { kF32 = 0, kF32Acc64 = 1, kF64 = 2 };
+
+// =================================================== the resident design
+// A CTA of kResGroups warp groups of kResGroupThreads threads keeps its
+// column group's whole P in shared memory; each warp group walks row tiles
+// through a window buffer of its own, so one group's copies overlap the
+// other's FMAs.  A thread computes res_tm blocks x 4 phases of each bank:
+// 32 accumulators either way.
+constexpr int kResGroups = 2;
+constexpr int kResGroupThreads = 128;
+constexpr int kResThreads = kResGroups * kResGroupThreads;
+constexpr int kResMinM = 32;                // see resident_geometry
+K1_HD constexpr int res_tm(bool interp) { return interp ? 4 : 8; }
+// blocks a warp group's row tile: 128, or 64 interpolated
+K1_HD constexpr int res_bm(bool interp) {
+    return kResGroupThreads * res_tm(interp) * kTN / kBN;
+}
+
+// P's rows of a slice in shared memory: M rounded up to the 4-row groups
+// the FMAs read (the pad rows are zero).
+K1_HD int res_mp(int M) { return (M + 3) & ~3; }
+
+// A window row's stride in floats: a multiple of 4, so a row's 16-byte
+// groups are aligned, and not of 16, so the four consecutive rows a warp
+// reads at one column fall in four different bank quads.
+K1_HD int res_stride(int M) {
+    const int s = res_mp(M);
+    return s % 16 ? s : s + 4;
+}
+
+// Floats of one window buffer: the res_bm + qn - 1 rows a tile reads.
+K1_HD long long res_stage_elems(int M, int qn, bool interp) {
+    return static_cast<long long>(res_bm(interp) + qn - 1) * res_stride(M);
+}
+
+// The resident design takes float32 data summed in float32 (the other
+// instances keep the template), M of at least 32 (the 4-row groups then
+// add at most 3 zero rows to a slice of 32 or more; the integer ratios'
+// M of 1 to 4 would mostly multiply pad rows), and shapes whose whole P
+// (every row: the hull is found on the device, and a dense P keeps every
+// row) and window buffers fit a block's shared memory.  Returns its
+// shared-memory bytes, or 0 where it does not take the shape.
+inline size_t resident_smem(int M, int qn, bool interp, int kind) {
+    const int bnt = interp ? 2 * kBN : kBN;
+    const size_t smem =
+        (static_cast<size_t>(qn) * res_mp(M) * bnt +
+         static_cast<size_t>(kResGroups) * res_stage_elems(M, qn, interp)) *
+            sizeof(float) +
+        2 * (kResThreads / 32) * sizeof(int);
+    return kind == kF32 && M >= kResMinM && smem <= kMaxSmem ? smem : 0;
+}
+
+// The resident grid for G column groups of ``units`` row tiles each (every
+// channel's), with ``slots`` CTAs resident on the card at once: R CTAs a
+// group, each a contiguous run of its group's tiles, so the groups' CTAs
+// read the same window rows at about the same time; where the card holds
+// fewer CTAs than there are groups, one CTA a slot, each taking every
+// slots-th group whole.  Never more CTAs than tiles.
+struct ResidentGrid {
+    long long ctas, per_group;
+};
+
+inline ResidentGrid resident_grid(int G, long long units, long long slots) {
+    if (G > slots) return {slots, 1};
+    long long r = slots / G;
+    if (r > units) r = units;
+    return {G * r, r};
+}
+
+// The tiles [*t0, *t1) of its group's that CTA ``cta`` takes, and its
+// first group; it then takes every (ctas / per_group)-th group after it.
+K1_HD void resident_range(long long cta, long long per_group,
+                           long long units, int* first, long long* t0,
+                           long long* t1) {
+    const long long j = cta % per_group;
+    *first = static_cast<int>(cta / per_group);
+    *t0 = j * units / per_group;
+    *t1 = (j + 1) * units / per_group;
+}
+
+// =================================================== the template design
+constexpr int kThreads = 256;
+constexpr int kRowThreads = kThreads / kColThreads;  // 32
+constexpr int kTM0 = 4, kTM1 = 2, kTM2 = 1;          // blocks a thread
+constexpr size_t kRedBytes = 2 * (kThreads / 32) * sizeof(int);
+
+// Elements of the whole window segment of a kBM-block CTA: rows of stride
+// S = M | 1, padded so what follows starts 16B-aligned.
+K1_HD int win_elems(int kBM, int M, int qn) {
+    return (((kBM + qn - 1) * (M | 1)) + 3) & ~3;
+}
+
+// Elements of a window column piece: kBM rows of PR columns at the odd
+// stride PR | 1, padded as above.
+K1_HD int wpiece_elems(int kBM, int PR) {
+    return ((kBM * (PR | 1)) + 3) & ~3;
+}
+
+// The tile for elements of esz bytes: the largest row tile (kTM = 4, 2, 1)
+// whose whole window fits with a P piece of all M rows; failing that, the
+// largest whose whole window fits with a piece of the most whole 32-row
+// blocks that fit; failing that (M above ~1700 in float32), the window in
+// column pieces beside P's, the largest tile with the most whole 32-row
+// blocks; then two piece buffers where they keep the CTAs per SM that one
+// allows.  Every M fits the last form.
+inline bool pick_tile(int M, int qn, int BNt, int esz, int* tm, int* pr,
+                      int* nbuf, int* wpiece, size_t* smem) {
+    constexpr int kTMs[] = {kTM0, kTM1, kTM2};
+    size_t win = 0, piece = 0;
+    bool found = false;
+    for (int whole = 1; whole >= 0 && !found; --whole)
+        for (const int t : kTMs) {
+            win = static_cast<size_t>(win_elems(kRowThreads * t, M, qn)) *
+                  esz + kRedBytes;
+            if (win >= kMaxSmem) continue;
+            const long long fit = static_cast<long long>(kMaxSmem - win) /
+                                  (static_cast<long long>(esz) * BNt);
+            const int rows = fit >= M ? M
+                                      : static_cast<int>(fit / kKB) * kKB;
+            if (rows <= 0 || (whole && rows != M)) continue;
+            *tm = t;
+            *pr = rows;
+            *wpiece = 0;
+            piece = static_cast<size_t>(rows) * BNt * esz;
+            found = true;
+            break;
+        }
+    for (int k = 0; k < 3 && !found; ++k) {
+        const int t = kTMs[k];
+        int rows = 0;
+        for (int r = kKB; r - kKB < M; r += kKB) {
+            const int rr = r < M ? r : M;
+            const size_t bytes =
+                (static_cast<size_t>(rr) * BNt +
+                 wpiece_elems(kRowThreads * t, rr)) * esz;
+            if (bytes + kRedBytes > kMaxSmem) break;
+            rows = rr;
+        }
+        if (rows <= 0) continue;
+        *tm = t;
+        *pr = rows;
+        *wpiece = 1;
+        win = kRedBytes;
+        piece = (static_cast<size_t>(rows) * BNt +
+                 wpiece_elems(kRowThreads * t, rows)) * esz;
+        found = true;
+    }
+    if (!found) return false;
+    const size_t cap = win + piece <= kTwoPerSm ? kTwoPerSm : kMaxSmem;
+    *nbuf = win + 2 * piece <= cap ? 2 : 1;
+    *smem = win + *nbuf * piece;
+    return true;
+}
+
+// The launch a shape takes, as art_fixed_step_geometry reports it.
+struct Launch {
+    bool resident;
+    int bm;             // blocks a row tile
+    int pr;             // P rows a staged piece (resident: all qn * M)
+    size_t smem;
+};
+
+inline bool fixed_step_launch(int M, int qn, bool interp, int kind,
+                              Launch* out) {
+    if (M <= 0 || qn <= 0 || kind < kF32 || kind > kF64) return false;
+    const size_t res = resident_smem(M, qn, interp, kind);
+    if (res) {
+        *out = {true, res_bm(interp), qn * M, res};
+        return true;
+    }
+    int tm = 0, pr = 0, nbuf = 0, wpiece = 0;
+    size_t smem = 0;
+    if (!pick_tile(M, qn, interp ? 2 * kBN : kBN, kind == kF64 ? 8 : 4, &tm,
+                   &pr, &nbuf, &wpiece, &smem))
+        return false;
+    *out = {false, kRowThreads * tm, pr, smem};
+    return true;
+}
+
+}  // namespace
+
+#endif  // ART_FIXED_STEP_GEOMETRY_H

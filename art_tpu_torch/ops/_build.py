@@ -7,9 +7,9 @@ takes seconds).  The library lands in ``build/art_tpu_torch/`` at the root
 of the checkout, named by a hash of the sources, headers and flags, so
 editing a source rebuilds it and an unchanged tree reuses it.  Nothing is
 built at import: the first launch builds.  ``csrc/*_geometry.cpp`` (the
-decimate and biquad kernels' host geometry, from the headers ``decimate.cu``
-and ``biquad.cu`` include) are built apart, by the host's C++ compiler,
-so they need no card.
+K1, decimate and biquad kernels' host geometry, from the headers
+``fixed_step.cu``, ``decimate.cu`` and ``biquad.cu`` include) are built
+apart, by the host's C++ compiler, so they need no card.
 """
 
 from __future__ import annotations
@@ -39,12 +39,9 @@ _ASRC_APPLY = [_vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp,
                _ll, _vp, _vp]
 _SIGNATURES = {
     # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, kind,
-    # stream
+    # &resident, stream
     "art_fixed_step": [_vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _vp, _i, _i, _i,
-                       _ll, _vp, _i, _vp],
-    # M, qn, interp, kind, &blocks per CTA, &P rows per piece, &shared bytes
-    "art_fixed_step_tile": [_i, _i, _i, _i, ctypes.POINTER(_i),
-                            ctypes.POINTER(_i), ctypes.POINTER(_ll)],
+                       _ll, _vp, _i, ctypes.POINTER(_i), _vp],
     # hist, H, x, n, S, bank, taps, F, P, X, outputs per block, threads,
     # offsets, ratios, Ks, shift, k_max, out, stream
     "art_asrc_step_f32": _ASRC_STEP,
@@ -85,6 +82,12 @@ _GEOMETRY_SIGNATURES = {
     "art_decimate_shaped_geometry": [_ll, _ll, _ll, _i, _vp],
     # odd, pairs, out [2]: the LCG map of 2 * pairs steps
     "art_decimate_pair_power": [_i, ctypes.c_ulonglong, _vp],
+    # M, qn, interp, kind, out [4]: K1's design (1 resident), blocks a
+    # tile, P rows a piece, shared bytes
+    "art_fixed_step_geometry": [_i, _i, _i, _i, _vp],
+    # G, units, slots, cta, out [5]: the resident grid's CTAs, CTAs a
+    # group, the CTA's first group and tiles [t0, t1)
+    "art_fixed_step_grid": [_i, _ll, _ll, _ll, _vp],
     # out [17]: the biquad kernel's span, table and record layout
     "art_biquad_constants": [_vp],
     # n, S, K, kind, out [5]: spans, active spans, CTAs, shared bytes,
@@ -164,9 +167,9 @@ def _bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
 
 def geometry_library() -> ctypes.CDLL:
     """csrc/*_geometry.cpp built with the host's C++ compiler into one
-    library (no card, no nvcc): the decimate and biquad kernels' launch
-    geometry from the headers their launches include.  Built on first use,
-    beside the kernels' library."""
+    library (no card, no nvcc): the K1, decimate and biquad kernels'
+    launch geometry from the headers their launches include.  Built on
+    first use, beside the kernels' library."""
     global _geometry_lib
     if _geometry_lib is not None:
         return _geometry_lib

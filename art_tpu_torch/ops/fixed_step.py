@@ -24,6 +24,10 @@ A CPU tensor takes the plain version (``*_reference``); a CUDA tensor
 launches the kernel or raises.  ``launches`` counts K1's launches through
 its chunk-step entry points, every instance, and ``instance_launches`` each
 instance's; ``polyphase_launches`` counts those through ``polyphase_apply``.
+``path_launches`` counts every launch (both entry points) by the design it
+took, as the launch reports it: "resident" (float32 summed in float32 at
+shapes whose P and window ring fit a CTA's shared memory, the main path)
+or "template" (the rest); ``kernel_tile`` says which a shape takes.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from . import _build
 launches = 0
 instance_launches = {"f32": 0, "f32_acc64": 0, "f64": 0}
 polyphase_launches = 0
+path_launches = {"resident": 0, "template": 0}
 
 # art_fixed_step's ``kind`` of each instance
 _KINDS = {"f32": 0, "f32_acc64": 1, "f64": 2}
@@ -75,19 +80,22 @@ def _check(name, t, dev, dtype, shape=None):
 
 def kernel_tile(M: int, qn: int, interp: bool, *, dtype=torch.float32,
                 precise: bool = False):
-    """(blocks per CTA, P rows per staged piece, shared-memory bytes) of
-    K1's launch for this shape and instance.  Every M fits: where the
-    whole window tile does not, the window comes in column pieces beside
-    P's.  Raises ValueError for a shape no launch takes (M or qn < 1)."""
-    bm, pr, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    rc = _build.library().art_fixed_step_tile(
-        M, qn, int(interp), _KINDS[instance(dtype, precise)],
-        ctypes.byref(bm), ctypes.byref(pr), ctypes.byref(smem))
+    """(design, blocks a row tile, P rows a staged piece, shared-memory
+    bytes) of K1's launch for this shape and instance, from
+    ``csrc/fixed_step_geometry.h`` (the code the launch runs, built for the
+    host: no card needed).  The design is "resident" (the whole P of a
+    CTA's columns held, all qn*M rows a piece) or "template".  Every M
+    fits: where the whole window tile does not, the template brings the
+    window in column pieces beside P's.  Raises ValueError for a shape no
+    launch takes (M or qn < 1)."""
+    geo = (ctypes.c_longlong * 4)()
+    rc = _build.geometry_library().art_fixed_step_geometry(
+        M, qn, int(interp), _KINDS[instance(dtype, precise)], geo)
     if rc != 0:
         raise ValueError(f"K1 has no tile for M={M}, qn={qn}"
                          f"{', interpolated' if interp else ''}: M and qn "
                          "must be positive")
-    return bm.value, pr.value, smem.value
+    return ("resident" if geo[0] else "template", geo[1], geo[2], geo[3])
 
 
 def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
@@ -112,16 +120,19 @@ def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
                              f"L={L}")
         lib = _build.library()
         out = torch.empty((ch, nb * L), dtype=buf.dtype, device=dev)
+        resident = ctypes.c_int()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.art_fixed_step(
                 buf.data_ptr(), ch, W, int(start), int(K), P.data_ptr(),
                 qn * M, L2, fracv.data_ptr() if fracv is not None else None,
-                M, L, qn, int(nb), out.data_ptr(), _KINDS[inst], stream)
+                M, L, qn, int(nb), out.data_ptr(), _KINDS[inst],
+                ctypes.byref(resident), stream)
         if rc != 0:
             raise RuntimeError(f"art_fixed_step launch failed: cudaError "
                                f"{rc} ({inst}, ch={ch}, M={M}, L={L}, "
                                f"qn={qn}, nb={nb})")
+        path_launches["resident" if resident.value else "template"] += 1
         return out, inst
 
 

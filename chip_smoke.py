@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile-biquad  # the biquad kernel's device times
     python3 chip_smoke.py --decimate-ab build/parent  # decimate A/B, in turns
     python3 chip_smoke.py --biquad-ab build/parent    # biquad A/B, in turns
+    python3 chip_smoke.py --k1-ab build/parent        # K1 A/B, in turns
 
 Drives the port's paths on the card -- the fixed-ratio streaming
 resampler (preset -3, 2 channels, 380 taps, 44.1k<->48k, reduced; and
@@ -20,8 +21,9 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 1. device: the card's name, count, and nvidia-smi's name and power limit;
 2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
    per source, in parallel), with ptxas's register and spill lines; no
-   kernel instance (K1's eighteen: float32, float32 with float64
-   accumulators and float64, reduced and interpolated, three tiles; the
+   kernel instance (K1's twenty: the template's eighteen, float32, float32
+   with float64 accumulators and float64, reduced and interpolated, three
+   tiles, and the resident design's two, reduced and interpolated; the
    ASRC step's two and the apply's two; the decimate stage's flat and shaped
    kernels and the shaped chain's probe in float32 and float64; the biquad
    section's span kernel in float32 and float64) may spill, and the six
@@ -202,6 +204,13 @@ and prints no result.
 build/biquad_ab/): the same tree's outputs bitwise equal in its two turns,
 the change's within the class of the parent's.
 
+``--k1-ab build/parent`` times K1 against an older tree unpacked there
+(git archive), in four processes in turns (parent, change, change,
+parent): the step and the kernel alone on the preset -3 2^22-frame chunk,
+the kernel on a 16,384-frame call, on a p3_flat_bulk group (8 x 8,388,555
+frames) and on config 1's interpolated chunk, and K6's main-path call
+(k1_times); the three K1 hashes of every turn must be equal.
+
 ``--decimate-ab build/parent`` times the decimate stage against an older
 tree unpacked there (git archive), in four processes in turns (parent,
 change, change, parent): the flat kernel on the 2^22 chunk,
@@ -334,15 +343,15 @@ def phase_build():
         if line.startswith("==") or "ptxas" in line or "spill" in line:
             print(f"  {line.strip()}")
     if _build.build_log:        # empty when an earlier process built it
-        # 18 fixed_step_kernel instances (float, float-with-double
-        # accumulators and double; reduced and interpolated; 3 tiles), 4
-        # ASRC ones (step and apply, float32 and float64), 6 decimate ones
+        # 20 fixed_step_kernel instances (the template's 18: float,
+        # float-with-double accumulators and double, reduced and
+        # interpolated, 3 tiles; the resident design's 2), 4 ASRC ones (step and apply, float32 and float64), 6 decimate ones
         # (the flat and shaped kernels and the shaped chain's probe, float
         # and double), 2 biquad ones (the span kernel, float and double)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 30 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 32 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
     _require_no_fma("decimate", 6)
 
@@ -410,6 +419,15 @@ def _hull(P, L, interp):
         work += kept[-1] * min(32, L - n0)
     return (f"hull {min(kept)}-{max(kept)} of {P.shape[0]} rows per 32-phase "
             f"CTA ({work / (P.shape[0] * L):.1%} of the rows x phases)")
+
+
+def _tile_text(tile):
+    """kernel_tile's (design, blocks, P rows, shared bytes) as words."""
+    design, bm, pr, smem = tile
+    if design == "resident":
+        return (f"resident: {bm}-block tiles, P held whole ({pr} rows), "
+                f"{smem} B shared")
+    return f"template: tile {bm} blocks x P pieces of {pr} rows, {smem} B shared"
 
 
 def _kernel_cases(dev, n_target):
@@ -503,8 +521,7 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
         hist_eq = bool(torch.equal(h, h32))
         finite = bool(torch.isfinite(out).all())
         tile = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None)
-        print(f"  {label}: tile {tile[0]} blocks x P pieces of {tile[1]} "
-              f"rows, {tile[2]} B shared; "
+        print(f"  {label}: {_tile_text(tile)}; "
               f"{_hull(P, kw['L'], fracv is not None)}; out {tuple(out.shape)}; "
               f"max|K1 - f64 plain| = "
               f"{err:.3e} (f32 plain: {err32:.3e}); acc rel err "
@@ -525,12 +542,13 @@ def phase_roundtrip(dev, seconds=60, precise=False):
     secs = time.perf_counter() - t0
     launches = k1.launches
     mine = k1.instance_launches[inst]
+    paths = dict(k1.path_launches)
     rt_cpu = roundtrip.roundtrip_diff_db(seconds, "cpu", precise=precise)
     print(f"  round trip {seconds} s stereo, precise={precise!r}: "
           f"{rt['diff_db']:.2f} dB on {dev} (K1 {inst}, {secs:.2f} s wall "
           f"incl. matrix builds), {rt_cpu['diff_db']:.2f} dB on cpu (plain "
           f"path); output frames {rt['frames']} vs {rt_cpu['frames']}")
-    print(f"  K1 launches {launches} ({inst}: {mine}), "
+    print(f"  K1 launches {launches} ({inst}: {mine}; by design {paths}), "
           f"process()/process_flat_out()/flush() calls {rt['calls']}")
     _require(rt["frames"] == rt_cpu["frames"], "output counts differ")
     _require(rt["diff_db"] <= -130.0, "round trip above -130 dB")
@@ -548,6 +566,15 @@ def phase_roundtrip(dev, seconds=60, precise=False):
                  "path")
     _require(dev.type != "cuda" or launches == mine == rt["calls"] > 0,
              "K1 launches != dispatching calls")
+    # each leg's launches take its shape's design: the forward leg's M =
+    # 147 the resident one in float32, the inverse leg's M = 160 the
+    # template (whose P and two windows do not fit beside each other)
+    designs = {k1.kernel_tile(M, 4, False, precise=bool(precise))[0]
+               for M in (147, 160)}
+    _require(dev.type != "cuda" or (
+        sum(paths[d] for d in designs) == launches
+        and all(paths[d] > 0 for d in designs)),
+        f"the round trip's K1 launches by design {paths}, not {designs}")
     return launches, rt["diff_db"]
 
 
@@ -1157,8 +1184,7 @@ def phase_tier_kernels(dev, n_target=1 << 22):
                 ok &= err64 <= (1e-12 if inst == "f64" else 1e-5)
             print(f"  {inst} {label} M={kw['M']} qn={kw['qn']}"
                   f"{' interpolated' if fracv is not None else ''} K={K}: "
-                  f"tile {tile[0]} blocks x P pieces of {tile[1]} rows, "
-                  f"{tile[2]} B shared; {note}; max|K1 - its plain| "
+                  f"{_tile_text(tile)}; {note}; max|K1 - its plain| "
                   f"{err:.3e}; tail zero and new_hist bitwise {ok}")
             _require(ok, f"K1 {inst} vs plain, {label}")
             worst[inst] = max(worst[inst], err)
@@ -1382,6 +1408,8 @@ def _reset_launches():
     k1.polyphase_launches = 0
     for name in k1.instance_launches:
         k1.instance_launches[name] = 0
+    for name in k1.path_launches:
+        k1.path_launches[name] = 0
     for name in kasrc.launches:
         kasrc.launches[name] = 0
     for name in dd.launches:
@@ -3314,6 +3342,87 @@ def decimate_ab(parent):
     _require(same, "the decimate stage's bytes differ from the parent's")
 
 
+def k1_times(dev, reps=20, frames=(4194351, 16317, 8 * 8388555),
+             n_interp=1 << 22, nb_pad=28672):
+    """K1's time a call in ms (CUDA events, the median of three windows of
+    ``reps`` calls, 5 for the group) at the shapes --k1-ab compares, std-0.5
+    noise: the step and the kernel alone on the preset -3 2^22-frame steady
+    chunk, the kernel on a 16,384-frame call and on a p3_flat_bulk group
+    (8 x 8,388,555 frames, one launch), on config 1's interpolated chunk,
+    and K6's main-path call.  Uses only entry points the port has had since
+    K6 was ported, so it runs from an older checkout too."""
+    rng = np.random.default_rng(4747)
+    zero = torch.zeros((), device=dev)
+
+    def noise(shape):
+        return torch.from_numpy(rng.normal(0, 0.5, shape).astype(
+            np.float32)).to(dev)
+
+    calls = {}
+    for label, n in zip(("2^22 chunk", "16,384-frame call",
+                         "p3_flat_bulk group"), frames):
+        eng = _engine(44100, 48000, dev)
+        eng._plan(n)
+        K, start, j0, _, _ = eng._plan_compute(n)
+        kw = _kw(eng, K)
+        P, hist, x = eng._matrix(j0), noise((2, eng.num_samples)), \
+            noise((2, n))
+        buf = torch.cat([hist, x], dim=1)
+        if label == "2^22 chunk":
+            calls[f"K1 step, {label}"] = (
+                lambda h=hist, x=x, P=P, s=start, K=K, kw=kw:
+                k1.fixed_step(h, x, P, s, K, zero, **kw))
+        calls[f"K1 kernel, {label}"] = (
+            lambda b=buf, P=P, s=start, K=K, kw=kw: k1.fixed_step_kernel(
+                b, P, s, K, M=kw["M"], L=kw["L"], nb=kw["nb"], qn=kw["qn"]))
+    eng, n, K, start, P2, fracv, kw = _steady_chunk(INTERP, dev, n_interp)
+    buf1 = noise((1, eng.num_samples + n))
+    calls["K1 kernel, config 1 interpolated chunk"] = (
+        lambda: k1.fixed_step_kernel(buf1, P2, start, K, M=kw["M"],
+                                     L=kw["L"], nb=kw["nb"], qn=kw["qn"],
+                                     fracv=fracv))
+    win, P6, kw6 = _poly_inputs(dev, nb_pad=nb_pad)
+    calls["K6 main-path call"] = lambda: k1.polyphase_apply(win, P6, **kw6)
+    times = {}
+    for label, fn in calls.items():
+        fn()
+        n_reps = 5 if "group" in label else reps
+        runs = sorted(_time_ms(dev, fn, n_reps) for _ in range(3))
+        times[label] = round(runs[1], 4)
+    return times
+
+
+def k1_ab(parent):
+    """K1 against an older tree unpacked in ``parent`` (git archive into
+    build/parent/): this script is copied there as chip_smoke_new.py, and
+    k1_times with the three K1 hashes runs in four processes, one a turn,
+    in the order parent, change, change, parent (each process imports its
+    own tree's package and builds its own library); the hashes of every
+    turn must be equal."""
+    here = Path(__file__).resolve()
+    parent = Path(parent).resolve()
+    _require((parent / "art_tpu_torch").is_dir(),
+             f"no art_tpu_torch in {parent}")
+    shutil.copy(here, parent / "chip_smoke_new.py")
+    script = {"parent": parent / "chip_smoke_new.py", "change": here}
+    turns = []
+    for name in ("parent", "change", "change", "parent"):
+        r = subprocess.run([sys.executable, str(script[name]), "--k1-times"],
+                           cwd=script[name].parent, capture_output=True,
+                           text=True, timeout=900)
+        _require(r.returncode == 0, f"the {name} turn failed:\n"
+                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        turns.append((name, json.loads(r.stdout.strip().splitlines()[-1])))
+        print(f"  turn {len(turns)}, {name}: {json.dumps(turns[-1][1])}")
+    for case in turns[0][1]["times"]:
+        runs = [f"{name} {t['times'][case]}" for name, t in turns]
+        print(f"  {case} (ms): {', '.join(runs)}")
+    hashes = [t["hashes"] for _, t in turns]
+    same = all(h == hashes[0] for h in hashes)
+    print(f"  the three K1 hashes equal in all four turns: {same}")
+    _require(same, "K1's bytes differ from the parent's")
+
+
 # ------------------------------------------------- the biquad cascade's A/B
 BQ_AB_DIR = Path(__file__).resolve().parent / "build" / "biquad_ab"
 
@@ -3391,6 +3500,16 @@ def main(argv) -> int:
     if argv[1:] == ["--decimate-times"]:
         print(json.dumps({"times": decimate_times(dev),
                           "hashes": decimate_hashes(dev)}))
+        return 0
+    if argv[1:] == ["--k1-times"]:
+        print(json.dumps({"times": k1_times(dev),
+                          "hashes": [k1_checksum(dev),
+                                     k1_checksum_interp(dev),
+                                     k1_checksum_poly(dev)]}))
+        return 0
+    if argv[1:2] == ["--k1-ab"] and len(argv) == 3:
+        print(phase_device()[2])
+        k1_ab(argv[2])
         return 0
     if argv[1:2] == ["--decimate-ab"] and len(argv) == 3:
         print(phase_device()[2])

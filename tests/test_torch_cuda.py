@@ -358,7 +358,9 @@ def test_kernel_large_M_matches_plain(name):
     dev = _card()
     hist, x, P, fracv, start, K, kw = _wide_case(name, dev)
     assert kw["M"] in (320, 640, 2560)
-    bm, pr, smem = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None)
+    design, bm, pr, smem = k1.kernel_tile(kw["M"], kw["qn"],
+                                          fracv is not None)
+    assert design == "template"
     assert bm in (32, 64, 128) and 0 < pr <= kw["M"] and smem <= 227 * 1024
     acc = torch.zeros((), device=dev)
     h, o, a = k1.fixed_step(hist, x, P, start, K, acc, fracv=fracv, **kw)
@@ -380,20 +382,24 @@ def test_kernel_tile_refuses_and_names_a_shape_too_large():
     for M, interp in ((4000, False), (2560, False), (2560, True)):
         for dtype, precise in ((torch.float32, False), (torch.float32, True),
                                (torch.float64, False)):
-            bm, pr, smem = k1.kernel_tile(M, 2, interp, dtype=dtype,
-                                          precise=precise)
+            design, bm, pr, smem = k1.kernel_tile(M, 2, interp, dtype=dtype,
+                                                  precise=precise)
+            assert design == "template"
             assert bm in (32, 64, 128) and pr % 32 == 0 and 0 < pr < M
             assert smem <= 227 * 1024
     # 128 window rows x (352 | 1) + 352 x 32 floats and the reduction
-    assert k1.kernel_tile(2560, 2, False) == (128, 352, 225856)
-    # the main path keeps the 128-block tile and whole P slices, two
-    # buffers of them: (131 rows x 147 + pad) + 2 x 147 x 32 floats and
-    # the hull's 64-byte reduction; the precise instance stages the same
-    assert k1.kernel_tile(147, 4, False) == (128, 147, 114736)
-    assert k1.kernel_tile(147, 4, False, precise=True) == (128, 147, 114736)
+    assert k1.kernel_tile(2560, 2, False) == ("template", 128, 352, 225856)
+    # the main path takes the resident design: its CTA's whole P (4 slices
+    # of 148 rows x 32 floats) and two 128-block window buffers (131 rows
+    # x 148 floats) and the hull's 64-byte reduction; the precise instance
+    # keeps the template's 128-block tile and two buffers of whole slices:
+    # (131 rows x 147 + pad) + 2 x 147 x 32 floats and the reduction
+    assert k1.kernel_tile(147, 4, False) == ("resident", 128, 588, 230944)
+    assert k1.kernel_tile(147, 4, False, precise=True) == (
+        "template", 128, 147, 114736)
     # config 4's float64 shape: one buffer of a whole 160-row slice
     assert k1.kernel_tile(160, 4, False, dtype=torch.float64) == (
-        128, 160, 209760)
+        "template", 128, 160, 209760)
 
 
 # the precision tiers' instances: (dtype, precise, name)
@@ -670,6 +676,89 @@ def test_kernel_hull_matches_plain(case):
     assert torch.equal(h, hr.float())
     if case == "zero-group":
         assert not o.view(2, nb, L)[:, :, 32:64].any()
+
+
+# The resident design's edges (csrc/fixed_step.cu, "Design: resident"):
+# (P, channels, blocks, K short of nb * L by); P "engine" is the main
+# path's phase matrix, "config1" BASELINE config 1's interpolated chunk
+# (both from a CPU engine's plan), "banded" _banded's bands at M = 147,
+# qn = 4 and the L given, "dense" K6's dense random P.
+RESIDENT_CASES = {
+    "blocks-off-the-tile": ("engine", 2, 1001, 0),
+    "fewer-tiles-than-SMs": ("engine", 2, 111, 0),
+    "K-mid-tile": ("engine", 2, 300, 160 * 131 + 77),
+    "one-channel": ("engine", 1, 257, 0),
+    "six-channels": ("engine", 6, 257, 13),
+    "L-99": ("banded", 2, 300, 0),      # L neither of 32 nor of 4
+    "L-100": ("banded", 2, 300, 41),    # a whole float4, not of 32
+    "K6-dense": ("dense", 2, 600, 0),
+    "config1-interpolated": ("config1", 1, 700, 0),
+}
+
+
+def _resident_case(case, dev):
+    """(buf [ch, W], P, fracv, start, K, kw) for RESIDENT_CASES[case]."""
+    kind, ch, nb, cut = RESIDENT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    fracv, start = None, 5
+    if kind in ("engine", "config1"):
+        ctor = GROUP_CTORS["reduced" if kind == "engine" else "interp"]
+        eng = DeviceStreamResampler(*ctor, device="cpu")
+        eng.advance_position(ctor[1] // 2)
+        n = nb * eng.M
+        eng._plan(n)
+        K, start, j0, pos0, plan = eng._plan_compute(n)
+        M, L, qn = eng.M, eng.L, eng.qn
+        if eng.interp:
+            P, fracv = eng._interp_pattern(pos0, plan, n, K, nb)[:2]
+        else:
+            P = eng._matrix(j0)
+        P = P.numpy()
+    else:
+        M, qn = 147, 4
+        L = {"L-99": 99, "L-100": 100}.get(case, 160)
+        P = (_banded(rng, qn * M, L, None) if kind == "banded" else
+             rng.normal(0, 0.05, (qn * M, L)).astype(np.float32))
+    K = nb * L - cut
+    W = start + (nb - 1) * M + qn * M - 7       # the last block reads past W
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    buf = t(rng.normal(0, 0.5, (ch, W)))
+    kw = dict(M=M, L=L, nb=nb, qn=qn)
+    return buf, t(P), None if fracv is None else t(fracv), start, K, kw
+
+
+@pytest.mark.parametrize("case", list(RESIDENT_CASES))
+def test_resident_design_matches_plain_and_template(case):
+    """The resident design, one launch, against the float64 plain version
+    (within 1e-5, a zero tail past K) and, bitwise, against the template
+    design on the same function: P with zero slices appended (qn grows
+    until the shape leaves the resident design) computes the same sums in
+    the same order."""
+    dev = _card()
+    buf, P, fracv, start, K, kw = _resident_case(case, dev)
+    M, qn, interp = kw["M"], kw["qn"], fracv is not None
+    assert k1.kernel_tile(M, qn, interp)[0] == "resident"
+    before = dict(k1.path_launches)
+    out = k1.fixed_step_window(buf, P, start, K, fracv=fracv, **kw)
+    torch.cuda.synchronize()
+    assert k1.path_launches == {**before,
+                                "resident": before["resident"] + 1}
+    d = lambda v: None if v is None else v.double()
+    ref = k1.fixed_step_window(d(buf).cpu(), d(P).cpu(), start, K,
+                               fracv=None if fracv is None else
+                               d(fracv).cpu(), **kw)
+    assert out.shape == ref.shape
+    assert float((out.double().cpu() - ref).abs().max()) <= 1e-5
+    assert not out[:, K:].any()
+    qt, Pt = qn, P
+    while k1.kernel_tile(M, qt, interp)[0] == "resident":
+        qt += 1
+        Pt = torch.cat([Pt, torch.zeros_like(P[:M])])
+    tmpl = k1.fixed_step_window(buf, Pt, start, K, fracv=fracv,
+                                **{**kw, "qn": qt})
+    torch.cuda.synchronize()
+    assert k1.path_launches["template"] == before["template"] + 1
+    assert torch.equal(out, tmpl)
 
 
 # ----------------------------------------------------- the decimate kernels

@@ -163,3 +163,74 @@ def test_polyphase_apply_shapes():
             k1.polyphase_apply(torch.from_numpy(np.ascontiguousarray(w)),
                                torch.from_numpy(np.ascontiguousarray(p)),
                                M=M, qn=qn, L=L)
+
+
+# The launch each shape of csrc/fixed_step.cu's table takes, as
+# kernel_tile reads it from csrc/fixed_step_geometry.h built for the host:
+# (M, qn, interpolated, dtype, precise) -> (design, blocks a tile, P rows a
+# piece, shared-memory bytes).  The resident design holds its CTA's whole
+# P (qn * M rows) and a window buffer for each of its two warp groups.
+LAUNCHES = [
+    ((147, 4, False, torch.float32, False), ("resident", 128, 588, 230944)),
+    ((147, 2, True, torch.float32, False), ("resident", 64, 294, 152800)),
+    ((160, 4, False, torch.float32, False), ("template", 128, 160, 104912)),
+    ((320, 2, False, torch.float32, False), ("template", 128, 320, 206672)),
+    ((320, 2, True, torch.float32, False), ("template", 64, 320, 165456)),
+    ((640, 2, False, torch.float32, False), ("template", 32, 640, 166608)),
+    ((640, 2, True, torch.float32, False), ("template", 64, 256, 232272)),
+    ((2560, 2, False, torch.float32, False), ("template", 128, 352, 225856)),
+    ((2560, 2, True, torch.float32, False), ("template", 128, 288, 221760)),
+    ((147, 4, False, torch.float32, True), ("template", 128, 147, 114736)),
+    ((160, 4, False, torch.float64, False), ("template", 128, 160, 209760)),
+]
+
+
+@pytest.mark.parametrize("shape,launch", LAUNCHES,
+                         ids=[f"M{s[0]}-qn{s[1]}{'-interp' if s[2] else ''}-"
+                              f"{k1.instance(s[3], s[4])}"
+                              for s, _ in LAUNCHES])
+def test_kernel_tile_picks_the_design_of_each_shape(shape, launch):
+    M, qn, interp, dtype, precise = shape
+    assert k1.kernel_tile(M, qn, interp, dtype=dtype,
+                          precise=precise) == launch
+
+
+def test_kernel_tile_keeps_small_M_and_the_double_sums_on_the_template():
+    """The resident design takes float32 summed in float32 from M = 32 up,
+    and nothing whose P and window buffers outgrow a block's shared
+    memory: qn = 5 at M = 147 does not fit beside two 128-block buffers."""
+    assert k1.kernel_tile(32, 8, False)[0] == "resident"
+    for M, qn in ((31, 8), (1, 380), (2, 200), (147, 5)):
+        assert k1.kernel_tile(M, qn, False)[0] == "template"
+    assert k1.kernel_tile(32, 8, False, precise=True)[0] == "template"
+    assert k1.kernel_tile(32, 8, False, dtype=torch.float64)[0] == "template"
+    with pytest.raises(ValueError, match="M=0, qn=2"):
+        k1.kernel_tile(0, 2, False)
+
+
+@pytest.mark.parametrize("G,units,slots", [(5, 7134, 132), (5, 1, 132),
+                                           (5, 2, 132), (3, 10, 7),
+                                           (80, 3, 132), (200, 4, 132)])
+def test_resident_grid_covers_every_tile_once(G, units, slots):
+    """The resident grid: never more CTAs than the card holds or than
+    there are tiles; every (column group, tile) taken by exactly one CTA;
+    a group's tiles split in runs that differ by at most one tile."""
+    import ctypes
+
+    from art_tpu_torch.ops import _build
+    lib = _build.geometry_library()
+    out = (ctypes.c_longlong * 5)()
+    assert lib.art_fixed_step_grid(G, units, slots, 0, out) == 0
+    ctas, per_group = out[0], out[1]
+    assert 1 <= ctas <= min(slots, G * units)
+    taken = np.zeros((G, units), np.int64)
+    runs = []
+    for cta in range(ctas):
+        assert lib.art_fixed_step_grid(G, units, slots, cta, out) == 0
+        first, t0, t1 = out[2], out[3], out[4]
+        runs.append(t1 - t0)
+        for g in range(first, G, ctas // per_group):
+            taken[g, t0:t1] += 1
+    assert (taken == 1).all()
+    assert max(runs) - min(runs) <= 1
+    assert lib.art_fixed_step_grid(G, units, slots, ctas, out) == 1
