@@ -27,9 +27,18 @@ and pack in one launch of the shaped decimate kernel, where JAX dithers on
 the host and scans on the device; the flat modes stay the host's, as in
 JAX.  ``backend="jax"`` raises a ValueError naming "torch"; the ``numpy``
 and ``native`` backends are the original's.
+
+``DeviceDecimator(..., tracks=F)`` quantizes F files at once, each of
+``num_channels / F`` channels, channels [t*c, (t+1)*c) being file t's:
+every file's channels get the dither seeds of a decimator built for that
+file alone (the reference seeds each decimator from the same LCG stream,
+decimator.c:40-52), so each file's bytes are those its own decimator
+gives.  ``tracks=None`` seeds the channels as one file.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -41,6 +50,7 @@ from ..core.flags import (DITHER_ENABLED, DITHER_FLAT, DITHER_HIGHPASS,
                           SHAPING_ATH_CURVE, SHAPING_ENABLED)
 from ..ops import decimate_device as dd
 from ..ops import decimate_kernel as dk
+from ..utils.spans import DECIMATE, span, spanned
 from .biquad import Biquad, BiquadCoefficients
 
 # ATH noise-shaping N(z) coefficient sets (reference decimator.c:70-78):
@@ -66,6 +76,16 @@ def _shaper_coeffs(a1, a2, a3, a4, b1, b2, b3, b4) -> BiquadCoefficients:
     """N(z) -> decoupled H(z) (reference decimator.c:389-409)."""
     return BiquadCoefficients(a0=b1 - a1, a1=b2 - a2, a2=b3 - a3, a3=b4 - a4,
                               b1=b1, b2=b2, b3=b3, b4=b4)
+
+
+def _track_seeds(num_channels: int, tracks) -> np.ndarray:
+    """The dither LCG's initial states of ``tracks`` decimators of
+    ``num_channels / tracks`` channels each, side by side."""
+    tracks = int(tracks)
+    if tracks < 1 or num_channels % tracks:
+        raise ValueError(f"tracks={tracks} does not divide "
+                         f"{num_channels} channels")
+    return np.tile(dk.seed_generators(num_channels // tracks), tracks)
 
 
 class Decimator:
@@ -148,6 +168,10 @@ class Decimator:
         return self._run(np.asarray(inputs))
 
     def _run(self, frames: np.ndarray) -> tuple[np.ndarray, int]:
+        with span(DECIMATE) if self.backend == "torch" else nullcontext():
+            return self._quantize(frames)
+
+    def _quantize(self, frames: np.ndarray) -> tuple[np.ndarray, int]:
         n = frames.shape[0]
         frames = frames.astype(self.dtype, copy=False)
 
@@ -236,14 +260,20 @@ class DeviceDecimator:
     (reference decimator.c:205-291); per-channel state layout per reference
     decimator.h:42-60.  The flat modes launch ``decimate_flat_kernel``, the
     shaped ones ``decimate_shaped_kernel`` (``ops/decimate_device.py``),
-    once per chunk."""
+    once per chunk.  ``tracks=F``: F files of ``num_channels / F`` channels
+    each, seeded as F decimators (see the module's docstring)."""
 
     def __init__(self, num_channels: int, output_bits: int,
                  output_bytes: int, output_gain: float, sample_rate: int,
-                 flags: int, *, dtype=np.float32, device="cuda"):
+                 flags: int, *, dtype=np.float32, device="cuda",
+                 tracks=None):
         self.device = resolve_device(device)
         host = Decimator(num_channels, output_bits, output_bytes,
                          output_gain, sample_rate, flags, dtype=dtype)
+        if tracks is not None:
+            seeds = _track_seeds(num_channels, tracks)
+            if host.tpdf_generators is not None:
+                host.tpdf_generators = seeds
         self.num_channels = num_channels
         self.output_bits = output_bits
         self.output_bytes = output_bytes
@@ -291,13 +321,15 @@ class DeviceDecimator:
         first K frames are quantized and the state advances by exactly K.
         Returns (packed uint8 [K, channels*output_bytes] numpy, clipped
         count)."""
-        dev = self.process_chunk_async(samples, K)
-        if dev is None:
-            return np.zeros((0, self.num_channels * self.output_bytes),
-                            np.uint8), 0
-        packed, clipped = dev
-        return packed[:K].cpu().numpy(), int(clipped)
+        with span(DECIMATE):
+            dev = self._step(samples, K)
+            if dev is None:
+                return np.zeros((0, self.num_channels * self.output_bytes),
+                                np.uint8), 0
+            packed, clipped = dev
+            return packed[:K].cpu().numpy(), int(clipped)
 
+    @spanned(DECIMATE)
     def process_chunk_async(self, samples, K: int):
         """process_chunk without the device->host fetch: returns
         (packed uint8 [n, channels*output_bytes], clipped int32 0-d) still
@@ -306,6 +338,9 @@ class DeviceDecimator:
         dispatch the next chunk and fetch this one's bytes concurrently.
         A tensor of the engine's dtype and device is read in place, at any
         strides."""
+        return self._step(samples, K)
+
+    def _step(self, samples, K: int):
         n = int(samples.shape[0])
         if n == 0 or K == 0:
             return None

@@ -18,6 +18,9 @@ The names, one span each:
 
 - ``CALL``: an engine's public call (``BatchedASRC.process`` / ``flush``,
   ``DeviceStreamResampler.process`` / ``process_scan`` / ``process_flat*``);
+- ``DECIMATE``: a decimator's public call (``DeviceDecimator.process_chunk``
+  / ``process_chunk_async``, ``Decimator(backend="torch")``'s ``process`` /
+  ``process_interleaved``): its state conversions, checks and launch;
 - ``PLAN``: the host plan of such a call (counts, positions, matrix
   lookups), never nested in another plan span;
 - ``UPLOAD``: one host-to-device copy on such a call, with the wait for
@@ -35,6 +38,7 @@ import functools
 import torch
 
 CALL = "art.engine.call"
+DECIMATE = "art.engine.decimate"
 PLAN = "art.engine.plan"
 UPLOAD = "art.engine.upload"
 LAUNCH = "art.launch."

@@ -6,11 +6,16 @@ holding one ``art.engine.plan`` span and an ``art.engine.upload`` span for
 each host-to-device copy, all inside a span the test opens around the
 call (so they sit on the profiler's one clock); plan spans never nest;
 with no profiler a span is one shared null context; the benchmark's
-readers (``bench_torch/spans.py``) spell the names the program emits.
+readers (``bench_torch/spans.py``, ``metrics/decimate_host_ms.bulk.py``)
+spell the names the program emits; each public decimator call
+(``DeviceDecimator.process_chunk`` / ``process_chunk_async``,
+``Decimator(backend="torch")``) gives one ``art.engine.decimate`` span.
 
 Marked ``cuda`` (skip without a card): a launch of the ASRC step kernel
 gives one ``art.launch.asrc_step`` span and one count in ``launches``, and
-the kernel's device event starts after its launch span starts.
+the kernel's device event starts after its launch span starts; a
+``DeviceDecimator`` call on the card holds its one launch span inside its
+``art.engine.decimate`` span.
 
     python -m pytest tests/test_torch_trace.py -q
     python -m pytest --noconftest -q -m cuda tests/test_torch_trace.py
@@ -25,7 +30,10 @@ import torch
 from art_tpu_torch import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
                            SUBSAMPLE_INTERPOLATE, BatchedASRC,
                            DeviceStreamResampler)
+from art_tpu_torch.core.flags import DITHER_HIGHPASS, SHAPING_ATH_CURVE
+from art_tpu_torch.engines.decimator import Decimator, DeviceDecimator
 from art_tpu_torch.ops import asrc_step as kasrc
+from art_tpu_torch.ops import decimate_device as dd
 from art_tpu_torch.utils import spans
 
 CPU = torch.profiler.ProfilerActivity.CPU
@@ -184,6 +192,46 @@ def test_benchmark_readers_spell_the_names_the_program_emits():
         (spans.CALL, spans.PLAN, spans.UPLOAD, spans.LAUNCH)
 
 
+HP_ATH = DITHER_HIGHPASS | SHAPING_ATH_CURVE
+
+
+def _one_decimate_span(evs):
+    (outer,) = _named(evs, OUTER)
+    (dec,) = _named(evs, spans.DECIMATE)
+    assert _inside(dec, outer)
+    return dec
+
+
+@pytest.mark.parametrize("call", ["process_chunk", "process_chunk_async"])
+def test_device_decimator_call_gives_one_span(call):
+    dec = DeviceDecimator(8, 16, 2, 1.0, 44100, HP_ATH, tracks=4,
+                          device="cpu")
+    x = torch.zeros((96, 8), dtype=torch.float32)
+    _, evs = _profiled(lambda: getattr(dec, call)(x, 90))
+    _one_decimate_span(evs)
+
+
+def test_torch_decimator_call_gives_one_span():
+    dec = Decimator(2, 16, 2, 1.0, 44100, HP_ATH, backend="torch",
+                    device="cpu")
+    _, evs = _profiled(lambda: dec.process(np.zeros((2, 50), np.float32)))
+    _one_decimate_span(evs)
+    host = Decimator(2, 16, 2, 1.0, 44100, HP_ATH)
+    _, evs = _profiled(lambda: host.process(np.zeros((2, 50), np.float32)))
+    assert not _named(evs, spans.DECIMATE)
+
+
+def test_decimate_reader_spells_the_program_span():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "bench_torch" / \
+        "metrics" / "decimate_host_ms.bulk.py"
+    spec = importlib.util.spec_from_file_location("decimate_host_ms", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.DECIMATE == spans.DECIMATE
+
+
 # ------------------------------------------------------------- on a card
 def _card():
     if not torch.cuda.is_available():
@@ -243,3 +291,20 @@ def test_step_kernel_starts_after_its_launch_span():
     # after the i-th launch span whichever events were dropped
     assert len(host) == calls and 1 <= len(device) <= calls, (host, device)
     assert all(d > h for h, d in zip(host, device)), (host, device)
+
+
+@pytest.mark.cuda
+def test_device_decimator_launch_sits_in_its_decimate_span():
+    dev = _card()
+    dec = DeviceDecimator(64, 16, 2, 1.0, 44100, HP_ATH, tracks=32,
+                          device=dev)
+    out = torch.randn((64, 3000), device=dev) * 0.25   # K1's layout
+    dec.process_chunk_async(out.T, 2990)
+    torch.cuda.synchronize()
+    launched = dd.launches["decimate_shaped"]
+    _, evs = _profiled(lambda: dec.process_chunk_async(out.T, 2990))
+    torch.cuda.synchronize()
+    span = _one_decimate_span(evs)
+    (launch,) = _named(evs, spans.LAUNCH + "decimate_shaped")
+    assert _inside(launch, span)
+    assert dd.launches["decimate_shaped"] == launched + 1
