@@ -95,23 +95,39 @@
 //     end, one atomicAdd per CTA.
 //
 // Design of decimate_shaped_kernel (one launch, warp-specialised).  A CTA
-// of 4 warps serves up to 32 channels (more channels take more CTAs; a
-// channel's frames never split, the chain is serial).  Frames move in
-// tiles of `tile` frames through a ring of kStages shared-memory stages,
-// the warps on different tiles at once, each warp on its own scheduler
-// (warp id mod 4):
-//   - warps 1-2, producers: cp.async copies of the samples kAhead tiles
-//     ahead (any strides; each thread copies and later reads only its own
-//     elements), then xs = fl(x * scaler) and the dither d of every frame
-//     into the stage; each thread jumps its LCG once to its first frame
-//     and then takes one affine map per frame of its channel;
+// serves a group of channels: up to 8 channels, one CTA for them all;
+// above, groups of 8 channels, or of 16 where groups of 8 would not fit
+// one wave of one CTA an SM; a channel's frames never split (the chain is
+// serial).  Frames move in tiles of `tile` frames through a ring
+// of kStages shared-memory stages, the warps on different tiles at once.
+// The CTA is kQuads quads of 4 warps (decimate_geometry.h): one quad up to
+// 8 channels, one every 8 channels above (at most 2).  Warp 0 is the chain and the
+// first warp of every other quad idles, so that the chain warp has its
+// scheduler (warp id mod 4) to itself; the other warps are the workers,
+// the producers first:
+//   - the producers (2 warps a quad: warps 1-2 of one quad, 8 threads a
+//     channel from 8 channels up): cp.async copies of the samples kAhead
+//     tiles ahead (any strides; each thread copies and later reads only
+//     its own elements), then xs = fl(x * scaler) and the dither d of
+//     every frame into the stage; each thread jumps its LCG once to its
+//     first frame and then takes one affine map per frame of its channel;
 //   - warp 0, the chain: lane c runs channel c's feedback loop and nothing
 //     else, reading xs and d one batch of 8 frames ahead, the history
 //     terms off the critical path, and writing each frame's rounded value
 //     over its d;
-//   - warp 3, the consumer: clamp, clip count, pack into the stage, and
+//   - the consumers (1 warp a quad: warp 3 of one quad, 4 threads a
+//     channel from 8 channels up): clamp, clip count, pack into the
+//     stage, and, where one quad holds every channel of a dense output,
 //     the finished tile's bytes out as 16-byte stores; one reduction and
-//     at most one atomicAdd a CTA.
+//     at most one atomicAdd a warp.
+// The chain's work a frame is the same at every width (one lane a
+// channel); the producers' and the consumers' grow with the channels each
+// thread serves.  At 32 channels a CTA with one consumer warp the
+// consumer's stores set the pace, 2.7x the chain's time at the batch
+// cell's 2,048 channels (PERF.md).  So above 8 channels each channel keeps
+// the threads it has at 8, and the chain sets the pace.  Each quad count
+// is its own instance, with its own launch bound: one quad keeps the
+// register budget of a 128-thread CTA.
 // The stages hand over through mbarriers (full: producers -> chain, done:
 // chain -> consumer, empty: consumer -> producers), never a CTA-wide
 // barrier inside the loop.  Frames past the last tile holding a frame < K
@@ -584,7 +600,6 @@ __global__ void __launch_bounds__(kFlatThreads, flat_per_sm(sizeof(T)))
 }
 
 // ================================================= decimate_shaped_kernel
-constexpr int kProducers = 64;          // warps 1-2 (decimate_geometry.h)
 constexpr int kBatch = 8;               // frames the chain reads ahead
 
 template <typename T>
@@ -724,8 +739,9 @@ __device__ void zero_tail(long long n, int S, long long covered, int groups,
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
+template <typename T, int kQuads>
+__global__ void __launch_bounds__(kQuads * kQuadThreads)
+    decimate_shaped_kernel(
     const T* __restrict__ x, long long n, int S, long long xsi,
     long long xsc, long long K, T scaler, const T* __restrict__ fb,
     const T* __restrict__ ab, const T* __restrict__ xh,
@@ -733,7 +749,9 @@ __global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
     int dithered, int dither_type, uint32_t* __restrict__ new_gens,
     T* __restrict__ new_fb, T* __restrict__ new_xh, T* __restrict__ new_yh,
     int hi, int lo, Pack pk, uint8_t* __restrict__ out, long long osi,
-    long long osc, int* __restrict__ clips, int groups, int tile) {
+    long long osc, int* __restrict__ clips, int groups, int tile, int chans) {
+    constexpr int kProducers = kQuads * kQuadProducers;
+    constexpr int kConsumers = kQuads * 32;
     extern __shared__ __align__(16) unsigned char smem[];
     const long long ntiles = (K + tile - 1) / tile;
     if (static_cast<int>(blockIdx.x) >= groups) {
@@ -741,10 +759,10 @@ __global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
                   out, osi, osc);
         return;
     }
-    const int c0 = blockIdx.x * kChannels;
-    const int Cb = S - c0 < kChannels ? S - c0 : kChannels;
+    const int c0 = blockIdx.x * chans;
+    const int Cb = S - c0 < chans ? S - c0 : chans;
     const long long slab =
-        static_cast<long long>(tile) * (S < kChannels ? S : kChannels);
+        static_cast<long long>(tile) * (S < chans ? S : chans);
     uint64_t* full = reinterpret_cast<uint64_t*>(smem);
     uint64_t* done = full + kStages;
     uint64_t* empty = done + kStages;
@@ -754,11 +772,14 @@ __global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
         for (int s = 0; s < kStages; ++s) {
             mbar_init(full + s, kProducers);
             mbar_init(done + s, 32);
-            mbar_init(empty + s, 32);
+            mbar_init(empty + s, kConsumers);
         }
     }
     __syncthreads();
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // the workers' index, warps 1-3 of each quad (one quad: threadIdx - 32)
+    const int worker = kQuads == 1 ? static_cast<int>(threadIdx.x) - 32
+                                   : (warp - warp / 4 - 1) * 32 + lane;
     if (warp == 0) {
         // the chain: lane c runs channel c0 + c
         const bool live = lane < Cb;
@@ -791,12 +812,16 @@ __global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
             new_yh[2 * S + c] = st.y2; new_yh[3 * S + c] = st.y3;
             if (dithered) new_gens[c] = lcg_jump(gens[c], 5ull * K);
         }
-    } else if (warp == 3) {
-        // the consumer: clamp, count, pack into the stage's xs, store
-        const bool contig = Cb == S && osc == pk.nbytes &&
+    } else if (kQuads > 1 && warp % 4 == 0) {
+        // idle: the chain's scheduler is the chain warp's alone
+    } else if (worker >= kProducers) {
+        // the consumers: clamp, count, pack into the stage's xs, store
+        const int q = worker - kProducers;
+        // one consumer warp: a split CTA holds only some of the channels
+        const bool contig = kQuads == 1 && Cb == S && osc == pk.nbytes &&
                             osi == static_cast<long long>(S) * pk.nbytes &&
                             reinterpret_cast<uintptr_t>(out) % 16 == 0;
-        const int qi = 32 / Cb, qc = 32 % Cb;
+        const int qi = kConsumers / Cb, qc = kConsumers % Cb;
         int nclip = 0;
         for (long long t = 0; t < ntiles; ++t) {
             const int s = static_cast<int>(t % kStages);
@@ -806,8 +831,11 @@ __global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
             const int kv = K - f0 < nf ? static_cast<int>(K - f0) : nf;
             const T* fl = ring + (2 * s + 1) * slab;
             uint8_t* buf = reinterpret_cast<uint8_t*>(ring + 2 * s * slab);
-            int i = lane / Cb, cl = lane % Cb;
-            for (int e = lane; e < nf * Cb; e += 32) {
+            int i = q / Cb, cl = q % Cb;
+            // unrolled as far as the compiler likes, a split CTA's loop
+            // ran D2's batch call 1.6% slower than unrolled by 1 (PERF.md)
+#pragma unroll (kQuads == 1 ? 2 : 1)
+            for (int e = q; e < nf * Cb; e += kConsumers) {
                 const uint32_t w =
                     slot(pk, i < kv ? clamp_count(fl[e], hi, lo, &nclip) : 0);
                 if (contig)
@@ -823,10 +851,10 @@ __global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
                 __syncwarp();
                 uint8_t* dst = out + f0 * osi;      // 16-byte aligned
                 const int bytes = nf * Cb * pk.nbytes;
-                for (int o = lane * 16; o + 16 <= bytes; o += 32 * 16)
+                for (int o = q * 16; o + 16 <= bytes; o += kConsumers * 16)
                     *reinterpret_cast<uint4*>(dst + o) =
                         *reinterpret_cast<const uint4*>(buf + o);
-                for (int o = (bytes & ~15) + lane; o < bytes; o += 32)
+                for (int o = (bytes & ~15) + q; o < bytes; o += kConsumers)
                     dst[o] = buf[o];
             }
             __syncwarp();
@@ -837,7 +865,7 @@ __global__ void __launch_bounds__(kShapedThreads) decimate_shaped_kernel(
     } else {
         // the producers: tpc threads per channel, thread r of a channel on
         // frames r, r + tpc, ... of every tile
-        const int p = threadIdx.x - 32;
+        const int p = worker;
         int tpc = 1;
         while (2 * tpc * Cb <= kProducers) tpc *= 2;
         const int cl = p / tpc, r = p % tpc;
@@ -943,14 +971,31 @@ int sm_count() {
     return cached[dev];
 }
 
-// the shaped kernel may take up to kSmemBudget bytes of dynamic shared
-// memory: set on every launch, for the current device, to one value (so
-// no cache to keep per device and no race between threads)
-template <typename T>
-int allow_smem() {
-    return cudaFuncSetAttribute(decimate_shaped_kernel<T>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(kSmemBudget));
+// one launch of the shaped kernel's instance of kQuads quads, after
+// letting it take up to kSmemBudget bytes of dynamic shared memory (set on
+// every launch, for the current device, to one value: so no cache to keep
+// per device and no race between threads)
+template <typename T, int kQuads, typename... Args>
+int launch_quads(unsigned blocks, size_t smem, cudaStream_t s,
+                 Args... args) {
+    const int rc = cudaFuncSetAttribute(
+        decimate_shaped_kernel<T, kQuads>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBudget));
+    if (rc) return rc;
+    decimate_shaped_kernel<T, kQuads>
+        <<<blocks, kQuads * kQuadThreads, smem, s>>>(args...);
+    return cudaGetLastError();
+}
+
+template <typename T, typename... Args>
+int launch_shaped(long long quads, unsigned blocks, size_t smem,
+                  cudaStream_t s, Args... args) {
+    switch (quads) {
+        case 1: return launch_quads<T, 1>(blocks, smem, s, args...);
+        case 2: return launch_quads<T, 2>(blocks, smem, s, args...);
+    }
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1040,14 +1085,16 @@ extern "C" int art_decimate_shaped(
         return cudaErrorInvalidValue;
     if (kind != 0 && kind != 1) return cudaErrorInvalidValue;
     if (n == 0) return 0;
-    const ShapedGeometry geo = shaped_geometry(n, S, K, kind == 0 ? 4 : 8);
+    const int sms = sm_count();
+    if (sms <= 0) return cudaErrorInvalidDevice;
+    const ShapedGeometry geo =
+        shaped_geometry(n, S, K, kind == 0 ? 4 : 8, sms);
     if (geo.smem > kSmemBudget) return cudaErrorInvalidValue;
-    const int rc = kind == 0 ? allow_smem<float>() : allow_smem<double>();
-    if (rc) return rc;
     const unsigned blocks = static_cast<unsigned>(geo.groups + geo.zero);
     const size_t smem = static_cast<size_t>(geo.smem);
     const int groups = static_cast<int>(geo.groups);
     const int tile = static_cast<int>(geo.tile);
+    const int chans = static_cast<int>(geo.chans);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* g = static_cast<const uint32_t*>(gens);
     auto* ng = static_cast<uint32_t*>(new_gens);
@@ -1055,23 +1102,22 @@ extern "C" int art_decimate_shaped(
     auto* cl = static_cast<int*>(clips);
     const int Si = static_cast<int>(S);
     if (kind == 0)
-        decimate_shaped_kernel<float><<<blocks, kShapedThreads, smem, s>>>(
-            static_cast<const float*>(x), n, Si, xsi, xsc, K,
-            static_cast<float>(scaler), static_cast<const float*>(fb),
-            static_cast<const float*>(ab), static_cast<const float*>(xh),
-            static_cast<const float*>(yh), g, dithered, dither_type, ng,
-            static_cast<float*>(new_fb), static_cast<float*>(new_xh),
-            static_cast<float*>(new_yh), highclip, lowclip, pk, o, osi, osc,
-            cl, groups, tile);
-    else
-        decimate_shaped_kernel<double><<<blocks, kShapedThreads, smem, s>>>(
-            static_cast<const double*>(x), n, Si, xsi, xsc, K, scaler,
-            static_cast<const double*>(fb), static_cast<const double*>(ab),
-            static_cast<const double*>(xh), static_cast<const double*>(yh),
-            g, dithered, dither_type, ng, static_cast<double*>(new_fb),
-            static_cast<double*>(new_xh), static_cast<double*>(new_yh),
-            highclip, lowclip, pk, o, osi, osc, cl, groups, tile);
-    return cudaGetLastError();
+        return launch_shaped<float>(
+            geo.quads, blocks, smem, s, static_cast<const float*>(x), n, Si,
+            xsi, xsc, K, static_cast<float>(scaler),
+            static_cast<const float*>(fb), static_cast<const float*>(ab),
+            static_cast<const float*>(xh), static_cast<const float*>(yh), g,
+            dithered, dither_type, ng, static_cast<float*>(new_fb),
+            static_cast<float*>(new_xh), static_cast<float*>(new_yh),
+            highclip, lowclip, pk, o, osi, osc, cl, groups, tile, chans);
+    return launch_shaped<double>(
+        geo.quads, blocks, smem, s, static_cast<const double*>(x), n, Si,
+        xsi, xsc, K, scaler, static_cast<const double*>(fb),
+        static_cast<const double*>(ab), static_cast<const double*>(xh),
+        static_cast<const double*>(yh), g, dithered, dither_type, ng,
+        static_cast<double*>(new_fb), static_cast<double*>(new_xh),
+        static_cast<double*>(new_yh), highclip, lowclip, pk, o, osi, osc,
+        cl, groups, tile, chans);
 }
 
 // One launch of decimate_chain_probe_kernel (one thread) on ``in`` [21] of

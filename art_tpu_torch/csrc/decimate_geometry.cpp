@@ -26,22 +26,28 @@ extern "C" int art_decimate_flat_geometry(long long n, long long S,
     return 0;
 }
 
-// The shaped kernel's launch for kind 0 (float32) or 1 (float64): out[0..5]
-// = channel-group CTAs, zero-tail CTAs, tile frames, ring stages, threads,
-// dynamic shared memory bytes.
+// The shaped kernel's launch for kind 0 (float32) or 1 (float64) on
+// ``sms`` SMs: out[0..8] = channel-group CTAs, zero-tail CTAs, tile frames,
+// ring stages, threads, dynamic shared memory bytes, channels a CTA,
+// producer threads a CTA, 1 where the launch takes the many-channel split
+// (more than kSplitFrom channels) else 0.
 extern "C" int art_decimate_shaped_geometry(long long n, long long S,
-                                            long long K, int kind,
+                                            long long K, int kind, int sms,
                                             long long* out) {
-    if (n < 0 || S < 1 || S > (1 << 30) || K < 0 || K > n ||
+    if (n < 0 || S < 1 || S > (1 << 30) || K < 0 || K > n || sms < 1 ||
         (kind != 0 && kind != 1))
         return 1;
-    const ShapedGeometry geo = shaped_geometry(n, S, K, kind == 0 ? 4 : 8);
+    const ShapedGeometry geo =
+        shaped_geometry(n, S, K, kind == 0 ? 4 : 8, sms);
     out[0] = geo.groups;
     out[1] = geo.zero;
     out[2] = geo.tile;
     out[3] = kStages;
-    out[4] = kShapedThreads;
+    out[4] = kQuadThreads * geo.quads;
     out[5] = geo.smem;
+    out[6] = geo.chans;
+    out[7] = kQuadProducers * geo.quads;
+    out[8] = S > kSplitFrom;
     return 0;
 }
 

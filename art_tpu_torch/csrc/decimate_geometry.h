@@ -110,9 +110,15 @@ inline FlatGeometry flat_geometry(long long n, long long S, int sms,
 }
 
 // ========================================= decimate_shaped_kernel's launch
-constexpr int kShapedThreads = 128;     // warp 0 chain, 1-2 producers, 3
-                                        //   consumer
-constexpr int kChannels = 32;           // per CTA: the chain warp's lanes
+// A CTA is quads of 4 warps: the first warp of the first quad is the
+// chain, of every other quad idle, so that the chain warp has its
+// scheduler (warp id mod 4) to itself; the other 3 warps of each quad are
+// workers, 2 producer warps and 1 consumer warp a quad (the producers
+// first, in worker order).
+constexpr int kQuadThreads = 128;
+constexpr int kQuadProducers = 64;
+constexpr int kSplitFrom = 8;           // channels a quad serves
+constexpr int kMaxQuads = 2;            // so at most 16 channels a CTA
 constexpr int kStages = 3;              // the ring: producers -> chain ->
 constexpr int kAhead = 2;               //   consumer; cp.async tiles ahead
 constexpr int kRaw = kAhead + 1;        // stages of copied samples
@@ -122,27 +128,40 @@ constexpr long long kSmemBudget = 200 * 1024;
 constexpr int kMaxZero = 64;            // CTAs packing the zero tail
 
 struct ShapedGeometry {
-    long long groups, zero, tile, smem;
+    long long groups, zero, tile, smem, chans, quads;
 };
 
-// The shaped kernel's launch: a CTA per 32 channels, the largest tile
-// (a power of two in [kMinTile, kMaxTile]) whose ring and copy stages fit
-// kSmemBudget, and CTAs for the zero tail past the last tile holding a
-// frame < K.
+// The shaped kernel's launch.  Up to kSplitFrom channels: one CTA of one
+// quad for them all.  Above, the split: CTAs of 8 channels and one quad,
+// or of 16 channels and 2 quads where CTAs of 8 would not fit one wave of
+// one CTA on each of the ``sms`` SMs (past 16 x sms channels, more waves),
+// so every channel keeps the 8 producer threads and 4 consumer threads it
+// has at 8 channels, and the chain warp, whose work a frame is the same at
+// every width, sets the pace.  The tile is the largest power of two in
+// [kMinTile, kMaxTile] whose ring and copy stages fit kSmemBudget (so one
+// CTA an SM).  CTAs for the zero tail past the last tile holding a frame
+// < K follow the channel groups.
 inline ShapedGeometry shaped_geometry(long long n, long long S, long long K,
-                                      int elem) {
-    const long long cmax = S < kChannels ? S : kChannels;
+                                      int elem, int sms) {
+    long long chans = S, quads = 1;
+    if (S > kSplitFrom) {
+        while (quads < kMaxQuads &&
+               (S + kSplitFrom * quads - 1) / (kSplitFrom * quads) > sms)
+            quads *= 2;
+        chans = kSplitFrom * quads;
+    }
+    const long long cmax = S < chans ? S : chans;
     const long long per_frame = (2 * kStages + kRaw) * cmax * elem;
     long long tile = kMaxTile;
     while (tile > kMinTile && kBarBytes + tile * per_frame > kSmemBudget)
         tile /= 2;
     const long long covered = (K + tile - 1) / tile * tile;
     const long long rest = covered < n ? (n - covered) * S : 0;
-    const long long chunk = 8LL * kShapedThreads;
+    const long long chunk = 8LL * kQuadThreads * quads;
     long long zero = (rest + chunk - 1) / chunk;
     if (zero > kMaxZero) zero = kMaxZero;
-    return {(S + kChannels - 1) / kChannels, zero, tile,
-            kBarBytes + tile * per_frame};
+    return {(S + chans - 1) / chans, zero, tile,
+            kBarBytes + tile * per_frame, chans, quads};
 }
 
 }  // namespace

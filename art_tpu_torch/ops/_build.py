@@ -77,9 +77,10 @@ _GEOMETRY_SIGNATURES = {
     # n, S, kind, SMs, out [6]: the flat kernel's CTAs, threads, run,
     # stride frames, LCG map
     "art_decimate_flat_geometry": [_ll, _ll, _i, _i, _vp],
-    # n, S, K, kind, out [6]: the shaped kernel's groups, zero CTAs, tile,
-    # stages, threads, shared bytes
-    "art_decimate_shaped_geometry": [_ll, _ll, _ll, _i, _vp],
+    # n, S, K, kind, SMs, out [9]: the shaped kernel's groups, zero CTAs,
+    # tile, stages, threads, shared bytes, channels a CTA, producer
+    # threads, whether it splits the channels
+    "art_decimate_shaped_geometry": [_ll, _ll, _ll, _i, _i, _vp],
     # odd, pairs, out [2]: the LCG map of 2 * pairs steps
     "art_decimate_pair_power": [_i, ctypes.c_ulonglong, _vp],
     # M, qn, interp, kind, out [4]: K1's design (1 resident), blocks a

@@ -21,7 +21,9 @@ them and how they are laid out) or raises; a CPU tensor takes the plain
 versions (``decimate_flat_reference``, ``decimate_shaped_reference``).
 At these entry points LCG states are int32 tensors holding the uint32 bits
 (``states_tensor`` / ``states_numpy`` convert).  ``launches`` counts each
-kernel's launches.
+kernel's launches, and under ``decimate_shaped_split`` the shaped launches
+that take the kernel's many-channel work split (``library_geometry``'s
+``split``).
 
 ``library_geometry`` and ``lcg_pair_map`` read the kernels' launch
 geometry and the LCG's stride map from the host code their launches use
@@ -43,7 +45,8 @@ from ..utils.spans import LAUNCH, span
 from . import _build
 from .decimate_kernel import _INV15_32, _M32
 
-launches = {"decimate_flat": 0, "decimate_shaped": 0}
+launches = {"decimate_flat": 0, "decimate_shaped": 0,
+            "decimate_shaped_split": 0}
 
 _MASK = 0xFFFFFFFF
 # the per-channel containers of 1, 2 and 4 packed bytes
@@ -443,6 +446,7 @@ def decimate_shaped(samples, K: int, *, scaler: float, a, b, xh, yh,
                 osi, osc, clips.data_ptr(), stream)
         _raise_on(rc, "decimate_shaped", n, S, dt)
         launches["decimate_shaped"] += 1
+        launches["decimate_shaped_split"] += _splits(S)
         return out, clips, new_gens, new_fb, new_xh, new_yh
 
 
@@ -465,21 +469,33 @@ def library_geometry(n: int, S: int, K: int, dtype, sms: int) -> dict:
     host, no card needed): {"flat": {ctas, threads, run (elements a lane
     takes at once), frames (the lanes' stride, 0 for one run a lane or a
     jump a run), a, b (the LCG map of 5 * frames steps, as
-    lcg_pair_map)}, "shaped": {groups (CTAs of 32 channels), zero (CTAs
-    packing the zero tail), tile (frames), stages, threads, smem (dynamic
-    shared memory bytes)}}."""
+    lcg_pair_map)}, "shaped": {groups (CTAs of ``chans`` channels), zero
+    (CTAs packing the zero tail), tile (frames), stages, threads, smem
+    (dynamic shared memory bytes), chans (channels a CTA), producers
+    (producer threads a CTA: a CTA is threads / 128 quads of 4 warps, a
+    chain or idle warp, 2 producer warps and a consumer warp), split (1
+    where the launch takes the many-channel split, which depends on S
+    alone)}}."""
     lib = _build.geometry_library()
     fo = (ctypes.c_longlong * 6)()
-    so = (ctypes.c_longlong * 6)()
+    so = (ctypes.c_longlong * 9)()
     rc = lib.art_decimate_flat_geometry(n, S, _KINDS[dtype], sms, fo) or \
-        lib.art_decimate_shaped_geometry(n, S, K, _KINDS[dtype], so)
+        lib.art_decimate_shaped_geometry(n, S, K, _KINDS[dtype], sms, so)
     if rc:
         raise ValueError(f"the decimate kernels take no n={n}, S={S}, "
                          f"K={K}, sms={sms}")
     return dict(flat=dict(zip(("ctas", "threads", "run", "frames", "a", "b"),
                               fo)),
                 shaped=dict(zip(("groups", "zero", "tile", "stages",
-                                 "threads", "smem"), so)))
+                                 "threads", "smem", "chans", "producers",
+                                 "split"), so)))
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(S: int) -> int:
+    """1 where a shaped launch of S channels takes the many-channel split
+    (on any card and at any length), else 0."""
+    return library_geometry(0, S, 0, torch.float32, 1)["shaped"]["split"]
 
 
 # ------------------------------------------------ the shaped chain's probe

@@ -345,15 +345,16 @@ def phase_build():
     if _build.build_log:        # empty when an earlier process built it
         # 20 fixed_step_kernel instances (the template's 18: float,
         # float-with-double accumulators and double, reduced and
-        # interpolated, 3 tiles; the resident design's 2), 4 ASRC ones (step and apply, float32 and float64), 6 decimate ones
-        # (the flat and shaped kernels and the shaped chain's probe, float
-        # and double), 2 biquad ones (the span kernel, float and double)
+        # interpolated, 3 tiles; the resident design's 2), 4 ASRC ones (step and apply, float32 and float64), 10 decimate ones
+        # (the flat kernel and the shaped chain's probe, float and double;
+        # the shaped kernel's 1 and 2 quads, float and double), 2
+        # biquad ones (the span kernel, float and double)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 32 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 34 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
-    _require_no_fma("decimate", 6)
+    _require_no_fma("decimate", 8)
 
 
 def _cuobjdump() -> str:
@@ -895,7 +896,8 @@ def phase_group_forms(dev, n_target=1 << 22, G=8, ctor=HEAD, **opts):
         want_dec = int("packed" in name)
         _require(dev.type != "cuda"
                  or dd.launches == {"decimate_flat": want_dec,
-                                    "decimate_shaped": 0},
+                                    "decimate_shaped": 0,
+                                    "decimate_shaped_split": 0},
                  f"{name}: decimate launches {dd.launches}")
         _add_dec_launches()
         return r
@@ -1422,8 +1424,10 @@ def _reset_launches():
 
 # the decimate kernels' launches on the main paths (process_flat_packed's
 # epilogue, DeviceDecimator, pipeline_chunk, the art command), each read
-# right after its path ran with the counts set to 0 before it
-DEC_PATH_LAUNCHES = {"decimate_flat": 0, "decimate_shaped": 0}
+# right after its path ran with the counts set to 0 before it; none of
+# them has more than 8 channels, so none takes the shaped kernel's split
+DEC_PATH_LAUNCHES = {"decimate_flat": 0, "decimate_shaped": 0,
+                     "decimate_shaped_split": 0}
 
 
 def _add_dec_launches():
@@ -2021,14 +2025,18 @@ def phase_decimate_kernels(dev, n_target=1 << 22, block=16384):
 
 def _shaped_widths(dev, block, K):
     """The shaped kernel beyond stereo, bitwise against its plain version:
-    S = 6 (one CTA) and S = 33 (two, the second chain warp with one lane)
-    with K past the ring's last stage; then the art block cut into 3
-    calls, whose bytes, clips and final state must equal one call's.
-    Returns max |kernel - plain| over packed bytes."""
+    S = 6 (one CTA) and S = 33 (the many-channel split, the last CTA's
+    chain warp with one lane) with K past the ring's last stage, and the
+    batch cell's whole call (_batch_shaped: 2,048 channels, 30,135 frames,
+    HP dither, ATH shaping, so the ring turns ~40 times); then the art
+    block cut into 3 calls, whose bytes, clips and final state must equal
+    one call's.  Returns max |kernel - plain| over packed bytes."""
     worst = 0.0
     sh = _host_decimator(HP | ATH).noise_shaper
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 132
     for S, dtype in ((6, torch.float32), (33, torch.float64)):
-        tile = dd.library_geometry(0, S, 0, dtype, 1)["shaped"]["tile"]
+        tile = dd.library_geometry(0, S, 0, dtype, sms)["shaped"]["tile"]
         n, Ks = 3 * tile + 500, 2 * tile + tile // 2 + 7
         x = _noise_dev(dev, (S, n), 90 + S, 0.6, dtype).T
         rng = np.random.default_rng(S)
@@ -2047,6 +2055,16 @@ def _shaped_widths(dev, block, K):
               f"{err:g}")
         _require(same, f"decimate_shaped vs plain at S = {S}")
         worst = max(worst, err)
+    xb, bkw = _batch_shaped(dev)
+    geo = dd.library_geometry(BATCH_K, BATCH_S, BATCH_K, torch.float32,
+                              sms)["shaped"]
+    same, err = _vs_plain(dd.decimate_shaped, dd.decimate_shaped_reference,
+                          xb, BATCH_K, bkw)
+    print(f"  decimate_shaped, the batch cell's call ({BATCH_S} x {BATCH_K},"
+          f" HP, ATH; {geo['groups']} CTAs of {geo['chans']} channels, tile "
+          f"{geo['tile']}): bitwise {same}, max|kernel - plain| {err:g}")
+    _require(same, "decimate_shaped vs plain at the batch cell's call")
+    worst = max(worst, err)
     kw = _dec_kw(_host_decimator(HP | ATH), dev)
     whole = dd.decimate_shaped(block, K, **kw)
     parts, clips = [], 0
@@ -2081,7 +2099,8 @@ def phase_decimate_geometry(dev, n_target=1 << 22, block=16384):
     Kb = _steady_chunk(HEAD, dev, block)[2]
     shapes = [("2^22 stereo chunk", n_target, 2, n_target),
               ("art's block", Kb, 2, Kb), ("5.1 art block", Kb, 6, Kb),
-              ("33 channels, n >> K", 100_000, 33, 1000)]
+              ("33 channels, n >> K", 100_000, 33, 1000),
+              ("the batch cell's call", BATCH_K, BATCH_S, BATCH_K)]
     for label, n, S, K in shapes:
         for dtype in (torch.float32, torch.float64):
             geo = dd.library_geometry(n, S, K, dtype, sms)
@@ -2091,7 +2110,8 @@ def phase_decimate_geometry(dev, n_target=1 << 22, block=16384):
                   f"runs of {fg['run']} elements, stride "
                   f"{fg['frames'] or 'none'} frames ({sms} SMs); "
                   f"decimate_shaped {sg['groups']} + {sg['zero']} zero-tail "
-                  f"CTAs of {sg['threads']}, tile {sg['tile']} frames, "
+                  f"CTAs of {sg['threads']} ({sg['chans']} channels, "
+                  f"{sg['producers']} producers), tile {sg['tile']} frames, "
                   f"{sg['stages']} stages, {sg['smem']} B shared")
     regs, spills = _registers(_build.build_log), _spills(_build.build_log)
     print("  registers (spill store, load bytes): " + (", ".join(
@@ -2099,12 +2119,30 @@ def phase_decimate_geometry(dev, n_target=1 << 22, block=16384):
         if "decimate" in k) or "not in this process's build log"))
 
 
-def decimate_hashes(dev, n_target=1 << 22, block=16384):
+# the batch cell's D2 call (p2_cd16_1024trk): 1,024 stereo tracks, one
+# group of 30,135 output frames a channel from K1's [ch, cap] output
+BATCH_S, BATCH_K = 2048, 30135
+
+
+def _batch_shaped(dev, batch=(BATCH_S, BATCH_K)):
+    """D2's arguments at the batch cell's shape (``batch``: channels,
+    frames): K1's [S, K] output (std 0.25) read as [K, S], 16 bits, HP
+    dither and the 44.1 kHz ATH shaper of an S-channel decimator."""
+    from art_tpu_torch.engines.decimator import Decimator
+    host = Decimator(batch[0], 16, 2, 1.0, 44100, HP | ATH,
+                     dtype=np.float32)
+    x = _noise_dev(dev, batch, 77, 0.25).T
+    return x, _dec_kw(host, dev)
+
+
+def decimate_hashes(dev, n_target=1 << 22, block=16384,
+                    batch=(BATCH_S, BATCH_K)):
     """sha256 of the flat kernel's packed 2^22-frame stereo chunk (16
-    bits, HP dither, K1's layout) with its clips and LCG states, and of
-    the shaped kernel's packed art block (ATH, HP, 16 bits) with its clips,
-    LCG and shaper states: entry points every tree with the decimate stage
-    has, so an older checkout prints its own (--decimate-times)."""
+    bits, HP dither, K1's layout) with its clips and LCG states, of the
+    shaped kernel's packed art block (ATH, HP, 16 bits) with its clips,
+    LCG and shaper states, and of its call at the batch cell's shape
+    (_batch_shaped): entry points every tree with the decimate stage has,
+    so an older checkout prints its own (--decimate-times)."""
     buf = _noise_dev(dev, (2, n_target), 74, 0.6)
     flat = dd.decimate_flat(buf.T, n_target, **_dec_kw(
         _host_decimator(HP), dev))
@@ -2113,6 +2151,8 @@ def decimate_hashes(dev, n_target=1 << 22, block=16384):
                         start, Kb, torch.zeros((), device=dev), **kw1)[1]
     shaped = dd.decimate_shaped(out.T, Kb, **_dec_kw(
         _host_decimator(HP | ATH), dev))
+    xb, bkw = _batch_shaped(dev, batch)
+    batch = dd.decimate_shaped(xb, xb.shape[0], **bkw)
     _sync(dev)
 
     def sha(ts):
@@ -2121,7 +2161,8 @@ def decimate_hashes(dev, n_target=1 << 22, block=16384):
             h.update(t.contiguous().cpu().numpy().tobytes())
         return h.hexdigest()
     return {"decimate_flat 2^22 chunk": sha(flat),
-            "decimate_shaped art block": sha(shaped)}
+            "decimate_shaped art block": sha(shaped),
+            "decimate_shaped batch": sha(batch)}
 
 
 def phase_decimate_paths(dev, seconds=60, block=16384, n_target=1 << 22):
@@ -2274,16 +2315,19 @@ def _kernel_device_ms(dev, fn, calls, kernel):
     return us / count / 1e3 if us and count else float("nan")
 
 
-def decimate_times(dev, n_target=1 << 22, block=16384, group=8, seconds=60):
+def decimate_times(dev, n_target=1 << 22, block=16384, group=8, seconds=60,
+                   batch=(BATCH_S, BATCH_K)):
     """The decimate stage's times, on entry points every tree with the
     decimate stage has (so the A/B runs it on an older tree too): for the
     flat kernel on a 2^22-frame stereo chunk (16 bits, HP, K1's layout),
     process_flat_packed's int16 epilogue on a group of 8 preset -3 chunks
     and the shaped kernel on art's block, the ms a call (CUDA events, back
     to back) and the kernel's device ms with the L2 flushed
-    (_kernel_device_ms); the shaped kernel's ms a call on the 2^22 chunk;
-    the M frames/s of Decimator(backend="torch") and of the native host
-    over phase 15's stream (ATH, HP, 16 bits, 16,384-frame calls)."""
+    (_kernel_device_ms), and the same at the batch cell's shape
+    (_batch_shaped: 2,048 channels x 30,135 frames); the shaped kernel's
+    ms a call on the 2^22 chunk; the M frames/s of
+    Decimator(backend="torch") and of the native host over phase 15's
+    stream (ATH, HP, 16 bits, 16,384-frame calls)."""
     from art_tpu_torch import Decimator
     times = {}
 
@@ -2309,6 +2353,9 @@ def decimate_times(dev, n_target=1 << 22, block=16384, group=8, seconds=60):
     skw = _dec_kw(_host_decimator(HP | ATH), dev)
     timed("decimate_shaped block", lambda: dd.decimate_shaped(
         out.T, Kb, **skw), 10, shaped)
+    xb, bkw = _batch_shaped(dev, batch)
+    timed("decimate_shaped batch", lambda: dd.decimate_shaped(
+        xb, batch[1], **bkw), 10, shaped)
     times["decimate_shaped chunk: ms a call"] = _time_ms(
         dev, lambda: dd.decimate_shaped(buf.T, n_target, **skw), 2)
     frames = np.ascontiguousarray(roundtrip.artest_noise(seconds).T)
@@ -3592,8 +3639,11 @@ def main(argv) -> int:
     phase_decimate_paths(dev)
     print(f"  the decimate kernels' launches on the main paths: "
           f"{DEC_PATH_LAUNCHES}")
-    _require(dev.type != "cuda" or all(DEC_PATH_LAUNCHES.values()),
-             "a decimate kernel was not launched on its paths")
+    _require(dev.type != "cuda" or (
+        DEC_PATH_LAUNCHES["decimate_flat"] and
+        DEC_PATH_LAUNCHES["decimate_shaped"] and
+        not DEC_PATH_LAUNCHES["decimate_shaped_split"]),
+        "a decimate kernel was not launched on its paths, or the split was")
     dec_timed = phase_decimate_timing(dev, tag)
     print("phase 14: the biquad cascade: the kernel vs plain PyTorch, "
           "DeviceBiquadCascade vs the native host over 60 s, BASELINE "

@@ -863,7 +863,15 @@ DEC_SHAPED_GEO = [(1, torch.float32, 0, "ath", 6000, "last"),
                   (2, torch.float32, 0, "ath", 3000, "zero"),
                   (6, torch.float32, -1, "2nd", 2000, "last"),
                   (33, torch.float32, None, "ath", 1000, 700),
-                  (33, torch.float64, 1, "2nd", 800, "last")]
+                  (33, torch.float64, 1, "2nd", 800, "last"),
+                  (16, torch.float32, 0, "ath", 3000, "last"),
+                  (17, torch.float32, 1, "2nd", 2500, "first"),
+                  (64, torch.float32, -1, "ath", 3000, "last"),
+                  (64, torch.float64, 0, "2nd", 1500, "last"),
+                  (2048, torch.float32, -1, "ath", 3000, "last"),
+                  (2048, torch.float32, -1, "ath", 3000, "n"),
+                  (2200, torch.float32, 1, "2nd", 1000, "last"),
+                  (4225, torch.float64, 0, "ath", 400, "last")]
 
 
 def _shaped_kw(dev, S, dtype, dither_type, curve, seed):
@@ -889,14 +897,20 @@ def _shaped_kw(dev, S, dtype, dither_type, curve, seed):
     for c in DEC_SHAPED_GEO])
 def test_decimate_shaped_kernel_geometry(case):
     """The warp-specialised shaped kernel against its plain version,
-    bitwise, across its geometry: one and two chain warps (S = 33), K = 0,
-    K inside the first tile and inside the ring's last stage, n >> K (the
-    zero-tail CTAs), float64, dither types -1, 0 and 1 and none, ATH and
-    2nd-order shapers."""
+    bitwise, across its geometry: one CTA (S <= 8) and the many-channel
+    split (CTAs of 8 channels at S = 16, 17, 33 and 64, the last CTA of
+    17 and 33 with 1 channel; of 16 at 2,048, the batch cell's shape:
+    K1's [ch, cap] output read as [K, S], 16 bits, HP dither, ATH shaping,
+    K in the third tile and K = n past 4 turns of the ring; of 16 at
+    2,200 and 4,225, in more than one wave, the last CTA of 4,225 with 1
+    channel), K = 0, K inside the first tile and inside the ring's last
+    stage, n >> K (the zero-tail CTAs), float64, dither types -1, 0 and 1
+    and none, ATH and 2nd-order shapers."""
     from art_tpu_torch.ops import decimate_device as dd
     dev = _card()
     S, dtype, dither_type, curve, n, where = case
-    tile = dd.library_geometry(n, S, n, dtype, 1)["shaped"]["tile"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = dd.library_geometry(n, S, n, dtype, sms)["shaped"]["tile"]
     K = {"first": tile // 2 + 3, "last": 2 * tile + tile // 3, "zero": 0,
          "n": n}.get(where, where)
     assert K <= n
@@ -911,16 +925,26 @@ def test_decimate_shaped_kernel_geometry(case):
         assert _bits_equal(g, w)
 
 
-def test_decimate_shaped_stream_in_three_calls_equals_one():
+@pytest.mark.parametrize("S", [2, 2048])
+def test_decimate_shaped_stream_in_three_calls_equals_one(S):
     """A stream cut into 3 calls (cuts inside tiles) gives the bytes, clip
-    count and final state of one call over it."""
+    count and final state of one call over it, and that call those of the
+    plain version: stereo with flat dither, and 2,048 channels in the
+    batch cell's layout (K1's [ch, cap] output read as [K, S]) with HP
+    dither."""
     from art_tpu_torch.ops import decimate_device as dd
     dev = _card()
     n = 9000
-    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        (n, 2)) * 0.7).to(dev, torch.float32)
-    kw = _shaped_kw(dev, 2, torch.float32, 0, "ath", 3)
+    rng = np.random.default_rng(3)
+    if S == 2:
+        x = torch.from_numpy(rng.standard_normal((n, 2)) * 0.7).to(
+            dev, torch.float32)
+    else:
+        x = torch.from_numpy(rng.standard_normal((S, n)) * 0.7).to(
+            dev, torch.float32).T
+    kw = _shaped_kw(dev, S, torch.float32, 0 if S == 2 else -1, "ath", 3)
     whole = dd.decimate_shaped(x, n, **kw)
+    plain = dd.decimate_shaped_reference(x, n, **kw)
     state = {k: kw[k] for k in ("gens", "feedback", "xh", "yh")}
     parts, clips = [], 0
     for lo, hi in ((0, 1500), (1500, 5333), (5333, n)):
@@ -934,6 +958,27 @@ def test_decimate_shaped_stream_in_three_calls_equals_one():
     for g, w in zip((state["gens"], state["feedback"], state["xh"],
                      state["yh"]), whole[2:]):
         assert _bits_equal(g, w)
+    assert int(whole[1]) == int(plain[1])
+    for g, w in zip(whole, plain):
+        assert _bits_equal(g, w)
+
+
+def test_decimate_shaped_split_counts_many_channels():
+    """launches["decimate_shaped_split"] counts a launch of 2,048 channels
+    (the many-channel split) and not one of 2; "decimate_shaped" counts
+    both."""
+    from art_tpu_torch.ops import decimate_device as dd
+    dev = _card()
+    for S, split in ((2, 0), (2048, 1), (2, 0)):
+        x = torch.from_numpy(np.random.default_rng(S).standard_normal(
+            (S, 1000)) * 0.5).to(dev, torch.float32).T
+        before = dict(dd.launches)
+        dd.decimate_shaped(x, 1000, **_shaped_kw(dev, S, torch.float32, -1,
+                                                 "ath", S))
+        assert dd.launches["decimate_shaped"] == \
+            before["decimate_shaped"] + 1
+        assert dd.launches["decimate_shaped_split"] == \
+            before["decimate_shaped_split"] + split
 
 
 # (S, input layout, bits, bytes, planar, dither type, n, K cut)

@@ -534,32 +534,90 @@ def test_flat_geometry_strides_keep_channel_and_parity(n, S, sms, itemsize):
                 _lcg_steps(g, 5 * geo["frames"])
 
 
+def _producer_share(cb: int, producers: int) -> int:
+    """The shaped kernel's producer threads a channel in a CTA of ``cb``
+    channels (decimate.cu's tpc)."""
+    tpc = 1
+    while 2 * tpc * cb <= producers:
+        tpc *= 2
+    return tpc
+
+
+def _unsplit_geometry(n, S, K, itemsize):
+    """The shaped kernel's launch at S <= 8 channels, as it was before the
+    many-channel split: one CTA of 128 threads (64 producers), the largest
+    power-of-two tile in [64, 2048] whose 3 ring stages of xs and d and 3
+    copy stages fit 200 KB, zero-tail CTAs of 8 x 128 slots (at most
+    64)."""
+    per_frame = 9 * S * itemsize
+    tile = 2048
+    while tile > 64 and 128 + tile * per_frame > 200 * 1024:
+        tile //= 2
+    covered = -(-K // tile) * tile
+    rest = (n - covered) * S if covered < n else 0
+    return dict(groups=1, zero=min(-(-rest // 1024), 64), tile=tile,
+                stages=3, threads=128, smem=128 + tile * per_frame,
+                chans=S, producers=64, split=0)
+
+
 @pytest.mark.parametrize("itemsize", [4, 8])
-@pytest.mark.parametrize("S", [1, 2, 6, 32, 33, 64, 4097])
+@pytest.mark.parametrize("S", [1, 2, 6, 16, 17, 32, 33, 64, 2048, 4097])
 def test_shaped_geometry_fits(S, itemsize):
-    """The shaped kernel's launch (decimate_geometry.h): a CTA per 32
-    channels, a power-of-two tile whose ring (xs and d a stage) and 3 copy
-    stages fit the card's 227 KB a block (and a multiple of every
-    channel's producer share), the zero tail's CTAs only where frames past
-    the last tile holding a frame < K exist."""
+    """The shaped kernel's launch (decimate_geometry.h) on 132 SMs: up to
+    8 channels exactly the one-CTA launch it had before the split; above,
+    CTAs of 8 or 16 channels in quads of 4 warps (one a chain or idle,
+    three workers), every channel with at least 8 producer threads and 4
+    consumer threads, an SM holding at least one CTA within its 228 KB of
+    shared memory (1 KB a CTA the runtime's) and its 2,048 threads, and
+    the channel groups in one wave of those up to 2,112 channels; always a
+    power-of-two tile that is a
+    multiple of every channel's producer share, shared memory within the
+    200 KB budget, and zero-tail CTAs only where frames past the last tile
+    holding a frame < K exist."""
     dtype = torch.float32 if itemsize == 4 else torch.float64
+    sms = 132
     for n, K in ((17760, 17760), (1 << 22, 1 << 22), (200_000, 1000),
                  (5000, 0), (0, 0)):
-        geo = dd.library_geometry(n, S, K, dtype, 132)["shaped"]
-        tile = geo["tile"]
-        assert geo["groups"] == -(-S // 32)
+        geo = dd.library_geometry(n, S, K, dtype, sms)["shaped"]
+        tile, chans, producers = geo["tile"], geo["chans"], geo["producers"]
+        if S <= 8:
+            assert geo == _unsplit_geometry(n, S, K, itemsize)
+            continue
+        threads = geo["threads"]
+        consumers = threads // 4 * 3 - producers
+        assert threads % 128 == 0 and threads <= 256 and geo["split"] == 1
+        assert producers >= 8 * chans and consumers >= 4 * chans
+        assert producers % 32 == 0 and consumers % 32 == 0
+        assert geo["groups"] == -(-S // chans) and chans in (8, 16)
         assert tile & (tile - 1) == 0 and 64 <= tile <= 2048
-        assert geo["smem"] <= 227 * 1024
-        cmax = min(S, 32)
-        assert geo["smem"] == 128 + tile * cmax * itemsize * (
-            2 * geo["stages"] + 3)
-        for cb in range(1, cmax + 1):
-            tpc = 1
-            while 2 * tpc * cb <= 64:
-                tpc *= 2
-            assert tile % tpc == 0
+        assert geo["smem"] == 128 + tile * min(S, chans) * itemsize * (
+            2 * geo["stages"] + 3) <= 200 * 1024
+        last = S - (geo["groups"] - 1) * chans
+        for cb in {chans, last}:
+            tpc = _producer_share(cb, producers)
+            assert tpc >= 8 and tile % tpc == 0
+        fits = min(228 * 1024 // (geo["smem"] + 1024), 2048 // threads)
+        assert fits >= 1
+        if S <= 16 * sms:
+            assert geo["groups"] <= fits * sms
         covered = -(-K // tile) * tile
         assert (geo["zero"] > 0) == (covered < n) and geo["zero"] <= 64
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_shaped_split_starts_where_the_counter_says(dtype):
+    """``launches["decimate_shaped_split"]`` counts a launch where the
+    geometry reports ``split``: exactly the launches whose geometry is not
+    the one-CTA launch, on any SM count and at any length."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for sms in (1, 132):
+        for S in [*range(1, 41), 1055, 1056, 1057, 2112, 2113, 4097]:
+            geo = dd.library_geometry(3000, S, 1000, dtype, sms)["shaped"]
+            unsplit = _unsplit_geometry(3000, S, 1000, itemsize)
+            split = geo.pop("split")
+            assert split == dd._splits(S)
+            assert split == (geo != {k: v for k, v in unsplit.items()
+                                     if k != "split"})
 
 
 def test_geometry_refuses_what_the_kernels_do_not_take():
