@@ -9,11 +9,21 @@ the port:
   is pinned to "highest".
 - A CUDA request without a usable card raises.  Nothing falls back to the
   CPU silently: a CPU tensor is only ever the caller's explicit choice.
+
+The engines' data types and host uploads also live here: ``torch_dtype``
+maps the two data types they take, ``to_device`` copies a host array to
+the engine's device inside an upload span.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .utils.spans import UPLOAD, span
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
 
 
 def pin_ieee_fp32() -> None:
@@ -37,3 +47,19 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device type {dev.type!r} "
                          "(cpu or cuda)")
     return dev
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch type of an engine's numpy data type ``dtype``; raises
+    unless it is float32 or float64."""
+    t = _TORCH_DTYPES.get(np.dtype(dtype))
+    if t is None:
+        raise ValueError(f"dtype must be float32 or float64, got "
+                         f"{np.dtype(dtype)}")
+    return t
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """The host array ``a`` copied to ``device``, in an upload span."""
+    with span(UPLOAD):
+        return torch.from_numpy(a).to(device)

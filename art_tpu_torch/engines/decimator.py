@@ -43,7 +43,7 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, torch_dtype
 from ..core.flags import (DITHER_ENABLED, DITHER_FLAT, DITHER_HIGHPASS,
                           DITHER_LOWPASS, SHAPING_1ST_ORDER,
                           SHAPING_2ND_ORDER, SHAPING_3RD_ORDER,
@@ -278,8 +278,7 @@ class DeviceDecimator:
         self.output_bits = output_bits
         self.output_bytes = output_bytes
         self.dtype = np.dtype(dtype)
-        self._tdtype = {np.dtype(np.float32): torch.float32,
-                        np.dtype(np.float64): torch.float64}[self.dtype]
+        self._tdtype = torch_dtype(self.dtype)
         self.scaler = host.scaler
         self.highclip, self.lowclip = host.highclip, host.lowclip
         self.dithered = bool(flags & DITHER_ENABLED)

@@ -8,7 +8,8 @@ computes, what bounds it and how it is laid out); the history concat, the
 power sum and the history advance stay plain PyTorch around the launch, as
 they sit outside the ``pallas_call`` in JAX.  ``fixed_step_window`` is the
 contraction alone over a window buffer that already holds the history (the
-group forms' shared buffer).
+group forms' shared buffer), and ``fixed_step_group`` the delivering group
+forms' G periodic chunks of one such buffer.
 
 Three instances of the kernel serve the engine's precision tiers, chosen by
 the data's type and ``precise``: float32 (``"f32"``), float32 data with each
@@ -19,6 +20,15 @@ data (``"f64"``, where ``precise`` changes nothing).
 ``polyphase_apply`` is the counterpart of
 ``art_tpu/ops/pallas_kernels.py::polyphase_apply_pallas`` (K6): the same
 contraction with ``start = 0``, nothing masked and an arbitrary dense P.
+
+The plain version is the counterpart of ``art_tpu/parallel/pipeline.py``'s
+``_window_and_hist``, ``_mask_outputs`` and ``_resample_block`` with the
+contraction of ``residue_window_dots`` (``window_at`` .. ``resample_block``
+below).  On the TPU the residue split exists to avoid a gather: here
+``Tensor.unfold(1, qn*M, M)`` is exactly the overlapping ``[ch, nb, qn*M]``
+window view, so one matmul does the contraction.  float64 data runs in
+float64 throughout; ``precise`` (float32 data) accumulates each dot in
+float64 and rounds it once, as ``residue_window_dots(precise=True)`` does.
 
 A CPU tensor takes the plain version (``*_reference``); a CUDA tensor
 launches the kernel or raises.  ``launches`` counts K1's launches through
@@ -36,7 +46,6 @@ import ctypes
 
 import torch
 
-from ..parallel.pipeline import resample_block, window_at, window_dots
 from ..utils.spans import LAUNCH, span
 from . import _build
 
@@ -57,6 +66,76 @@ def instance(dtype, precise: bool = False) -> str:
     if dtype == torch.float32:
         return "f32_acc64" if precise else "f32"
     raise ValueError(f"K1 takes float32 or float64 data, got {dtype}")
+
+
+# ------------------------------------------------------- plain version
+def window_at(buf, start: int, xlen: int):
+    """``xlen`` samples of ``buf`` [S, W] from column ``start``, reads past
+    the end zero.  ``jax.lax.dynamic_slice`` clamps an out-of-range start;
+    here it raises instead, since the accounting never produces one."""
+    W = buf.shape[1]
+    if not 0 <= start <= W:
+        raise ValueError(f"window start {start} outside [0, {W}]")
+    win = buf[:, start:start + xlen]
+    if win.shape[1] < xlen:
+        win = torch.nn.functional.pad(win, (0, xlen - win.shape[1]))
+    return win
+
+
+def window_and_hist(x, hist, start: int, xlen: int, hist_len: int):
+    """History concat -> window of ``xlen`` samples at ``start`` (reads past
+    the end are zero) and the advanced history (the last ``hist_len``
+    columns of history + input)."""
+    buf = torch.cat([hist, x], dim=1)
+    return (window_at(buf, start, xlen),
+            buf[:, buf.shape[1] - hist_len:].contiguous())
+
+
+def mask_outputs(out, K: int, nb: int, L: int):
+    """Flatten [S, nb, L] output blocks and zero the entries at and beyond
+    K."""
+    out = out.reshape(out.shape[0], nb * L)
+    valid = torch.arange(nb * L, device=out.device) < K
+    return out * valid.to(out.dtype)
+
+
+def window_dots(win, P, K: int, *, M: int, L: int, nb: int, qn: int,
+                fracv=None, precise: bool = False):
+    """The contraction over a window: output block i < nb is
+    ``win[i*M : i*M + qn*M] @ P``; with ``fracv`` P stacks two phase banks
+    [qn*M, 2L] whose dots are lerped per phase.  ``precise`` (float32
+    data): each dot is taken in float64 and rounded once to float32, then
+    the banks are lerped in float32 with one rounding of the sum, as JAX's
+    graph does.  Returns out [S, nb*L] zeroed at and beyond K."""
+    u = win[:, :(nb - 1) * M + qn * M].unfold(1, qn * M, M)
+    if precise and win.dtype == torch.float32:
+        d = (u.double() @ P.double()).float()
+        if fracv is not None:
+            # JAX's graph lerps the rounded dots as fma(d1, 1 - f, d2 * f):
+            # XLA contracts it (measured on XLA:CPU, bitwise); d1 * (1 - f)
+            # is exact in float64, so the float64 sum rounded to float32 is
+            # that fma (but where the float64 sum itself rounds onto a
+            # float32 tie)
+            d = (d[:, :, :L].double() * (1.0 - fracv).double()
+                 + (d[:, :, L:] * fracv).double()).float()
+            return mask_outputs(d, K, nb, L)
+    else:
+        d = u @ P
+    if fracv is not None:
+        d = d[:, :, :L] * (1.0 - fracv) + d[:, :, L:] * fracv
+    return mask_outputs(d, K, nb, L)
+
+
+def resample_block(x, hist, P, start: int, K: int, *, M: int, L: int,
+                   nb: int, qn: int, hist_len: int, fracv=None,
+                   precise: bool = False):
+    """One chunk's contraction (``window_dots`` over the window of
+    history + x at ``start``).  Returns (out [S, nb*L] zeroed beyond K,
+    new_hist)."""
+    win, new_hist = window_and_hist(x, hist, start, (nb - 1) * M + qn * M,
+                                    hist_len)
+    return window_dots(win, P, K, M=M, L=L, nb=nb, qn=qn, fracv=fracv,
+                       precise=precise), new_hist
 
 
 def fixed_step_reference(hist, x, P, start: int, K: int, acc, *, M: int,
@@ -160,6 +239,26 @@ def fixed_step_window(buf, P, start: int, K: int, *, M: int, L: int,
                            precise=precise)
     return fixed_step_kernel(buf, P, start, K, M=M, L=L, nb=nb, qn=qn,
                              fracv=fracv, precise=precise)
+
+
+def fixed_step_group(buf, P, start0: int, K0: int, *, G: int, n_in: int,
+                     M: int, L: int, nb: int, qn: int, fracv=None,
+                     precise: bool = False):
+    """The valid outputs of G periodic chunks of ``n_in`` inputs each,
+    [ch, G*K0], chunk g's window starting at ``start0 + g*n_in`` in
+    ``buf``.  On the CPU the plain version chunk by chunk, at a chunk
+    step's shapes.  On a card one K1 launch over G*nb blocks: a periodic
+    plan has n_in = nb*M and K0 = nb*L, so chunk g's blocks are block rows
+    g*nb.. of ``buf`` and nothing inside the group is masked."""
+    kw = dict(M=M, L=L, qn=qn, fracv=fracv, precise=precise)
+    if buf.device.type == "cpu":
+        return torch.cat([
+            fixed_step_window(buf, P, start0 + g * n_in, K0, nb=nb,
+                              **kw)[:, :K0] for g in range(G)], dim=1)
+    if K0 != nb * L or n_in != nb * M:
+        raise RuntimeError(f"periodic plan with K0={K0}, n_in={n_in} is "
+                           f"not nb={nb} whole periods")
+    return fixed_step_kernel(buf, P, start0, G * K0, nb=G * nb, **kw)
 
 
 def fixed_step(hist, x, P, start: int, K: int, acc, *, M: int, L: int,

@@ -33,7 +33,7 @@ import warnings
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device, torch_dtype
 from .._roadmap import _not_ported
 from ..core.accounting import ring_floor
 from ..core.filters import make_filter_bank, resolve_lowpass
@@ -43,7 +43,6 @@ from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
 from ..engines.resampler import ResampleResult
 from ..ops.asrc_step import apply_prologue, asrc_apply, asrc_step
 from ..utils.spans import CALL, PLAN, span, spanned, upload
-from .streams import _TORCH_DTYPES, _upload
 
 KERNELS = ("auto", "hankel", "dense", "pallas", "xla")
 
@@ -80,9 +79,7 @@ class BatchedASRC:
             raise ValueError(f"kernel must be one of {KERNELS}, got "
                              f"{kernel!r}")
         self.dtype = np.dtype(dtype)
-        if self.dtype not in _TORCH_DTYPES:
-            raise ValueError(f"dtype must be float32 or float64, got "
-                             f"{self.dtype}")
+        self._tdtype = torch_dtype(self.dtype)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and (
                 kernel == "xla"
@@ -102,7 +99,6 @@ class BatchedASRC:
         self.bank = make_filter_bank(num_taps, num_filters,
                                      self.lowpass_ratio, blackman_harris,
                                      self.dtype.type)
-        self._tdtype = _TORCH_DTYPES[self.dtype]
         self._bank_dev = torch.from_numpy(self.bank).to(self.device)
         if kernel in ("auto", "dense", "hankel"):
             if dense_kb & (dense_kb - 1) or dense_kb < 128:
@@ -341,9 +337,9 @@ class BatchedASRC:
         to req_k_max columns when one was requested) without committing any
         engine state."""
         dev = self.device
-        offsets = _upload(self.offsets, dev)
-        ratios_t = _upload(ratios, dev)
-        Ks_t = _upload(Ks, dev)
+        offsets = to_device(self.offsets, dev)
+        ratios_t = to_device(ratios, dev)
+        Ks_t = to_device(Ks, dev)
         shift = self.num_samples - self.input_index
         geometry = dict(num_taps=self.num_taps,
                         num_filters=self.num_filters, k_max=k_max,

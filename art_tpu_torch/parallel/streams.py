@@ -18,10 +18,14 @@ chunk, with the port's copy of the JAX engine's float64 code
 - ``process_flat`` / ``_out`` / ``_packed`` run G periodic chunks of one
   flat [ch, G*n] buffer over a single history + input buffer: the stats
   form launches K1 once per chunk and sums the power chunk by chunk, as
-  ``process`` does; the delivering forms launch K1 once per group (the G
-  windows are consecutive block rows of the buffer) and the packed form
+  ``process`` does; the delivering forms launch K1 once per group
+  (``ops/fixed_step.fixed_step_group``: the G windows are consecutive
+  block rows of the buffer) and the packed form
   quantizes and packs the samples in one launch of the decimate stage's
   flat kernel (``ops/decimate_device.py``).
+
+Every form plans its chunks with ``_chunk_plan`` (both modes), and the
+three flat forms share one prologue and rollback (``_run_group``).
 
 The precision tiers run on their own instances of K1: ``precise=True``
 and ``precise="int8"`` (float32 data) take each dot in float64 and round
@@ -44,7 +48,7 @@ import warnings
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device, torch_dtype
 from .._roadmap import _not_ported
 from ..core import accounting
 from ..core.filters import make_filter_bank, plan_fixed_ratio, resolve_lowpass
@@ -55,16 +59,7 @@ from ..engines.resampler import ResampleResult, Resampler
 from ..ops import decimate_device as dd
 from ..ops import fixed_step as k1
 from ..ops.polyphase import PolyphaseMatrix
-from ..utils.spans import CALL, PLAN, UPLOAD, span, spanned, upload
-
-_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                 np.dtype(np.float64): torch.float64}
-
-
-def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """The host array ``a`` copied to ``device``, in an upload span."""
-    with span(UPLOAD):
-        return torch.from_numpy(a).to(device)
+from ..utils.spans import CALL, PLAN, span, spanned, upload
 
 
 def _group_buf(hist, xs_flat, G: int, n: int, hist_len: int):
@@ -189,10 +184,7 @@ class DeviceStreamResampler:
             raise ValueError("EXTRAPOLATE_ENDPOINTS is not modeled by the "
                              "device engine; use the host Resampler")
         self.dtype = np.dtype(dtype)
-        if self.dtype not in _TORCH_DTYPES:
-            raise ValueError(f"dtype must be float32 or float64, got "
-                             f"{self.dtype}")
-        self._tdtype = _TORCH_DTYPES[self.dtype]
+        self._tdtype = torch_dtype(self.dtype)
         # JAX's gates (art_tpu/parallel/streams.py:604-620)
         if precise == "int8":
             if self.dtype != np.float32:
@@ -302,7 +294,7 @@ class DeviceStreamResampler:
                                  bool(self.flags & INCLUDE_LOWPASS))
             P = np.zeros((self.qn * self.M, self.L), dtype=self.dtype)
             P[:pm.S, :] = pm.P.T
-            m = _upload(P, self.device)
+            m = to_device(P, self.device)
             self._mats[j0] = m
         return m
 
@@ -337,11 +329,43 @@ class DeviceStreamResampler:
 
     def _plan(self, n_in: int):
         K, start, j0, pos0, plan = self._plan_compute(n_in)
-        # adopt the plan's state advance verbatim: it reproduces the
-        # reference's ring-slide arithmetic exactly
+        self._advance(plan)
+        return K, start, j0, pos0
+
+    def _advance(self, plan) -> None:
+        """Adopt ``plan``'s state advance verbatim: it reproduces the
+        reference's ring-slide arithmetic exactly."""
         self.output_offset = plan.new_output_offset
         self.input_index = plan.new_input_index
-        return K, start, j0, pos0
+
+    def _chunk_plan(self, n_in: int):
+        """The next chunk's plan in either mode, no state advanced: (K,
+        start, P, fracv, plan, safe).  P is the chunk's anchor matrix
+        (reduced, fracv None) or its stacked banks with their lerp
+        fractions fracv (interpolated, ``_interp_pattern``); either is
+        built and uploaded once and is then the same object.  ``safe``
+        False: the tiled interpolated pattern failed the float64-tie oracle
+        and the chunk must be split; reduced chunks are always safe."""
+        K, start, j0, pos0, plan = self._plan_compute(n_in)
+        if not self.interp:
+            return K, start, self._matrix(j0), None, plan, True
+        nb = -(-K // self.L) if K else 1
+        P, fracv, _d, _fi, _fr, safe = self._interp_pattern(pos0, plan,
+                                                            n_in, K, nb)
+        return K, start, P, fracv, plan, safe
+
+    def _plan_chunks(self, n_in: int, G: int) -> list:
+        """Plan and advance up to G chunks of n_in inputs: [(K, start, P,
+        fracv)], cut short before the first unsafe chunk (the state then
+        stands after the chunks returned)."""
+        chunks = []
+        for _ in range(G):
+            K, start, P, fracv, plan, safe = self._chunk_plan(n_in)
+            if not safe:
+                break
+            self._advance(plan)
+            chunks.append((K, start, P, fracv))
+        return chunks
 
     # ------------------------------------------- interpolated phase pattern
     def _pattern_vals(self, first_position: float):
@@ -410,12 +434,12 @@ class DeviceStreamResampler:
         m = self._interp_cache.get(key)
         if m is None:
             if self._bank_dev is None:
-                self._bank_dev = _upload(self.bank, self.device)
+                self._bank_dev = to_device(self.bank, self.device)
             P2 = _build_interp_matrix(
-                self._bank_dev, _upload(d, self.device),
-                _upload(fi, self.device), self.qn * self.M, self.L,
+                self._bank_dev, to_device(d, self.device),
+                to_device(fi, self.device), self.qn * self.M, self.L,
                 self.num_taps)
-            m = (P2, _upload(frac.astype(self.dtype), self.device), d, fi,
+            m = (P2, to_device(frac.astype(self.dtype), self.device), d, fi,
                  frac)
             if len(self._interp_cache) > 64:
                 # evict ONE oldest entry (dict preserves insertion order):
@@ -521,18 +545,10 @@ class DeviceStreamResampler:
                                  f"{n_in}")
             x = x[:, :n_in]
         with span(PLAN):
-            K, start, j0, pos0, plan = self._plan_compute(n_in)
-            fracv, safe = None, True
-            if self.interp:
-                nb = -(-K // self.L) if K else 1
-                P, fracv, _d, _fi, _fr, safe = self._interp_pattern(
-                    pos0, plan, n_in, K, nb)
-            else:
-                P = self._matrix(j0)
+            K, start, P, fracv, plan, safe = self._chunk_plan(n_in)
         if not safe:
             return self._process_split(x, n_in, acc)
-        self.output_offset = plan.new_output_offset
-        self.input_index = plan.new_input_index
+        self._advance(plan)
         acc_in = acc if acc is not None else torch.zeros(
             (), dtype=self._tdtype, device=self.device)
         out, acc_out = self._step(x, P, fracv, start, K, acc_in)
@@ -562,14 +578,6 @@ class DeviceStreamResampler:
         return out, K, r2[2]
 
     # ------------------------------------------------ group-dispatch forms
-    @staticmethod
-    def _scan_result(outs, Ks, acc, acc_out, stats: bool):
-        Ks = np.asarray(Ks)
-        if stats:
-            return None, Ks, acc_out
-        outs = _stack_padded(outs)
-        return (outs, Ks) if acc is None else (outs, Ks, acc_out)
-
     @spanned(CALL)
     def process_scan(self, xs, n_in: int, acc=None, stats: bool = False):
         """G chunks of ``xs`` [G, ch, n_in] in order, bitwise equal to G
@@ -581,6 +589,11 @@ class DeviceStreamResampler:
         (outs [G, ch, nb*L] with entries beyond each chunk's K zeroed, Ks
         int array [G][, acc']).
 
+        An interpolated chunk whose tiled pattern fails the float64-tie
+        oracle (_pattern_safe, expected ~once per 1e10 outputs) sends the
+        whole group through sequential process() calls, with the same
+        output shapes.
+
         ``stats=True`` (requires ``acc``): the power accumulator is the
         only consumer of the outputs (the reference harness's update_stats,
         artest.c:491) and outs comes back None.  A failing chunk step rolls
@@ -589,64 +602,38 @@ class DeviceStreamResampler:
             raise ValueError("stats=True consumes outputs into the power "
                              "accumulator; pass acc")
         xs = self._as_input(xs)
-        if self.interp:
-            return self._process_scan_interp(xs, n_in, acc, stats)
         state0 = (self.output_offset, self.input_index, self.hist)
         try:
             with span(PLAN):
-                plans = [self._plan(n_in) for _ in range(len(xs))]
-                steps = [(self._matrix(j0), None, start, K)
-                         for K, start, j0, _ in plans]
-            return self._run_scan(xs, steps, acc, stats)
+                steps = self._plan_chunks(n_in, len(xs))
+            if len(steps) < len(xs):
+                self.output_offset, self.input_index = state0[:2]
+                steps = None
+            return self._run_scan(xs, n_in, steps, acc, stats)
         except BaseException:
             self.output_offset, self.input_index, self.hist = state0
             raise
 
-    def _run_scan(self, xs, steps, acc, stats: bool):
+    def _run_scan(self, xs, n_in: int, steps, acc, stats: bool):
+        """process_scan's chunk steps over the planned ``steps``, or, with
+        ``steps`` None, sequential process() chunks."""
         acc_out = acc if acc is not None else torch.zeros(
             (), dtype=self._tdtype, device=self.device)
         outs, Ks = [], []
-        for x, (P, fracv, start, K) in zip(xs, steps):
-            out, acc_out = self._step(x, P, fracv, start, K, acc_out)
+        for g, x in enumerate(xs):
+            if steps is None:
+                out, K, acc_out = self._process(x, n_in, acc_out)
+            else:
+                K, start, P, fracv = steps[g]
+                out, acc_out = self._step(x, P, fracv, start, K, acc_out)
             Ks.append(K)
             if not stats:
                 outs.append(out)
-        return self._scan_result(outs, Ks, acc, acc_out, stats)
-
-    def _process_scan_interp(self, xs, n_in: int, acc, stats: bool):
-        """Interpolated process_scan: each chunk's banked matrix and
-        fractions come from _interp_pattern, as in process().  A chunk whose
-        tiled pattern fails the float64-tie oracle (_pattern_safe, expected
-        ~once per 1e10 outputs) sends the whole group back through
-        sequential process() calls with the same output shapes."""
-        state0 = (self.output_offset, self.input_index, self.hist)
-        steps = []
-        with span(PLAN):
-            for _ in range(len(xs)):
-                K, start, _j0, pos0, plan = self._plan_compute(n_in)
-                nb = -(-K // self.L) if K else 1
-                P2, fracv, _d, _fi, _fr, ok = self._interp_pattern(
-                    pos0, plan, n_in, K, nb)
-                if not ok:
-                    break
-                self.output_offset = plan.new_output_offset
-                self.input_index = plan.new_input_index
-                steps.append((P2, fracv, start, K))
-        if len(steps) < len(xs):
-            self.output_offset, self.input_index = state0[:2]
-            outs, Ks, accs = [], [], acc
-            for x in xs:
-                r = self._process(x, n_in, accs)
-                outs.append(r[0])
-                Ks.append(r[1])
-                if acc is not None:
-                    accs = r[2]
-            return self._scan_result(outs, Ks, acc, accs, stats)
-        try:
-            return self._run_scan(xs, steps, acc, stats)
-        except BaseException:
-            self.output_offset, self.input_index, self.hist = state0
-            raise
+        Ks = np.asarray(Ks)
+        if stats:
+            return None, Ks, acc_out
+        outs = _stack_padded(outs)
+        return (outs, Ks) if acc is None else (outs, Ks, acc_out)
 
     @spanned(PLAN)
     def _flat_plan(self, xs_flat, n_in: int):
@@ -654,10 +641,11 @@ class DeviceStreamResampler:
         advances the consume/emit state G chunks, and returns (G, K0,
         start0, nb, P, fracv, state0) where P/fracv are the chunk matrix and
         lerp fractions (fracv None in reduced mode) and state0 the pre-call
-        (output_offset, input_index) for rollback.  Raises ValueError with
-        the state ROLLED BACK when the plan is not exactly periodic (or, in
-        interpolated mode, the phase pattern is not one repeating verified
-        pattern).  G == 0 signals the FLUSHED latch."""
+        (output_offset, input_index) for rollback.  The group is periodic
+        when every chunk's K and start equal chunk 0's and its P and fracv
+        are the same objects (one anchor, or one repeating verified phase
+        pattern); raises ValueError with the state ROLLED BACK when it is
+        not.  G == 0 signals the FLUSHED latch."""
         ch, total = xs_flat.shape
         if total % n_in:
             raise ValueError(f"flat buffer ({total}) must be G*n_in")
@@ -669,43 +657,40 @@ class DeviceStreamResampler:
         if G * n_in < self.num_samples:
             raise ValueError("group must cover at least one history length")
         state0 = (self.output_offset, self.input_index)
-        if self.interp:
-            metas = []
-            ok = True
-            for _ in range(G):
-                K, start, _j0, pos0, plan = self._plan_compute(n_in)
-                nb_g = -(-K // self.L) if K else 1
-                P2, fracv, _d, _fi, _fr, pok = self._interp_pattern(
-                    pos0, plan, n_in, K, nb_g)
-                if not pok:
-                    ok = False
-                    break
-                self.output_offset = plan.new_output_offset
-                self.input_index = plan.new_input_index
-                metas.append((K, start, P2, fracv))
-            ok = ok and all(
-                m[0] == metas[0][0] and m[1] == metas[0][1]
-                and m[2] is metas[0][2] and m[3] is metas[0][3]
-                for m in metas)
-            if not ok:
-                self.output_offset, self.input_index = state0
-                raise ValueError("process_flat needs an exactly periodic "
-                                 "steady state with a repeating verified "
-                                 "phase pattern; use process_scan for "
-                                 "this configuration")
-            K0, start0 = metas[0][0], metas[0][1]
-            nb = max(-(-K0 // self.L), 1)
-            return G, K0, start0, nb, metas[0][2], metas[0][3], state0
-        plans = [self._plan(n_in) for _ in range(G)]
-        if not all(p[:3] == plans[0][:3] for p in plans):
+        chunks = self._plan_chunks(n_in, G)
+        if len(chunks) < G or any(
+                c[:2] != chunks[0][:2] or c[2] is not chunks[0][2]
+                or c[3] is not chunks[0][3] for c in chunks):
             self.output_offset, self.input_index = state0
             raise ValueError("process_flat needs an exactly periodic "
-                             "steady state (identical per-chunk plans); "
-                             "use an M-multiple chunk size and absorb the "
-                             "first chunk with process()")
-        K0, start0, j0 = plans[0][:3]
+                             "steady state (identical per-chunk plans and "
+                             "phase pattern): use an M-multiple chunk size "
+                             "and absorb the first chunk with process(), "
+                             "or use process_scan")
+        K0, start0, P, fracv = chunks[0]
         nb = max(-(-K0 // self.L), 1)
-        return G, K0, start0, nb, self._matrix(j0), None, state0
+        return G, K0, start0, nb, P, fracv, state0
+
+    def _run_group(self, xs_flat, n_in: int, body, empty):
+        """The flat forms' one prologue: the group plan (``_flat_plan``);
+        after the FLUSHED latch (G == 0) zero Ks and ``empty()``; otherwise
+        ONE history + input buffer (``_group_buf``) and ``body(buf, n_in,
+        G, K0, start0, nb, P, fracv)``, after which the advanced history is
+        committed.  Any exception rolls the consume/emit state back to the
+        call's entry, the history untouched.  Returns (Ks int array [G],
+        the body's or ``empty``'s result)."""
+        G, K0, start0, nb, P, fracv, state0 = self._flat_plan(xs_flat, n_in)
+        if G == 0:
+            return np.zeros((xs_flat.shape[1] // n_in,), np.int64), empty()
+        try:
+            buf, new_hist = _group_buf(self.hist, xs_flat, G, n_in,
+                                       self.num_samples)
+            result = body(buf, n_in, G, K0, start0, nb, P, fracv)
+        except BaseException:
+            self.output_offset, self.input_index = state0
+            raise
+        self.hist = new_hist
+        return np.full((G,), K0, np.int64), result
 
     @spanned(CALL)
     def process_flat(self, xs_flat, n_in: int, acc):
@@ -722,42 +707,18 @@ class DeviceStreamResampler:
         xs_flat = self._as_input(xs_flat)
         with upload(acc, self.device):
             acc = torch.as_tensor(acc, dtype=self._tdtype, device=self.device)
-        G, K0, start0, nb, Pm, fracv, state0 = self._flat_plan(xs_flat,
-                                                               n_in)
-        if G == 0:
-            return np.zeros((xs_flat.shape[1] // n_in,), np.int64), acc
-        try:
-            buf, new_hist = _group_buf(self.hist, xs_flat, G, n_in,
-                                       self.num_samples)
+
+        def chunks(buf, n_in, G, K0, start0, nb, P, fracv):
+            total = acc
             for g in range(G):
                 out = k1.fixed_step_window(
-                    buf, Pm, start0 + g * n_in, K0, M=self.M, L=self.L,
+                    buf, P, start0 + g * n_in, K0, M=self.M, L=self.L,
                     nb=nb, qn=self.qn, fracv=fracv,
                     precise=bool(self._precise))
-                acc = acc + torch.sum(out * out)
-        except BaseException:
-            self.output_offset, self.input_index = state0
-            raise
-        self.hist = new_hist
-        return np.full((G,), K0, np.int64), acc
+                total = total + torch.sum(out * out)
+            return total
 
-    def _group_out(self, buf, Pm, fracv, start0: int, K0: int, nb: int,
-                   G: int, n_in: int):
-        """The valid outputs of G periodic chunks, [ch, G*K0].  On a card
-        one K1 launch over G*nb blocks: a periodic plan has n_in = nb*M and
-        K0 = nb*L, so chunk g's blocks are block rows g*nb.. of the group
-        buffer and nothing inside the group is masked.  On the CPU the plain
-        version chunk by chunk, at process()'s shapes."""
-        kw = dict(M=self.M, L=self.L, qn=self.qn, fracv=fracv,
-                  precise=bool(self._precise))
-        if buf.device.type == "cpu":
-            return torch.cat([
-                k1.fixed_step_window(buf, Pm, start0 + g * n_in, K0, nb=nb,
-                                     **kw)[:, :K0] for g in range(G)], dim=1)
-        if K0 != nb * self.L or n_in != nb * self.M:
-            raise RuntimeError(f"periodic plan with K0={K0}, n_in={n_in} is "
-                               f"not nb={nb} whole periods")
-        return k1.fixed_step_kernel(buf, Pm, start0, G * K0, nb=G * nb, **kw)
+        return self._run_group(xs_flat, n_in, chunks, lambda: acc)
 
     @spanned(CALL)
     def process_flat_out(self, xs_flat, n_in: int):
@@ -768,21 +729,19 @@ class DeviceStreamResampler:
         prefixes.  One K1 launch per call on a card.  Returns (out [ch,
         G*K0], Ks int array [G])."""
         xs_flat = self._as_input(xs_flat)
-        G, K0, start0, nb, Pm, fracv, state0 = self._flat_plan(xs_flat,
-                                                               n_in)
-        if G == 0:
-            return (torch.zeros((xs_flat.shape[0], 0), dtype=self._tdtype,
-                                device=self.device),
-                    np.zeros((xs_flat.shape[1] // n_in,), np.int64))
-        try:
-            buf, new_hist = _group_buf(self.hist, xs_flat, G, n_in,
-                                       self.num_samples)
-            out = self._group_out(buf, Pm, fracv, start0, K0, nb, G, n_in)
-        except BaseException:
-            self.output_offset, self.input_index = state0
-            raise
-        self.hist = new_hist
-        return out, np.full((G,), K0, np.int64)
+        Ks, out = self._run_group(
+            xs_flat, n_in, self._group_samples,
+            lambda: torch.zeros((xs_flat.shape[0], 0), dtype=self._tdtype,
+                                device=self.device))
+        return out, Ks
+
+    def _group_samples(self, buf, n_in: int, G: int, K0: int, start0: int,
+                       nb: int, P, fracv):
+        """The delivering forms' group body: the group's valid samples
+        [ch, G*K0] (``k1.fixed_step_group``)."""
+        return k1.fixed_step_group(
+            buf, P, start0, K0, G=G, n_in=n_in, M=self.M, L=self.L, nb=nb,
+            qn=self.qn, fracv=fracv, precise=bool(self._precise))
 
     @spanned(CALL)
     def process_flat_packed(self, xs_flat, n_in: int, clips, *,
@@ -804,25 +763,16 @@ class DeviceStreamResampler:
         with upload(clips, self.device):
             clips = torch.as_tensor(clips, dtype=torch.int32,
                                     device=self.device)
-        G, K0, start0, nb, Pm, fracv, state0 = self._flat_plan(xs_flat,
-                                                               n_in)
-        if G == 0:
-            return (torch.zeros((xs_flat.shape[0], 0),
-                                dtype=dd.CONTAINERS[output_bytes],
-                                device=self.device),
-                    np.zeros((xs_flat.shape[1] // n_in,), np.int64), clips)
-        try:
-            buf, new_hist = _group_buf(self.hist, xs_flat, G, n_in,
-                                       self.num_samples)
-            out = self._group_out(buf, Pm, fracv, start0, K0, nb, G, n_in)
-            packed, clips = _quantize_pack(
-                out, scaler, clips, highclip=highclip, lowclip=lowclip,
-                output_bits=output_bits, output_bytes=output_bytes)
-        except BaseException:
-            self.output_offset, self.input_index = state0
-            raise
-        self.hist = new_hist
-        return packed, np.full((G,), K0, np.int64), clips
+        Ks, (packed, clips) = self._run_group(
+            xs_flat, n_in,
+            lambda *group: _quantize_pack(
+                self._group_samples(*group), scaler, clips, highclip=highclip,
+                lowclip=lowclip, output_bits=output_bits,
+                output_bytes=output_bytes),
+            lambda: (torch.zeros((xs_flat.shape[0], 0),
+                                 dtype=dd.CONTAINERS[output_bytes],
+                                 device=self.device), clips))
+        return packed, Ks, clips
 
     # ----------------------------------------------------- streaming state
     def state_dict(self) -> dict:

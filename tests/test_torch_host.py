@@ -4,7 +4,8 @@ and its copies of the host modules equal the originals bit for bit.
 - A fresh interpreter that imports every module of ``art_tpu_torch`` and
   ``chip_smoke`` has neither ``jax`` nor any ``art_tpu`` module loaded.
 - No file of ``art_tpu_torch/`` and not ``chip_smoke.py`` names ``art_tpu``
-  in an import statement.
+  in an import statement, and no module under ``ops/`` imports the engine
+  layer (``parallel/``, ``engines/``).
 - Filter banks, fixed-ratio plans, consume/emit plans and ring floors, the
   artest noise and fades, and the phase-anchor matrices of the copies
   (``art_tpu_torch/core``, ``ops/polyphase.py``, ``utils/testsig.py``) are
@@ -78,11 +79,20 @@ def test_import_loads_neither_jax_nor_art_tpu():
 
 
 def _imported_modules(path: Path):
+    """Every module ``path`` imports, relative imports resolved against
+    its package."""
+    package = path.parent.relative_to(REPO).parts
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(package[:len(package) - node.level + 1])
+            if node.module:
+                yield f"{base}.{node.module}"
+            else:
+                yield from (f"{base}.{alias.name}" for alias in node.names)
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -90,6 +100,17 @@ def _imported_modules(path: Path):
 def test_no_import_of_art_tpu(path):
     bad = [m for m in _imported_modules(path)
            if m == "art_tpu" or m.startswith("art_tpu.")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(
+    (REPO / "art_tpu_torch" / "ops").glob("*.py")), ids=lambda p: p.name)
+def test_ops_import_no_engine(path):
+    """The step wrappers and their plain versions sit below the engines:
+    no module under ``ops/`` imports ``parallel/`` or ``engines/``."""
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[:2] in (["art_tpu_torch", "parallel"],
+                                   ["art_tpu_torch", "engines"])]
     assert not bad, f"{path.name} imports {bad}"
 
 
