@@ -66,9 +66,10 @@
 // columns use (the hull: a column l is nonzero only on rows [carry(l),
 // carry(l) + taps), so a CTA's 32 columns, both banks' in the interpolated
 // form, are nonzero only inside [klo, khi): ~409 of 588 rows at the main
-// path, ~78 of 294 at BASELINE config 1) and bring those rows and its
-// window into shared memory.  Two designs, the host choosing by the shape
-// (fixed_step_geometry.h::fixed_step_launch; no option):
+// path, ~78 of 294 at BASELINE config 1, 196-224 of 640 at the batch
+// cell's preset -2 96k->44.1k) and bring those rows and its window into
+// shared memory.  Three designs, the host choosing by the shape and the
+// hull's width (fixed_step_geometry.h::fixed_step_launch; no option):
 //
 // Design: resident (fixed_step_kernel_resident; float32 data summed in
 // float32, M >= 32, where the CTA's whole P and two window buffers fit).
@@ -108,6 +109,56 @@
 //   main path: 256 threads, P 75,776 B + 2 x 131 rows x 148 floats + the
 //   hull's reduction = 230,944 B, one CTA an SM.
 //
+// Design: hull (fixed_step_kernel_hull<kWide>; float32 data summed in
+// float32, reduced, M >= 32 a multiple of 4, where the whole P and two
+// buffers of whole window rows do not fit but the hull does: P's hull rows
+// and two buffers of 96 blocks' hull spans).  The resident design's
+// structure (persistent CTAs, R a column group, two warp groups with a
+// window buffer each, out of step by one copy, the double register set),
+// with what is staged cut to the hull:
+//   - the hull's width has to be known before the launch, to size shared
+//     memory, so the host finds the hulls once a matrix, on its first
+//     launch (ops/fixed_step.py::_hulls_of, kept beside P): the hull of
+//     each 16-phase half of each column group (int32 [2G, 2] on the
+//     device) and the widest column group's, rounded out to 4-row groups,
+//     as a launch argument.  A P whose hull does not fit takes the
+//     template;
+//   - a CTA copies only its group's hull rows [k0, k1) of P (the union of
+//     its halves', rounded out to 4-row groups; the extra rows are zero in
+//     every column of the CTA) once a column group: 228 x 32 floats at the
+//     batch cell;
+//   - for each block of a tile, only the block's hull span of its window,
+//     buf[c, start + i*M + k], k0 <= k < k1, lands as a row of the group's
+//     buffer at a stride of k1 - k0 (a multiple of 4; +4 where that is a
+//     multiple of 16), a warp a row: in 16-byte cp.async (kWide) where
+//     every row's source is 16-byte aligned (buf, W and start multiples of
+//     4: the engine frames its group buffers so where this design runs,
+//     ops/fixed_step.py::window_frame), else 4-byte.  Where M is wider than
+//     the hull, neighbouring blocks' spans do not overlap and this is less
+//     than the (BM + qn - 1) whole rows the resident design copies; where
+//     the hull is wider than M (the main path: ~409 rows at M = 147) whole
+//     rows are the cheaper copy, and the resident design keeps them.  (At
+//     the batch cell's call on an H100: 16-byte copies 1.39 ms, 4-byte
+//     1.62, 8-byte ones of rows 8 bytes off 1.64; bulk copies, the TMA, one
+//     a row on an mbarrier, 1.50 against 16-byte cp.async's 1.46 before
+//     the halves below.)
+//   - each staged row is one block's, copied from its own address, so the
+//     tiles run over every channel's blocks in turn (block i of channel c
+//     is block c * nb + i): every tile but the launch's last is full (205
+//     blocks a channel fill 71% of three 96-block tiles cut one channel at
+//     a time);
+//   - a thread computes 6 blocks x 4 phases (BM = 96: two buffers of
+//     128-block tiles do not fit beside P's hull).  Warps 0-1 of a warp
+//     group take the column group's first 16 phases and warps 2-3 the
+//     other 16, each over its half's hull rows alone (189 of the group's
+//     228 at the batch cell; a warp's 8 block rows read 8 window float4s
+//     in 8 bank quads, its 4 phase columns 4 P float4s), in 4-row groups
+//     (M a multiple of 4 puts a slice's edge on one), the partial sums
+//     flushed at m = 32, 64, ... of the slice and at its end, as in the
+//     other designs.  Rows a half skips are zero in all its columns.
+//   batch cell: 256 threads, P 29,184 B + 2 x 96 x 228 floats = 204,288 B,
+//   one CTA an SM.
+//
 // Design: template (fixed_step_kernel<T, Acc, kInterp, kTM>; the float64
 // accumulators, M < 32, and shapes whose P and ring do not fit, such as
 // large M).  A CTA owns kBM output blocks x 32 phases of one channel:
@@ -142,11 +193,16 @@
 //   two piece buffers where they fit in the same occupancy.
 //
 // The launch each shape takes (fixed_step_geometry.h; two CTAs share an SM
-// up to 115712 B each):
+// up to 115712 B each; the hull rows those of the engine's
+// matrices there, the hull design taking none of the other shapes: 420
+// rows at M = 160, 520 at M = 640, 924 at M = 2560, and the interpolated
+// and float64-summed shapes are not its):
 //   float32, M = 147, qn = 4 (the main path)   resident, BM = 128            230944 B
 //   float32, M = 147, qn = 2, interpolated     resident, BM = 64             152800 B
 //   float32, M = 160, qn = 4 (48k->44.1k)      template kBM = 128, PR = M, 1 buffer  104912 B
-//   float32, M = 320, qn = 2, reduced          template kBM = 128, PR = M, 1 buffer  206672 B
+//   float32, M = 320, qn = 2, reduced          hull, BM = 96, 228 P rows     204288 B
+//     (preset -2, the batch cell; with no hull known the template, kBM =
+//     128, PR = M, 1 buffer, 206672 B)
 //   float32, M = 320, qn = 2, interpolated     template kBM =  64, PR = M, 1 buffer  165456 B
 //   float32, M = 640, qn = 2, reduced          template kBM =  32, PR = M, 1 buffer  166608 B
 //   float32, M = 640, qn = 2, interpolated     template kBM =  64, PR = 256, 1 buffer 232272 B
@@ -756,6 +812,222 @@ fixed_step_kernel_resident(const float* __restrict__ buf, long long W,
     }
 }
 
+// =================================================== the hull design
+// One group of 4 terms of a thread's hull tile.
+struct HullTerms {
+    float4 a[kHullTM];
+    float4 p[4];
+};
+
+// The rows [*lo, *hi) of hull h (int pair [klo, khi), empty when khi <=
+// klo) rounded out to 4-row groups; (0, 0) for an empty one.
+__device__ __forceinline__ void hull_rows4(const int* h, int* lo, int* hi) {
+    const bool any = h[1] > h[0];
+    *lo = any ? h[0] & ~3 : 0;
+    *hi = any ? (h[1] + 3) & ~3 : 0;
+}
+
+// See the header ("Design: hull").  As the resident design, with P's hull
+// rows [k0, k1) of column group cg (the union of its two halves' hulls,
+// hulls[2 cg] and hulls[2 cg + 1], rounded out to 4-row groups) at (k -
+// k0) * kBN of P_s, and tile u's blocks b = u * kHullBM + r (r < kHullBM,
+// b < blocks, block i of channel c at b = c * nb + i) each staging only
+// buf[c, start + i*M + k], k0 <= k < k1, as row r of the group's buffer
+// at stride S: with kWide (every row's source 16-byte aligned) in 16-byte
+// cp.async, else 4-byte.  Warps 0-1 of a warp group compute the column
+// group's first 16 phases, warps 2-3 the other 16, each over its half's
+// hull rows only; thread (tx, ty) computes blocks ty + r * (BM / kTM), r <
+// kTM, at phases n0 + 4 tx + j, j < 4.  ``units`` tiles, ``per_group``
+// CTAs a column group (resident_grid).
+template <bool kWide>
+__global__ void __launch_bounds__(kResThreads, 1)
+fixed_step_kernel_hull(const float* __restrict__ buf, long long W,
+                       long long start, long long K,
+                       const float* __restrict__ P, int M, int L, int qn,
+                       long long nb, const int* __restrict__ hulls,
+                       int rows, long long blocks, long long units,
+                       long long per_group, float* __restrict__ out) {
+    constexpr int kTM = kHullTM;
+    constexpr int BM = kHullBM;
+    constexpr int kGroupWarps = kResGroupThreads / 32;
+    constexpr int RS = BM / kTM;            // a thread's blocks RS apart
+    static_assert(kResGroups == 2, "the groups' handshake pairs two");
+    static_assert(kGroupWarps == 4 && RS == 16,
+                  "two warps of 8 block rows x 4 phase columns a half");
+    extern __shared__ float4 smem4[];
+    const int S = hull_stride(rows);
+    float* P_s = reinterpret_cast<float*>(smem4);   // row k at (k - k0)*kBN
+    float* ring = P_s + rows * kBN;
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int grp = tid / kResGroupThreads;
+    const int gwarp = tid / 32 % kGroupWarps;
+    const int half = gwarp / 2;             // the warp's 16 phases
+    const int tx = half * 4 + lane % 4;
+    const int ty = gwarp % 2 * 8 + lane / 4;
+    const int G = (L + kBN - 1) / kBN;
+    int first;
+    long long t0, t1;
+    resident_range(blockIdx.x, per_group, units, &first, &t0, &t1);
+    const int gstride = static_cast<int>(gridDim.x / per_group);
+    float* win = ring + grp * BM * S;       // the group's window buffer
+
+    for (int cg = first; cg < G; cg += gstride) {
+        const int n0 = cg * kBN;
+        int lo0, hi0, lo1, hi1;
+        hull_rows4(hulls + 4 * cg, &lo0, &hi0);
+        hull_rows4(hulls + 4 * cg + 2, &lo1, &hi1);
+        // the group's hull, both halves' (an empty half adds nothing), and
+        // the warp's half's
+        const int k0 = hi0 > lo0 ? (hi1 > lo1 ? min(lo0, lo1) : lo0) : lo1;
+        const int k1 = max(hi0, hi1);
+        const int w = max(k1 - k0, 0);
+        const int wk0 = half ? lo1 : lo0, wk1 = half ? hi1 : hi0;
+        // the group's columns of P's hull rows (zero past L)
+        for (int e = tid; e < w * kBN; e += kResThreads) {
+            const int col = n0 + e % kBN;
+            if (col < L)
+                cp_async(P_s + e, P + static_cast<long long>(k0 + e / kBN) *
+                                          L + col);
+            else
+                P_s[e] = 0.f;
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+
+        // tile u's hull spans, a warp a block: row r holds the w samples
+        // from buf[c, start + i*M + k0] (zero past W)
+        auto stage_window = [&](long long u) {
+            long long b = u * BM + gwarp;
+            long long c = b / nb;
+            long long i = b - c * nb;
+            for (int r = gwarp; r < BM && b < blocks; r += kGroupWarps) {
+                const long long g0 = start + i * M + k0;
+                const float* src = buf + c * W + g0;
+                float* d = win + r * S;
+                if (g0 + w > W) {
+                    for (int m = lane; m < w; m += 32) {
+                        if (g0 + m < W) cp_async(d + m, src + m);
+                        else d[m] = 0.f;
+                    }
+                } else if constexpr (kWide) {
+                    for (int m = 4 * lane; m < w; m += 128)
+                        cp_async(reinterpret_cast<float4*>(d + m),
+                                 reinterpret_cast<const float4*>(src + m));
+                } else {
+                    for (int m = lane; m < w; m += 32)
+                        cp_async(d + m, src + m);
+                }
+                b += kGroupWarps;
+                for (i += kGroupWarps; i >= nb; i -= nb) ++c;
+            }
+            cp_async_commit();
+            cp_async_wait<0>();
+        };
+
+        // the groups out of step by one window copy, as in the resident
+        // design
+        if (grp > 0) bar_sync(kResGroups + 1, kResThreads);
+        for (long long u = t0 + grp; u < t1; u += kResGroups) {
+            stage_window(u);
+            if (grp == 0 && u == t0)
+                bar_arrive(kResGroups + 1, kResThreads);
+            bar_sync(1 + grp, kResGroupThreads);    // tile u's spans in place
+
+            float acc[kTM][kTN] = {};
+            for (int q = 0; q < qn; ++q) {
+                // the slice's rows of the half's hull, m = k - q*M; 4-row
+                // groups, since k0, wk0, wk1 and q*M are multiples of 4
+                const int m_lo = max(wk0 - q * M, 0);
+                const int m_hi = min(wk1 - q * M, M);
+                if (m_lo >= m_hi) continue;
+                const int off = q * M - k0;         // m's offset in a row
+                const float* wr[kTM];
+#pragma unroll
+                for (int r = 0; r < kTM; ++r)
+                    wr[r] = win + (ty + r * RS) * S + off;
+                const float* pq = P_s + off * kBN + tx * kTN;
+                auto load = [&](HullTerms& t, int m) {
+#pragma unroll
+                    for (int r = 0; r < kTM; ++r)
+                        t.a[r] = *reinterpret_cast<const float4*>(wr[r] + m);
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+                        t.p[kk] = *reinterpret_cast<const float4*>(
+                            pq + (m + kk) * kBN);
+                };
+                float part[kTM][kTN] = {};
+                // the FMAs of the group at m, then, at the end of its
+                // 32-term block or of the slice, the partial sums into
+                // the totals; returns whether a group follows
+                auto fmas = [&](const HullTerms& t, int m) {
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                        for (int r = 0; r < kTM; ++r) {
+                            const float av = elem(t.a[r], kk);
+#pragma unroll
+                            for (int j = 0; j < kTN; ++j)
+                                part[r][j] = __fmaf_rn(av, elem(t.p[kk], j),
+                                                       part[r][j]);
+                        }
+                    const bool more = m + 4 < m_hi;
+                    if (!more || ((m + 4) & (kKB - 1)) == 0) {
+#pragma unroll
+                        for (int r = 0; r < kTM; ++r)
+#pragma unroll
+                            for (int j = 0; j < kTN; ++j) {
+                                acc[r][j] += part[r][j];
+                                part[r][j] = 0.f;
+                            }
+                    }
+                    return more;
+                };
+                // two register sets in turn, as in the resident design
+                HullTerms ta, tb;
+                load(ta, m_lo);
+                for (int m = m_lo;; m += 8) {
+                    load(tb, min(m + 4, m_hi - 4));
+                    if (!fmas(ta, m)) break;
+                    load(ta, min(m + 8, m_hi - 4));
+                    if (!fmas(tb, m + 4)) break;
+                }
+            }
+
+            // block b = c * nb + i's phase l at out[b * L + l]
+            long long b = u * BM + ty;
+            long long i = b - b / nb * nb;
+            const int l0 = n0 + tx * kTN;
+#pragma unroll
+            for (int r = 0; r < kTM; ++r) {
+                if (r > 0) {
+                    b += RS;
+                    for (i += RS; i >= nb; i -= nb) {}
+                }
+                if (b >= blocks) continue;
+                float* o = out + b * L + l0;
+                float v[kTN];
+#pragma unroll
+                for (int j = 0; j < kTN; ++j)
+                    v[j] = i * L + l0 + j < K ? acc[r][j] : 0.f;
+                if (L % kTN == 0) {
+                    if (l0 < L)
+                        *reinterpret_cast<float4*>(o) =
+                            make_float4(v[0], v[1], v[2], v[3]);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < kTN; ++j)
+                        if (l0 + j < L) o[j] = v[j];
+                }
+            }
+            bar_sync(1 + grp, kResGroupThreads);    // the buffer is free
+        }
+        __syncthreads();        // P_s may be refilled
+    }
+}
+
 // The SMs of the current device, cached per device.
 int sm_count() {
     static int cached[64] = {0};
@@ -804,24 +1076,79 @@ cudaError_t launch_resident(const float* buf, long long ch, long long W,
     return cudaGetLastError();
 }
 
-// =================================================== both designs
-// One launch of the design and tile fixed_step_launch picks; *resident
-// says which design ran.
+// Whether the hull design's rows may come in 16-byte copies: buf 16-byte
+// aligned, and every channel's window start too (M and the hull's rows
+// are multiples of 4).
+bool hull_wide(const float* buf, long long W, long long start) {
+    return reinterpret_cast<size_t>(buf) % 16 == 0 && W % 4 == 0 &&
+           start % 4 == 0;
+}
+
+template <bool kWide>
+cudaError_t launch_hull(const float* buf, long long ch, long long W,
+                        long long start, long long K, const float* P, int M,
+                        int L, int qn, long long nb, const int* hulls,
+                        int rows, float* out, size_t smem,
+                        cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fixed_step_kernel_hull<kWide>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    thread_local int dev = -1, per_sm = 0;
+    thread_local size_t for_smem = 0;
+    int now = 0;
+    err = cudaGetDevice(&now);
+    if (err != cudaSuccess) return err;
+    if (now != dev || smem != for_smem) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fixed_step_kernel_hull<kWide>, kResThreads, smem);
+        if (err != cudaSuccess) return err;
+        dev = now;
+        for_smem = smem;
+    }
+    const int sms = sm_count();
+    if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
+    const long long blocks = ch * nb;
+    const long long tiles = (blocks + kHullBM - 1) / kHullBM;
+    const ResidentGrid g = resident_grid((L + kBN - 1) / kBN, tiles,
+                                         static_cast<long long>(sms) * per_sm);
+    fixed_step_kernel_hull<kWide>
+        <<<static_cast<unsigned>(g.ctas), kResThreads, smem, stream>>>(
+            buf, W, start, K, P, M, L, qn, nb, hulls, rows, blocks, tiles,
+            g.per_group, out);
+    return cudaGetLastError();
+}
+
+// =================================================== the three designs
+// One launch of the design and tile fixed_step_launch picks for the hull
+// of ``hull_rows`` rows (0, or hulls null: not known); *design says which
+// design ran.
 template <typename T, typename Acc, bool kInterp>
 cudaError_t launch(const T* buf, long long ch, long long W, long long start,
                    long long K, const T* P, int L2, const T* fracv, int M,
                    int L, int qn, long long nb, T* out, int kind,
-                   int* resident, cudaStream_t stream) {
+                   const int* hulls, int hull_rows, int* design,
+                   cudaStream_t stream) {
     Launch lc;
-    if (!fixed_step_launch(M, qn, kInterp, kind, &lc))
+    if (!fixed_step_launch(M, qn, kInterp, kind, hulls ? hull_rows : 0, &lc))
         return cudaErrorInvalidValue;
-    *resident = lc.resident;
+    *design = lc.design;
     if constexpr (std::is_same<T, float>::value &&
                   std::is_same<Acc, float>::value) {
-        if (lc.resident)
+        if (lc.design == kResident)
             return launch_resident<kInterp>(buf, ch, W, start, K, P, L2,
                                             fracv, M, L, qn, nb, out, lc.smem,
                                             stream);
+        if constexpr (!kInterp) {
+            if (lc.design == kHull && hull_wide(buf, W, start))
+                return launch_hull<true>(buf, ch, W, start, K, P, M, L, qn,
+                                         nb, hulls, hull_rows, out, lc.smem,
+                                         stream);
+            if (lc.design == kHull)
+                return launch_hull<false>(buf, ch, W, start, K, P, M, L, qn,
+                                          nb, hulls, hull_rows, out, lc.smem,
+                                          stream);
+        }
     }
     int tm = 0, pr = 0, nbuf = 0, wpiece = 0;
     size_t smem = 0;
@@ -845,49 +1172,57 @@ template <typename T, typename Acc>
 cudaError_t launch_any(const void* buf, long long ch, long long W,
                        long long start, long long K, const void* P, int L2,
                        const void* fracv, int M, int L, int qn, long long nb,
-                       void* out, int kind, int* resident, cudaStream_t s) {
+                       void* out, int kind, const int* hulls, int hull_rows,
+                       int* design, cudaStream_t s) {
     const T* b = static_cast<const T*>(buf);
     const T* p = static_cast<const T*>(P);
     const T* f = static_cast<const T*>(fracv);
     T* o = static_cast<T*>(out);
     if (fracv)
         return launch<T, Acc, true>(b, ch, W, start, K, p, L2, f, M, L, qn,
-                                    nb, o, kind, resident, s);
+                                    nb, o, kind, hulls, hull_rows, design, s);
     return launch<T, Acc, false>(b, ch, W, start, K, p, L2, f, M, L, qn, nb,
-                                 o, kind, resident, s);
+                                 o, kind, hulls, hull_rows, design, s);
 }
 
 }  // namespace
 
 // buf [ch, W] and P [KQ, L2] contiguous on the device, fracv [L] or null,
 // out [ch, nb*L]: float32 for kind kF32 and kF32Acc64 (accumulated in
-// double), float64 for kF64.  Sets *resident to 1 where the launch took
-// the resident design, 0 for the template.  Returns the launch's
-// cudaError_t (0 on success); arguments the kernel does not take return
+// double), float64 for kF64.  hulls, null or int32 [2 ceil(L / 32), 2] on
+// the device: for each 16-phase half of each 32-phase column group, the
+// rows [klo, khi) of P outside which every one of its columns is zero
+// (klo = khi = 0 for none); hull_rows the widest column group's hull (its
+// halves' union) rounded out to 4-row groups, (khi + 3 & ~3) - (klo & ~3).
+// Sets *design to the design the launch took: 0 the template, 1 the
+// resident design, 2 the hull design.  Returns the launch's cudaError_t (0
+// on success); arguments the kernel does not take return
 // cudaErrorInvalidValue.
 extern "C" int art_fixed_step(const void* buf, long long ch, long long W,
                               long long start, long long K, const void* P,
                               int KQ, int L2, const void* fracv, int M,
                               int L, int qn, long long nb, void* out,
-                              int kind, int* resident, void* stream) {
+                              int kind, const void* hulls, int hull_rows,
+                              int* design, void* stream) {
     if (M <= 0 || L <= 0 || qn <= 0 || nb <= 0 || ch <= 0 || start < 0 ||
         K < 0 || K > nb * L || KQ != qn * M ||
-        L2 != (fracv ? 2 * L : L) || !resident)
+        L2 != (fracv ? 2 * L : L) || hull_rows < 0 || !design)
         return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int* h = static_cast<const int*>(hulls);
     switch (kind) {
         case kF32:
             return launch_any<float, float>(buf, ch, W, start, K, P, L2,
                                             fracv, M, L, qn, nb, out, kind,
-                                            resident, s);
+                                            h, hull_rows, design, s);
         case kF32Acc64:
             return launch_any<float, double>(buf, ch, W, start, K, P, L2,
                                              fracv, M, L, qn, nb, out, kind,
-                                             resident, s);
+                                             h, hull_rows, design, s);
         case kF64:
             return launch_any<double, double>(buf, ch, W, start, K, P, L2,
                                               fracv, M, L, qn, nb, out, kind,
-                                              resident, s);
+                                              h, hull_rows, design, s);
         default:
             return cudaErrorInvalidValue;
     }

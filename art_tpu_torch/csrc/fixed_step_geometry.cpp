@@ -6,23 +6,27 @@
 
 #include "fixed_step_geometry.h"
 
-// The launch for (M, qn, interpolated, kind): out[0..3] = 1 for the
-// resident design (0: the template), blocks a row tile, P rows a staged
-// piece (resident: all qn * M), dynamic shared memory bytes.
+// The launch for (M, qn, interpolated, kind) and a hull of ``hull_rows``
+// rows (0: not known): out[0..3] = the design (0 the template, 1 the
+// resident design, 2 the hull design), blocks a row tile, P rows a staged
+// piece (resident: all qn * M; hull: hull_rows), dynamic shared memory
+// bytes.
 extern "C" int art_fixed_step_geometry(int M, int qn, int interp, int kind,
-                                       long long* out) {
+                                       int hull_rows, long long* out) {
     Launch lc;
-    if (!fixed_step_launch(M, qn, interp != 0, kind, &lc)) return 1;
-    out[0] = lc.resident;
+    if (!fixed_step_launch(M, qn, interp != 0, kind, hull_rows, &lc))
+        return 1;
+    out[0] = lc.design;
     out[1] = lc.bm;
     out[2] = lc.pr;
     out[3] = static_cast<long long>(lc.smem);
     return 0;
 }
 
-// The resident grid for G column groups of ``units`` row tiles each on
-// ``slots`` resident CTAs, and CTA ``cta``'s share of it: out[0..4] =
-// CTAs, CTAs a group, the CTA's first group, its tiles [t0, t1).
+// The resident grid (the resident and hull designs') for G column groups
+// of ``units`` row tiles each on ``slots`` resident CTAs, and CTA
+// ``cta``'s share of it: out[0..4] = CTAs, CTAs a group, the CTA's first
+// group, its tiles [t0, t1).
 extern "C" int art_fixed_step_grid(int G, long long units, long long slots,
                                    long long cta, long long* out) {
     if (G < 1 || units < 1 || slots < 1) return 1;

@@ -1,4 +1,4 @@
-// K1's host geometry: which of its two designs a launch takes, and each
+// K1's host geometry: which of its three designs a launch takes, and each
 // design's tile, shared memory and grid.  One source for fixed_step.cu
 // (nvcc: the kernels, their launches) and for fixed_step_geometry.cpp (the
 // host's C++ compiler: the same functions behind a C interface that needs
@@ -110,6 +110,39 @@ K1_HD void resident_range(long long cta, long long per_group,
     *t1 = (j + 1) * units / per_group;
 }
 
+// =================================================== the hull design
+// Where the whole P does not fit: a CTA of the resident design's two warp
+// groups keeps only its column group's hull rows of P, [klo, khi) rounded
+// out to 4-row groups, which the host finds on a matrix's first launch
+// (kept beside P), and each warp group's window buffer holds, for each block of a
+// tile, only that block's hull span of its window.  The tiles run over
+// every channel's blocks in turn.  A thread computes kHullTM blocks x 4
+// phases.
+constexpr int kHullTM = 6;
+constexpr int kHullBM = kResGroupThreads * kHullTM * kTN / kBN;   // 96
+
+// A block's staged row in floats: the hull's rows (a multiple of 4), +4
+// where that is a multiple of 16, so the four rows a warp reads at one
+// column fall in four different bank quads.
+K1_HD int hull_stride(int rows) { return rows % 16 ? rows : rows + 4; }
+
+// The hull design takes float32 data summed in float32, reduced (one
+// bank), M of at least 32 and a multiple of 4 (a slice's edge is then a
+// 4-row group's and a 32-term block's), and a hull of ``rows`` rows (the
+// widest column group's, rounded out to 4-row groups; 0: not known) whose
+// P rows and two window buffers fit a block's shared memory.  Returns its
+// shared-memory bytes, or 0 where it does not take the shape.
+inline size_t hull_smem(int M, int qn, bool interp, int kind, int rows) {
+    if (kind != kF32 || interp || M < kResMinM || M % 4 || rows <= 0 ||
+        rows % 4 || rows > qn * M)
+        return 0;
+    const size_t smem =
+        (static_cast<size_t>(rows) * kBN +
+         static_cast<size_t>(kResGroups) * kHullBM * hull_stride(rows)) *
+        sizeof(float);
+    return smem <= kMaxSmem ? smem : 0;
+}
+
 // =================================================== the template design
 constexpr int kThreads = 256;
 constexpr int kRowThreads = kThreads / kColThreads;  // 32
@@ -185,19 +218,29 @@ inline bool pick_tile(int M, int qn, int BNt, int esz, int* tm, int* pr,
 }
 
 // The launch a shape takes, as art_fixed_step_geometry reports it.
+enum Design { kTemplate = 0, kResident = 1, kHull = 2 };
+
 struct Launch {
-    bool resident;
+    Design design;
     int bm;             // blocks a row tile
-    int pr;             // P rows a staged piece (resident: all qn * M)
+    int pr;             // P rows a staged piece (resident: all qn * M;
+                        // hull: the hull's rows)
     size_t smem;
 };
 
+// The resident design where it fits, else the hull design where the hull
+// of ``hull_rows`` rows (0: not known) fits, else the template.
 inline bool fixed_step_launch(int M, int qn, bool interp, int kind,
-                              Launch* out) {
+                              int hull_rows, Launch* out) {
     if (M <= 0 || qn <= 0 || kind < kF32 || kind > kF64) return false;
     const size_t res = resident_smem(M, qn, interp, kind);
     if (res) {
-        *out = {true, res_bm(interp), qn * M, res};
+        *out = {kResident, res_bm(interp), qn * M, res};
+        return true;
+    }
+    const size_t hull = hull_smem(M, qn, interp, kind, hull_rows);
+    if (hull) {
+        *out = {kHull, kHullBM, hull_rows, hull};
         return true;
     }
     int tm = 0, pr = 0, nbuf = 0, wpiece = 0;
@@ -205,7 +248,7 @@ inline bool fixed_step_launch(int M, int qn, bool interp, int kind,
     if (!pick_tile(M, qn, interp ? 2 * kBN : kBN, kind == kF64 ? 8 : 4, &tm,
                    &pr, &nbuf, &wpiece, &smem))
         return false;
-    *out = {false, kRowThreads * tm, pr, smem};
+    *out = {kTemplate, kRowThreads * tm, pr, smem};
     return true;
 }
 

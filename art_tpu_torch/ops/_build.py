@@ -39,9 +39,9 @@ _ASRC_APPLY = [_vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp,
                _ll, _vp, _vp]
 _SIGNATURES = {
     # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, kind,
-    # &resident, stream
+    # hulls, hull rows, &design, stream
     "art_fixed_step": [_vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _vp, _i, _i, _i,
-                       _ll, _vp, _i, ctypes.POINTER(_i), _vp],
+                       _ll, _vp, _i, _vp, _i, ctypes.POINTER(_i), _vp],
     # hist, H, x, n, S, bank, taps, F, P, X, outputs per block, threads,
     # offsets, ratios, Ks, shift, k_max, out, stream
     "art_asrc_step_f32": _ASRC_STEP,
@@ -83,9 +83,9 @@ _GEOMETRY_SIGNATURES = {
     "art_decimate_shaped_geometry": [_ll, _ll, _ll, _i, _i, _vp],
     # odd, pairs, out [2]: the LCG map of 2 * pairs steps
     "art_decimate_pair_power": [_i, ctypes.c_ulonglong, _vp],
-    # M, qn, interp, kind, out [4]: K1's design (1 resident), blocks a
-    # tile, P rows a piece, shared bytes
-    "art_fixed_step_geometry": [_i, _i, _i, _i, _vp],
+    # M, qn, interp, kind, hull rows, out [4]: K1's design (0 template,
+    # 1 resident, 2 hull), blocks a tile, P rows a piece, shared bytes
+    "art_fixed_step_geometry": [_i, _i, _i, _i, _i, _vp],
     # G, units, slots, cta, out [5]: the resident grid's CTAs, CTAs a
     # group, the CTA's first group and tiles [t0, t1)
     "art_fixed_step_grid": [_i, _ll, _ll, _ll, _vp],

@@ -36,15 +36,21 @@ its chunk-step entry points, every instance, and ``instance_launches`` each
 instance's; ``polyphase_launches`` counts those through ``polyphase_apply``.
 ``path_launches`` counts every launch (both entry points) by the design it
 took, as the launch reports it: "resident" (float32 summed in float32 at
-shapes whose P and window ring fit a CTA's shared memory, the main path)
-or "template" (the rest); ``kernel_tile`` says which a shape takes.
+shapes whose P and window ring fit a CTA's shared memory, the main path),
+"hull" (float32 reduced shapes where they do not, but P's hull rows and
+two buffers of each block's hull span of the window do: the hulls of P's
+column groups, found on P's first launch and kept beside it) or
+"template" (the rest); ``kernel_tile`` says which a shape takes, and
+``launch_tile`` which the launches on a given P take.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..utils.spans import LAUNCH, span
 from . import _build
@@ -52,7 +58,8 @@ from . import _build
 launches = 0
 instance_launches = {"f32": 0, "f32_acc64": 0, "f64": 0}
 polyphase_launches = 0
-path_launches = {"resident": 0, "template": 0}
+path_launches = {"resident": 0, "hull": 0, "template": 0}
+_DESIGNS = ("template", "resident", "hull")     # art_fixed_step's *design
 
 # art_fixed_step's ``kind`` of each instance
 _KINDS = {"f32": 0, "f32_acc64": 1, "f64": 2}
@@ -149,6 +156,88 @@ def fixed_step_reference(hist, x, P, start: int, K: int, acc, *, M: int,
     return new_hist, out, acc + torch.sum(out * out)
 
 
+# ------------------------------------------------------- P's hulls
+# P -> (P's version counter when its hulls were found, the hulls of each
+# 32-phase column group's two 16-phase halves [2 ceil(L / 32), 2] int32 on
+# P's device, the widest column group's hull rounded out to 4-row groups)
+_kept_hulls = WeakIdKeyDictionary()
+
+
+def column_hulls(P, cols: int = 32):
+    """The hull of each group of ``cols`` phases of P [KQ, L]: int32
+    [ceil(L / cols), 2] on P's device, rows [klo, khi), the first and one
+    past the last row in which any of the group's columns is nonzero;
+    (0, 0) for a group that is zero."""
+    KQ, L = P.shape
+    groups = -(-L // cols)
+    nz = P != 0
+    nz = torch.cat([nz, nz.new_zeros((KQ, groups * cols - L))], dim=1)
+    rows = nz.view(KQ, groups, cols).any(dim=2).to(torch.int32)
+    lo = rows.argmax(dim=0)
+    hi = KQ - rows.flip(0).argmax(dim=0)
+    return (torch.stack([lo, hi], dim=1)
+            * rows.any(dim=0)[:, None]).to(torch.int32)
+
+
+def hull_rows(hulls) -> int:
+    """The widest hull of ``column_hulls`` rounded out to 4-row groups
+    (the rows the hull design stages a column group), 0 if all are
+    empty."""
+    h = torch.as_tensor(hulls).to(torch.int64)
+    width = ((h[:, 1] + 3) & ~3) - (h[:, 0] & ~3)
+    return int(torch.where(h[:, 1] > h[:, 0], width, 0).max())
+
+
+@functools.lru_cache(maxsize=None)
+def _takes_hulls(M: int, qn: int, interp: bool, inst: str) -> bool:
+    """Whether the launches of this shape and instance take the hull
+    design on some P: those whose launch needs P's hulls."""
+    return (inst == "f32" and not interp
+            and kernel_tile(M, qn, False, hull=4)[0] == "hull")
+
+
+def _hulls_of(P):
+    """(P's column-group halves' hulls, hull_rows of its column groups),
+    found on P's first launch and again after P changes in place (its
+    version counter moves); one small copy to the host each time."""
+    kept = _kept_hulls.get(P)
+    if kept is None or kept[0] != P._version:
+        halves = torch.zeros((2 * -(-P.shape[1] // 32), 2),
+                             dtype=torch.int32, device=P.device)
+        h = column_hulls(P, cols=16)
+        halves[:len(h)] = h
+        kept = (P._version, halves, hull_rows(column_hulls(P)))
+        _kept_hulls[P] = kept
+    return kept[1], kept[2]
+
+
+def launch_tile(P, *, M: int, qn: int, fracv=None, precise: bool = False):
+    """``kernel_tile`` of K1's launches on P [qn*M, L] (float32 or
+    float64, L2 columns with ``fracv``): with P's hulls where the shape
+    may take the hull design."""
+    interp, inst = fracv is not None, instance(P.dtype, precise)
+    rows = _hulls_of(P)[1] if _takes_hulls(M, qn, interp, inst) else 0
+    return kernel_tile(M, qn, interp, dtype=P.dtype, precise=precise,
+                       hull=rows)
+
+
+def window_frame(P, start: int, W: int, *, M: int, qn: int, fracv=None,
+                 precise: bool = False):
+    """The zeros (lead, tail) a caller puts before and after a window
+    buffer of width ``W`` whose first window starts at ``start``, for K1's
+    launches on P: where they take the hull design (a CUDA P), enough that
+    start + lead and the framed width are multiples of 4, so the design
+    copies its rows in 16-byte pieces; else (0, 0), since the other
+    designs' copies do not depend on it and the zeros would cost the
+    buffer's concat its vectorized form.  No window reads the zeros in
+    front; those behind read as the zeros past the end would."""
+    if P.device.type != "cuda" or launch_tile(
+            P, M=M, qn=qn, fracv=fracv, precise=precise)[0] != "hull":
+        return 0, 0
+    lead = -start % 4
+    return lead, -(lead + W) % 4
+
+
 def _check(name, t, dev, dtype, shape=None):
     if t.device != dev or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: needs a contiguous {dtype} tensor on "
@@ -158,23 +247,25 @@ def _check(name, t, dev, dtype, shape=None):
 
 
 def kernel_tile(M: int, qn: int, interp: bool, *, dtype=torch.float32,
-                precise: bool = False):
+                precise: bool = False, hull: int = 0):
     """(design, blocks a row tile, P rows a staged piece, shared-memory
-    bytes) of K1's launch for this shape and instance, from
-    ``csrc/fixed_step_geometry.h`` (the code the launch runs, built for the
-    host: no card needed).  The design is "resident" (the whole P of a
-    CTA's columns held, all qn*M rows a piece) or "template".  Every M
-    fits: where the whole window tile does not, the template brings the
-    window in column pieces beside P's.  Raises ValueError for a shape no
-    launch takes (M or qn < 1)."""
+    bytes) of K1's launch for this shape and instance on a P whose widest
+    column-group hull, rounded out to 4-row groups, is ``hull`` rows
+    (``hull_rows``; 0: no hull known), from ``csrc/fixed_step_geometry.h``
+    (the code the launch runs, built for the host: no card needed).  The
+    design is "resident" (the whole P of a CTA's columns held, all qn*M
+    rows a piece), "hull" (P's hull rows held, ``hull`` rows a piece) or
+    "template".  Every M fits: where the whole window tile does not, the
+    template brings the window in column pieces beside P's.  Raises
+    ValueError for a shape no launch takes (M or qn < 1)."""
     geo = (ctypes.c_longlong * 4)()
     rc = _build.geometry_library().art_fixed_step_geometry(
-        M, qn, int(interp), _KINDS[instance(dtype, precise)], geo)
+        M, qn, int(interp), _KINDS[instance(dtype, precise)], hull, geo)
     if rc != 0:
         raise ValueError(f"K1 has no tile for M={M}, qn={qn}"
                          f"{', interpolated' if interp else ''}: M and qn "
                          "must be positive")
-    return ("resident" if geo[0] else "template", geo[1], geo[2], geo[3])
+    return (_DESIGNS[geo[0]], geo[1], geo[2], geo[3])
 
 
 def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
@@ -198,20 +289,23 @@ def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
             raise ValueError(f"bad plan: start={start} W={W} K={K} nb={nb} "
                              f"L={L}")
         lib = _build.library()
+        hulls, rows = (_hulls_of(P) if _takes_hulls(M, qn, fracv is not None,
+                                                    inst) else (None, 0))
         out = torch.empty((ch, nb * L), dtype=buf.dtype, device=dev)
-        resident = ctypes.c_int()
+        design = ctypes.c_int()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.art_fixed_step(
                 buf.data_ptr(), ch, W, int(start), int(K), P.data_ptr(),
                 qn * M, L2, fracv.data_ptr() if fracv is not None else None,
                 M, L, qn, int(nb), out.data_ptr(), _KINDS[inst],
-                ctypes.byref(resident), stream)
+                hulls.data_ptr() if hulls is not None else None, rows,
+                ctypes.byref(design), stream)
         if rc != 0:
             raise RuntimeError(f"art_fixed_step launch failed: cudaError "
                                f"{rc} ({inst}, ch={ch}, M={M}, L={L}, "
                                f"qn={qn}, nb={nb})")
-        path_launches["resident" if resident.value else "template"] += 1
+        path_launches[_DESIGNS[design.value]] += 1
         return out, inst
 
 

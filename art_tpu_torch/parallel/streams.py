@@ -62,13 +62,22 @@ from ..ops.polyphase import PolyphaseMatrix
 from ..utils.spans import CALL, PLAN, span, spanned, upload
 
 
-def _group_buf(hist, xs_flat, G: int, n: int, hist_len: int):
+def _group_buf(hist, xs_flat, G: int, n: int, hist_len: int,
+               frame=(0, 0)):
     """The flat-group prologue: ONE contiguous stream [hist ++ xs_flat], so
     chunk g's window starts at g*n + start (reads past its end are zero in
     K1 and in the plain version, so JAX's zero tail is not needed), and the
-    advanced history (the last hist_len columns)."""
-    buf = torch.cat([hist, xs_flat], dim=1)
-    return buf, buf[:, G * n:G * n + hist_len].contiguous()
+    advanced history (the last hist_len columns of the stream).  ``frame``
+    (``k1.window_frame``) puts (lead, tail) zeros around the stream; the
+    window starts then move by lead."""
+    lead, tail = frame
+    parts = [hist, xs_flat]
+    if lead or tail:
+        ch = hist.shape[0]
+        parts = [hist.new_zeros((ch, lead)), *parts,
+                 hist.new_zeros((ch, tail))]
+    buf = torch.cat(parts, dim=1)
+    return buf, buf[:, lead + G * n:lead + G * n + hist_len].contiguous()
 
 
 def _build_interp_matrix(bank, d, fi, rows: int, L: int, T: int):
@@ -674,18 +683,23 @@ class DeviceStreamResampler:
     def _run_group(self, xs_flat, n_in: int, body, empty):
         """The flat forms' one prologue: the group plan (``_flat_plan``);
         after the FLUSHED latch (G == 0) zero Ks and ``empty()``; otherwise
-        ONE history + input buffer (``_group_buf``) and ``body(buf, n_in,
-        G, K0, start0, nb, P, fracv)``, after which the advanced history is
-        committed.  Any exception rolls the consume/emit state back to the
-        call's entry, the history untouched.  Returns (Ks int array [G],
+        ONE history + input buffer (``_group_buf``, framed as
+        ``k1.window_frame`` asks) and ``body(buf, n_in, G, K0, start, nb, P,
+        fracv)``, ``start`` chunk 0's window start in buf, after which the
+        advanced history is committed.  Any exception rolls the
+        consume/emit state back to the call's entry, the history
+        untouched.  Returns (Ks int array [G],
         the body's or ``empty``'s result)."""
         G, K0, start0, nb, P, fracv, state0 = self._flat_plan(xs_flat, n_in)
         if G == 0:
             return np.zeros((xs_flat.shape[1] // n_in,), np.int64), empty()
         try:
+            frame = k1.window_frame(
+                P, start0, self.hist.shape[1] + xs_flat.shape[1], M=self.M,
+                qn=self.qn, fracv=fracv, precise=bool(self._precise))
             buf, new_hist = _group_buf(self.hist, xs_flat, G, n_in,
-                                       self.num_samples)
-            result = body(buf, n_in, G, K0, start0, nb, P, fracv)
+                                       self.num_samples, frame)
+            result = body(buf, n_in, G, K0, start0 + frame[0], nb, P, fracv)
         except BaseException:
             self.output_offset, self.input_index = state0
             raise

@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``art_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py               # every phase; needs one card
-    python3 chip_smoke.py --checksum    # only K1's output hashes (3 lines)
+    python3 chip_smoke.py --checksum    # only K1's output hashes (4 lines)
     python3 chip_smoke.py --profile-biquad  # the biquad kernel's device times
     python3 chip_smoke.py --decimate-ab build/parent  # decimate A/B, in turns
     python3 chip_smoke.py --biquad-ab build/parent    # biquad A/B, in turns
@@ -21,9 +21,10 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 1. device: the card's name, count, and nvidia-smi's name and power limit;
 2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
    per source, in parallel), with ptxas's register and spill lines; no
-   kernel instance (K1's twenty: the template's eighteen, float32, float32
-   with float64 accumulators and float64, reduced and interpolated, three
-   tiles, and the resident design's two, reduced and interpolated; the
+   kernel instance (K1's twenty-two: the template's eighteen, float32,
+   float32 with float64 accumulators and float64, reduced and
+   interpolated, three tiles, the resident design's two, reduced and
+   interpolated, and the hull design's two, 16- and 4-byte copies; the
    ASRC step's two and the apply's two; the decimate stage's flat and shaped
    kernels and the shaped chain's probe in float32 and float64; the biquad
    section's span kernel in float32 and float64) may spill, and the six
@@ -32,14 +33,21 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    shapes (~2^22-frame stereo chunks), its edge cases, BASELINE config 1's
    interpolated chunk and the large input periods (preset -3 192k->44.1k,
    M=640; preset -1 96k->44.1k interpolated, M=320; 192k->11.025k, M=2560,
-   reduced and interpolated, whose window K1 stages in column pieces) with
-   the tile K1 picked
-   for each and the hull it keeps (the rows of P from the first to the
-   last nonzero in a CTA's 32 phases): max abs error vs the float64 plain
-   version <= 1e-5, a zero tail past K, the new history bitwise equal;
-   then the sha256 of K1's bytes on the preset -3 chunk, on config 1's
-   interpolated chunk and on K6's main-path call (``--checksum`` prints
-   them alone, also from an older checkout);
+   reduced and interpolated, whose window K1 stages in column pieces) and
+   the batch-mastering shape (preset -2 96k->44.1k, M=320, qn=2, reduced,
+   K1's hull design, at 2 and at 256 channels) with the tile K1 picked
+   for each, the design its launch reported and the hull it keeps (the
+   rows of P from the first to the last nonzero in a CTA's 32 phases):
+   max abs error vs the float64 plain version <= 1e-5, a zero tail past
+   K, the new history bitwise equal, one launch of the design kernel_tile
+   reports; the batch cell's call (2,048 x 65,600 frames) framed as the
+   engine frames its group buffers, one hull launch (16-byte copies),
+   within 1e-5 with a zero tail; the batch engine's process_flat_out
+   group of 2 chunks on 256 channels on the card against a CPU engine
+   (one hull launch, Ks equal, within 1e-5); then the sha256 of K1's
+   bytes on the preset -3 chunk, on config 1's interpolated chunk, on K6's main-path
+   call and on the batch-mastering chunk at 256 channels (``--checksum``
+   prints them alone, also from an older checkout);
 4. K6 (polyphase_apply) against its float64 plain version at the main
    path's shapes (<= 1e-5) with its hull, then its entry point called 4
    times: 4 launches;
@@ -208,8 +216,9 @@ the change's within the class of the parent's.
 (git archive), in four processes in turns (parent, change, change,
 parent): the step and the kernel alone on the preset -3 2^22-frame chunk,
 the kernel on a 16,384-frame call, on a p3_flat_bulk group (8 x 8,388,555
-frames) and on config 1's interpolated chunk, and K6's main-path call
-(k1_times); the three K1 hashes of every turn must be equal.
+frames), on config 1's interpolated chunk and on a p2_cd16_1024trk call
+(2,048 x 65,600 frames, preset -2 96k->44.1k), and K6's main-path call
+(k1_times); the four K1 hashes of every turn must be equal.
 
 ``--decimate-ab build/parent`` times the decimate stage against an older
 tree unpacked there (git archive), in four processes in turns (parent,
@@ -343,16 +352,18 @@ def phase_build():
         if line.startswith("==") or "ptxas" in line or "spill" in line:
             print(f"  {line.strip()}")
     if _build.build_log:        # empty when an earlier process built it
-        # 20 fixed_step_kernel instances (the template's 18: float,
+        # 22 fixed_step_kernel instances (the template's 18: float,
         # float-with-double accumulators and double, reduced and
-        # interpolated, 3 tiles; the resident design's 2), 4 ASRC ones (step and apply, float32 and float64), 10 decimate ones
+        # interpolated, 3 tiles; the resident design's 2; the hull
+        # design's 2), 4 ASRC ones (step and apply, float32 and float64),
+        # 10 decimate ones
         # (the flat kernel and the shaped chain's probe, float and double;
         # the shaped kernel's 1 and 2 quads, float and double), 2
         # biquad ones (the span kernel, float and double)
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 34 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 36 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
     _require_no_fma("decimate", 8)
 
@@ -428,6 +439,9 @@ def _tile_text(tile):
     if design == "resident":
         return (f"resident: {bm}-block tiles, P held whole ({pr} rows), "
                 f"{smem} B shared")
+    if design == "hull":
+        return (f"hull: {bm}-block tiles over every channel's blocks, P's "
+                f"hull held ({pr} rows), {smem} B shared")
     return f"template: tile {bm} blocks x P pieces of {pr} rows, {smem} B shared"
 
 
@@ -488,12 +502,28 @@ def _kernel_cases(dev, n_target):
         cases.append((_large_label(eng, src, dst, K),
                       noise(2, eng.num_samples), noise(2, n), P, fracv,
                       start, K, kw))
+    # the batch-mastering shape (p2_cd16_1024trk's engine, K1's hull
+    # design): 2 channels at the 2^22 chunk, 256 at the cell's chunk
+    for ch, n_t in ((2, n_target), (256, P2_CHUNK)):
+        eng, n, K, start, P, fracv, kw = _steady_chunk(_p2(ch), dev, n_t)
+        cases.append((f"preset -2 96k->44.1k M={eng.M} qn={eng.qn} reduced "
+                      f"{ch} channels steady K={K}",
+                      noise(ch, eng.num_samples), noise(ch, n), P, fracv,
+                      start, K, kw))
     return cases
 
 
 # (taps, source rate, destination rate) of the large-input-period cases
 _LARGE_M = ((380, 192000, 44100), (48, 96000, 44100), (380, 192000, 11025),
             (48, 192000, 11025))
+# p2_cd16_1024trk's engine (preset -2 96k->44.1k, the planner's own
+# lowpass; bench_torch/configs/preset2_96k_to_44k1_cd16_1024trk.json) on
+# ``ch`` channels, and its chunk
+P2_CHUNK = 65600
+
+
+def _p2(ch):
+    return (ch, 156, 320, 96000, 44100, 0, FLAGS)
 
 
 def _large_label(eng, src, dst, K):
@@ -508,8 +538,12 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
     for label, hist, x, P, fracv, start, K, kw in _kernel_cases(dev,
                                                                 n_target):
         acc = torch.zeros((), device=dev)
+        tile = k1.launch_tile(P, M=kw["M"], qn=kw["qn"], fracv=fracv)
+        before = dict(k1.path_launches)
         h, out, a = k1.fixed_step(hist, x, P, start, K, acc, fracv=fracv,
                                   **kw)
+        ran = {d: n - before[d] for d, n in k1.path_launches.items()
+               if n != before[d]}
         h32, o32, _ = k1.fixed_step_reference(hist, x, P, start, K, acc,
                                               fracv=fracv, **kw)
         _, o64, a64 = k1.fixed_step_reference(
@@ -521,16 +555,79 @@ def phase_kernel_vs_plain(dev, n_target=1 << 22):
         tail0 = not bool(out[:, K:].any())
         hist_eq = bool(torch.equal(h, h32))
         finite = bool(torch.isfinite(out).all())
-        tile = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None)
-        print(f"  {label}: {_tile_text(tile)}; "
+        print(f"  {label}: {_tile_text(tile)}; launched {ran}; "
               f"{_hull(P, kw['L'], fracv is not None)}; out {tuple(out.shape)}; "
               f"max|K1 - f64 plain| = "
               f"{err:.3e} (f32 plain: {err32:.3e}); acc rel err "
               f"{acc_rel:.2e}; tail zero {tail0}; new_hist bitwise {hist_eq}")
         _require(finite and err <= 1e-5 and tail0 and hist_eq,
                  f"K1 vs plain, {label}")
+        _require(dev.type != "cuda" or ran == {tile[0]: 1},
+                 f"K1's launch took {ran}, not one {tile[0]}, {label}")
         worst = max(worst, err)
-    return worst
+    return max(worst, _hull_cell(dev))
+
+
+def _hull_cell(dev, ch=256):
+    """K1's hull design as the batch-mastering cell runs it: its call
+    (2,048 channels x 65,600 frames, std-0.25 noise) framed as the engine
+    frames its group buffers (``_frame``), one hull launch, against the
+    float64 plain version (<= 1e-5, a zero tail past K); then the engine
+    itself on ``ch`` channels, a first chunk by process() and one
+    process_flat_out group of 2 chunks, on the card and on the CPU: the
+    group one hull launch, Ks equal, samples within 1e-5.  Returns the
+    largest |K1 - float64 plain|."""
+    eng = DeviceStreamResampler(*_p2(2048), device=dev)
+    eng.advance_position(78)
+    eng._plan(P2_CHUNK)
+    K, start, j0, _, _ = eng._plan_compute(P2_CHUNK)
+    kw = _kw(eng, K)
+    kw.pop("hist_len")
+    P = eng._matrix(j0)
+    buf, start = _frame(_noise_dev(dev, (2048, eng.num_samples + P2_CHUNK),
+                                   5151, 0.25), P, start, kw)
+    before = dict(k1.path_launches)
+    out = k1.fixed_step_kernel(buf, P, start, K, **kw)
+    ran = {d: n - before[d] for d, n in k1.path_launches.items()
+           if n != before[d]}
+    win = k1.window_at(buf.double(), start,
+                       (kw["nb"] - 1) * eng.M + eng.qn * eng.M)
+    err = float((out.double() - k1.window_dots(win, P.double(), K, **kw))
+                .abs().max())
+    del win
+    tail0 = not bool(out[:, K:].any())
+    print(f"  preset -2 96k->44.1k 2048 channels x {P2_CHUNK}, framed as "
+          f"the engine frames it (start {start}, width {buf.shape[1]}): "
+          f"{_tile_text(k1.launch_tile(P, M=eng.M, qn=eng.qn))}; launched "
+          f"{ran}; max|K1 - f64 plain| = {err:.3e}; tail zero {tail0}")
+    _require(err <= 1e-5 and tail0 and ran == {"hull": 1}
+             and start % 4 == 0 and buf.shape[1] % 4 == 0,
+             "K1's hull design at the batch cell's framed call")
+    engines = [DeviceStreamResampler(*_p2(ch), device=d)
+               for d in (dev, "cpu")]
+    rng = np.random.default_rng(5252)
+    x = torch.from_numpy(rng.normal(0, 0.25, (ch, P2_CHUNK))
+                         .astype(np.float32))
+    xs = torch.from_numpy(rng.normal(0, 0.25, (ch, 2 * P2_CHUNK))
+                          .astype(np.float32))
+    for e in engines:
+        e.advance_position(78)
+        e.process(x.to(e.device), P2_CHUNK)
+    before, calls = dict(k1.path_launches), k1.launches
+    og, Kg = engines[0].process_flat_out(xs.to(dev), P2_CHUNK)
+    torch.cuda.synchronize()
+    ran = {d: n - before[d] for d, n in k1.path_launches.items()
+           if n != before[d]}
+    calls = k1.launches - calls
+    oc, Kc = engines[1].process_flat_out(xs, P2_CHUNK)
+    gerr = float((og.cpu() - oc).abs().max())
+    print(f"  the batch engine on {ch} channels, process_flat_out of 2 x "
+          f"{P2_CHUNK} frames: launched {ran} ({calls} K1 launches); Ks "
+          f"{Kg.tolist()} (CPU {Kc.tolist()}); max|card - CPU| = "
+          f"{gerr:.3e}")
+    _require(ran == {"hull": 1} and calls == 1 and np.array_equal(Kg, Kc)
+             and gerr <= 1e-5, "the batch engine's group on the card")
+    return err
 
 
 def phase_roundtrip(dev, seconds=60, precise=False):
@@ -738,11 +835,43 @@ def k1_checksum_poly(dev):
     return _sha256(k1.polyphase_apply(win, P, **kw))
 
 
+def _frame(buf, P, start, kw):
+    """buf framed as the engine frames its group buffers for K1's launches
+    on P (``k1.window_frame``; an older tree, which has none, takes buf as
+    it is).  Returns (the framed buffer, the window start in it)."""
+    frame = getattr(k1, "window_frame", None)
+    lead, tail = ((0, 0) if frame is None else
+                  frame(P, start, buf.shape[1], M=kw["M"], qn=kw["qn"]))
+    return torch.nn.functional.pad(buf, (lead, tail)), start + lead
+
+
+def k1_checksum_p2(dev, ch=256):
+    """sha256 of K1's output bytes on the batch-mastering engine's steady
+    chunk (preset -2 96k->44.1k, M=320, qn=2, reduced; ``ch`` channels of
+    65,600 frames in, std-0.25 noise, framed as the engine frames its
+    group buffers): the hull design's 16-byte copies since it was written,
+    the template before."""
+    eng = DeviceStreamResampler(*_p2(ch), device=dev)
+    eng.advance_position(78)
+    n = roundtrip.m_multiple(P2_CHUNK, eng.M)
+    eng._plan(n)
+    K, start, j0, _, _ = eng._plan_compute(n)
+    rng = np.random.default_rng(4444)
+    kw, P = _kw(eng, K), eng._matrix(j0)
+    buf, start = _frame(torch.from_numpy(
+        rng.normal(0, 0.25, (ch, eng.num_samples + n)).astype(np.float32))
+        .to(dev), P, start, kw)
+    return _sha256(k1.fixed_step_kernel(
+        buf, P, start, K, M=kw["M"], L=kw["L"], nb=kw["nb"], qn=kw["qn"]))
+
+
 def k1_checksums(dev):
-    """The three K1 hashes, one line each, the preset -3 line first."""
+    """The four K1 hashes, one line each, the preset -3 line first."""
     print(f"K1 preset -3 44.1k->48k chunk sha256 {k1_checksum(dev)}")
     print(f"K1 config 1 interpolated chunk sha256 {k1_checksum_interp(dev)}")
     print(f"K6 main-path call sha256 {k1_checksum_poly(dev)}")
+    print(f"K1 preset -2 96k->44.1k 256-channel chunk sha256 "
+          f"{k1_checksum_p2(dev)}")
 
 
 def _noise_dev(dev, shape, seed, scale=0.5, dtype=torch.float32):
@@ -3390,14 +3519,20 @@ def decimate_ab(parent):
 
 
 def k1_times(dev, reps=20, frames=(4194351, 16317, 8 * 8388555),
-             n_interp=1 << 22, nb_pad=28672):
+             n_interp=1 << 22, nb_pad=28672, host_reps=2000):
     """K1's time a call in ms (CUDA events, the median of three windows of
     ``reps`` calls, 5 for the group) at the shapes --k1-ab compares, std-0.5
     noise: the step and the kernel alone on the preset -3 2^22-frame steady
     chunk, the kernel on a 16,384-frame call and on a p3_flat_bulk group
     (8 x 8,388,555 frames, one launch), on config 1's interpolated chunk,
-    and K6's main-path call.  Uses only entry points the port has had since
-    K6 was ported, so it runs from an older checkout too."""
+    on a p2_cd16_1024trk call (2,048 channels x 65,600 frames of the
+    batch-mastering engine, std 0.25, framed as the engine frames it, and
+    unframed, its window start not a multiple of 4), and K6's main-path
+    call; then the host's time a call of the 16,384-frame call's kernel
+    (perf_counter over ``host_reps`` calls with no wait, the median of
+    five windows: the launch's Python and ctypes work, which paces a call
+    that small).  Uses only entry points the port has had since K6 was
+    ported, so it runs from an older checkout too."""
     rng = np.random.default_rng(4747)
     zero = torch.zeros((), device=dev)
 
@@ -3430,19 +3565,42 @@ def k1_times(dev, reps=20, frames=(4194351, 16317, 8 * 8388555),
                                      fracv=fracv))
     win, P6, kw6 = _poly_inputs(dev, nb_pad=nb_pad)
     calls["K6 main-path call"] = lambda: k1.polyphase_apply(win, P6, **kw6)
+    eng = DeviceStreamResampler(*_p2(2048), device=dev)
+    eng.advance_position(78)
+    eng._plan(P2_CHUNK)
+    K2, start2, j2, _, _ = eng._plan_compute(P2_CHUNK)
+    kw2 = _kw(eng, K2)
+    P2m = eng._matrix(j2)
+    buf2 = _noise_dev(dev, (2048, eng.num_samples + P2_CHUNK), 4848, 0.25)
+    buf2f, start2f = _frame(buf2, P2m, start2, kw2)
+    for label, b, s in (("", buf2f, start2f),
+                        (", unframed", buf2, start2)):
+        calls[f"K1 kernel, p2_cd16_1024trk call{label}"] = (
+            lambda b=b, s=s: k1.fixed_step_kernel(
+                b, P2m, s, K2, M=kw2["M"], L=kw2["L"], nb=kw2["nb"],
+                qn=kw2["qn"]))
     times = {}
     for label, fn in calls.items():
         fn()
         n_reps = 5 if "group" in label else reps
         runs = sorted(_time_ms(dev, fn, n_reps) for _ in range(3))
         times[label] = round(runs[1], 4)
+    fn, runs = calls["K1 kernel, 16,384-frame call"], []
+    for _ in range(5):
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(host_reps):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e3 / host_reps)
+    _sync(dev)
+    times["K1 host, 16,384-frame call"] = round(sorted(runs)[2], 5)
     return times
 
 
 def k1_ab(parent):
     """K1 against an older tree unpacked in ``parent`` (git archive into
     build/parent/): this script is copied there as chip_smoke_new.py, and
-    k1_times with the three K1 hashes runs in four processes, one a turn,
+    k1_times with the four K1 hashes runs in four processes, one a turn,
     in the order parent, change, change, parent (each process imports its
     own tree's package and builds its own library); the hashes of every
     turn must be equal."""
@@ -3466,7 +3624,7 @@ def k1_ab(parent):
         print(f"  {case} (ms): {', '.join(runs)}")
     hashes = [t["hashes"] for _, t in turns]
     same = all(h == hashes[0] for h in hashes)
-    print(f"  the three K1 hashes equal in all four turns: {same}")
+    print(f"  the four K1 hashes equal in all four turns: {same}")
     _require(same, "K1's bytes differ from the parent's")
 
 
@@ -3552,7 +3710,8 @@ def main(argv) -> int:
         print(json.dumps({"times": k1_times(dev),
                           "hashes": [k1_checksum(dev),
                                      k1_checksum_interp(dev),
-                                     k1_checksum_poly(dev)]}))
+                                     k1_checksum_poly(dev),
+                                     k1_checksum_p2(dev)]}))
         return 0
     if argv[1:2] == ["--k1-ab"] and len(argv) == 3:
         print(phase_device()[2])

@@ -761,6 +761,165 @@ def test_resident_design_matches_plain_and_template(case):
     assert torch.equal(out, tmpl)
 
 
+# The hull design's edges (csrc/fixed_step.cu, "Design: hull"): (P,
+# channels, blocks a channel (None: the cell's 65,600-frame chunk), K
+# short of nb * L by, aligned: the window start and the buffer's width
+# multiples of 4, as the engine frames its group buffers for this design,
+# so the rows come in 16-byte copies; else 4-byte ones).  P "cell" is
+# p2_cd16_1024trk's steady phase matrix (preset -2 96k->44.1k, M = 320,
+# qn = 2, L = 147; its column groups' hulls are 196-224 rows, the middle
+# ones across the slice edge at row 320, the last group 19 phases), from
+# a CPU engine's plan; "edges" bands at M = 320 placed on the hull
+# design's edges (_edge_bands); "wide" a band of 300 rows, whose hull does
+# not fit (the template); "M200" and "M256" other shapes the hull design
+# takes: bands at L = 100 (whole float4 stores), qn = 2 and 3.
+HULL_DESIGN_CASES = {
+    "cell-2048-channels": ("cell", 2048, None, 0, True),
+    "cell-2048-channels-unaligned": ("cell", 2048, None, 0, False),
+    "cell-3-channels": ("cell", 3, None, 0, False),
+    "K-mid-tile-last-group": ("cell", 5, 300, 50 * 147 - 135, True),
+    "K-mid-tile-last-group-unaligned": ("cell", 5, 300, 50 * 147 - 135,
+                                        False),
+    "one-block-channels": ("cell", 37, 1, 0, True),
+    "three-block-channels": ("cell", 41, 3, 11, False),
+    "hulls-on-the-slice-edge": ("edges", 4, 250, 0, True),
+    "hulls-on-the-slice-edge-unaligned": ("edges", 4, 250, 0, False),
+    "hull-too-wide": ("wide", 4, 250, 0, True),
+    "M200-qn2": ("M200", 6, 400, 17, True),
+    "M256-qn3": ("M256", 3, 333, 0, False),
+}
+
+
+def _edge_bands(rng, M, qn, L, bands):
+    """[qn*M, L] whose column group g is nonzero on rows bands[g] (None: a
+    zero group): its first column from the band's first row, its last to
+    the band's last, the others inside."""
+    P = np.zeros((qn * M, L), np.float32)
+    for g, band in enumerate(bands):
+        if band is None:
+            continue
+        lo, hi = band
+        cols = range(32 * g, min(32 * g + 32, L))
+        for l in cols:
+            a = (lo if l == cols[0] else
+                 min(lo + int(rng.integers(0, 5)), hi - 1))
+            b = (hi if l == cols[-1] else
+                 max(hi - int(rng.integers(0, 5)), a + 1))
+            P[a:b, l] = rng.normal(0, 0.05, b - a)
+    return P
+
+
+def _hull_case(case, dev):
+    """(buf [ch, W], P, start, K, kw) for
+    HULL_DESIGN_CASES[case]; the last block of each channel reads past
+    W."""
+    kind, ch, nb, cut, aligned = HULL_DESIGN_CASES[case]
+    rng = np.random.default_rng(len(case))
+    start = 5
+    if kind == "cell":
+        eng = DeviceStreamResampler(2, 156, 320, 96000, 44100, 0, IB,
+                                    device="cpu")
+        eng.advance_position(78)
+        n = 65600 if nb is None else nb * eng.M
+        eng._plan(n)
+        K, start, j0, _, _ = eng._plan_compute(n)
+        nb = -(-K // eng.L)
+        M, L, qn = eng.M, eng.L, eng.qn
+        P = eng._matrix(j0).numpy()
+    elif kind in ("edges", "wide"):
+        M, qn, L = 320, 2, 147
+        bands = ([(317, 323), (0, 4), (636, 640), None, (101, 349)]
+                 if kind == "edges" else
+                 [(10, 200), (100, 400), (200, 420), (300, 500), (340, 640)])
+        P = _edge_bands(rng, M, qn, L, bands)
+    else:
+        M, qn = (200, 2) if kind == "M200" else (256, 3)
+        L = 100
+        bands = [(i * 37, i * 37 + 150 + 20 * i) for i in range(4)]
+        P = _edge_bands(rng, M, qn, L, bands)
+    K = nb * L - cut
+    if aligned:
+        start += -start % 4
+    elif start % 4 == 0:
+        start += 1
+    W = start + (nb - 1) * M + qn * M - (8 if aligned else 7)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    buf = t(rng.normal(0, 0.25, (ch, W)))
+    return buf, t(P), start, K, dict(M=M, L=L, nb=nb, qn=qn)
+
+
+@pytest.mark.parametrize("case", list(HULL_DESIGN_CASES))
+def test_hull_design_matches_plain_and_template(case, monkeypatch):
+    """The hull design, one launch, against the float64 plain version
+    (within 1e-5, a zero tail past K) and, bitwise, against the template
+    on the same P with no hull known (the launch's hull lookup answering
+    none); a P whose hull does not fit takes the template."""
+    dev = _card()
+    buf, P, start, K, kw = _hull_case(case, dev)
+    want = "template" if case == "hull-too-wide" else "hull"
+    tile = k1.launch_tile(P, M=kw["M"], qn=kw["qn"])
+    assert tile == k1.kernel_tile(kw["M"], kw["qn"], False,
+                                  hull=k1.hull_rows(k1.column_hulls(P)))
+    assert tile[0] == want and tile[3] <= 227 * 1024
+    before, calls = dict(k1.path_launches), k1.launches
+    out = k1.fixed_step_kernel(buf, P, start, K, **kw)
+    torch.cuda.synchronize()
+    assert k1.path_launches == {**before, want: before[want] + 1}
+    assert k1.launches == calls + 1
+    M, qn, nb = kw["M"], kw["qn"], kw["nb"]
+    ref = k1.window_dots(k1.window_at(buf.double(), start,
+                                      (nb - 1) * M + qn * M),
+                         P.double(), K, **kw)
+    assert out.shape == ref.shape
+    assert float((out.double() - ref).abs().max()) <= 1e-5
+    assert not out[:, K:].any()
+    monkeypatch.setattr(k1, "_hulls_of", lambda P: (None, 0))
+    tmpl = k1.fixed_step_kernel(buf, P, start, K, **kw)
+    torch.cuda.synchronize()
+    assert k1.path_launches["template"] == (
+        before["template"] + 1 + (want == "template"))
+    assert torch.equal(out, tmpl)
+
+
+def test_batch_engine_takes_the_hull_design():
+    """p2_cd16_1024trk's engine on 8 channels: the first chunk by
+    process(), then process_flat_out calls, every K1 launch the hull
+    design, one a call, the samples those of a CPU engine of the port
+    within 1e-5; its group buffers framed for 16-byte copies
+    (k1.window_frame), the main path's not."""
+    dev = _card()
+    ctor = (8, 156, 320, 96000, 44100, 0, IB)
+    engines = [DeviceStreamResampler(*ctor, device=d) for d in (dev, "cpu")]
+    for e in engines:
+        e.advance_position(78)
+    n = 65600
+    rng = np.random.default_rng(77)
+    before = dict(k1.path_launches)
+    x = torch.from_numpy(rng.normal(0, 0.25, (8, n)).astype(np.float32))
+    (og, Kg), (oc, Kc) = (e.process(x.to(e.device), n) for e in engines)
+    assert Kg == Kc
+    assert float((og.cpu()[:, :Kc] - oc[:, :Kc]).abs().max()) <= 1e-5
+    for _ in range(3):
+        x = torch.from_numpy(rng.normal(0, 0.25, (8, n)).astype(np.float32))
+        (og, Kg), (oc, Kc) = (e.process_flat_out(x.to(e.device), n)
+                              for e in engines)
+        assert np.array_equal(Kg, Kc)
+        assert float((og.cpu() - oc).abs().max()) <= 1e-5
+    torch.cuda.synchronize()
+    assert k1.path_launches == {**before, "hull": before["hull"] + 4}
+    # the group buffers are framed for the hull design's 16-byte copies,
+    # the main path's (the resident design) are not
+    P = engines[0]._matrix(0)
+    main = DeviceStreamResampler(2, 380, 380, 44100, 48000, 0, IB,
+                                 device=dev)
+    for start in range(4):
+        for W in range(4):
+            assert k1.window_frame(P, start, W, M=320, qn=2) == (
+                -start % 4, -(-start % 4 + W) % 4)
+            assert k1.window_frame(main._matrix(0), start, W, M=main.M,
+                                   qn=main.qn) == (0, 0)
+
+
 # ----------------------------------------------------- the decimate kernels
 # bitwise: the packed bytes, clip counts and states are exact contracts
 DEC_FLAT = [  # (dither type, bits, bytes, dtype, planar, layout, K cut)

@@ -167,32 +167,47 @@ def test_polyphase_apply_shapes():
 
 # The launch each shape of csrc/fixed_step.cu's table takes, as
 # kernel_tile reads it from csrc/fixed_step_geometry.h built for the host:
-# (M, qn, interpolated, dtype, precise) -> (design, blocks a tile, P rows a
-# piece, shared-memory bytes).  The resident design holds its CTA's whole
-# P (qn * M rows) and a window buffer for each of its two warp groups.
+# (M, qn, interpolated, dtype, precise, hull) -> (design, blocks a tile, P
+# rows a piece, shared-memory bytes), ``hull`` the rows of the hulls of
+# the engine's matrices at that shape (k1.hull_rows: preset -3 at M = 147,
+# 160, 640 and 2560, preset -2 at M = 320; 0 where no hull is known, as
+# for the interpolated mode, whose launches take none; M = 320 also
+# without one, the template).  The resident design holds
+# its CTA's whole P (qn * M rows) and a window buffer for each of its two
+# warp groups; the hull design P's hull rows and, in each of two buffers,
+# each block's hull span of its window.
 LAUNCHES = [
-    ((147, 4, False, torch.float32, False), ("resident", 128, 588, 230944)),
-    ((147, 2, True, torch.float32, False), ("resident", 64, 294, 152800)),
-    ((160, 4, False, torch.float32, False), ("template", 128, 160, 104912)),
-    ((320, 2, False, torch.float32, False), ("template", 128, 320, 206672)),
-    ((320, 2, True, torch.float32, False), ("template", 64, 320, 165456)),
-    ((640, 2, False, torch.float32, False), ("template", 32, 640, 166608)),
-    ((640, 2, True, torch.float32, False), ("template", 64, 256, 232272)),
-    ((2560, 2, False, torch.float32, False), ("template", 128, 352, 225856)),
-    ((2560, 2, True, torch.float32, False), ("template", 128, 288, 221760)),
-    ((147, 4, False, torch.float32, True), ("template", 128, 147, 114736)),
-    ((160, 4, False, torch.float64, False), ("template", 128, 160, 209760)),
+    ((147, 4, False, torch.float32, False, 412),
+     ("resident", 128, 588, 230944)),
+    ((147, 2, True, torch.float32, False, 0), ("resident", 64, 294, 152800)),
+    ((160, 4, False, torch.float32, False, 420),
+     ("template", 128, 160, 104912)),
+    ((320, 2, False, torch.float32, False, 228), ("hull", 96, 228, 204288)),
+    ((320, 2, False, torch.float32, False, 0), ("template", 128, 320, 206672)),
+    ((320, 2, True, torch.float32, False, 0), ("template", 64, 320, 165456)),
+    ((640, 2, False, torch.float32, False, 520),
+     ("template", 32, 640, 166608)),
+    ((640, 2, True, torch.float32, False, 0), ("template", 64, 256, 232272)),
+    ((2560, 2, False, torch.float32, False, 924),
+     ("template", 128, 352, 225856)),
+    ((2560, 2, True, torch.float32, False, 0),
+     ("template", 128, 288, 221760)),
+    ((147, 4, False, torch.float32, True, 412),
+     ("template", 128, 147, 114736)),
+    ((160, 4, False, torch.float64, False, 420),
+     ("template", 128, 160, 209760)),
 ]
 
 
 @pytest.mark.parametrize("shape,launch", LAUNCHES,
                          ids=[f"M{s[0]}-qn{s[1]}{'-interp' if s[2] else ''}-"
                               f"{k1.instance(s[3], s[4])}"
+                              f"{'-no-hull' if not (s[2] or s[5]) else ''}"
                               for s, _ in LAUNCHES])
 def test_kernel_tile_picks_the_design_of_each_shape(shape, launch):
-    M, qn, interp, dtype, precise = shape
-    assert k1.kernel_tile(M, qn, interp, dtype=dtype,
-                          precise=precise) == launch
+    M, qn, interp, dtype, precise, hull = shape
+    assert k1.kernel_tile(M, qn, interp, dtype=dtype, precise=precise,
+                          hull=hull) == launch
 
 
 def test_kernel_tile_keeps_small_M_and_the_double_sums_on_the_template():
@@ -206,6 +221,165 @@ def test_kernel_tile_keeps_small_M_and_the_double_sums_on_the_template():
     assert k1.kernel_tile(32, 8, False, dtype=torch.float64)[0] == "template"
     with pytest.raises(ValueError, match="M=0, qn=2"):
         k1.kernel_tile(0, 2, False)
+
+
+@pytest.mark.parametrize("shape", [(320, 2), (200, 2), (256, 3), (160, 4),
+                                   (640, 2), (2560, 2), (32, 8), (36, 20)])
+def test_hull_geometry_fits_two_buffers(shape):
+    """Every launch the hull design takes, at any hull, holds P's hull
+    rows (32 floats each) and two buffers of 96 blocks' hull spans at the
+    stride hull_stride (a multiple of 4, not of 16) in the 232,448 B of a
+    block; it takes only float32 reduced shapes summed in float32, M of at
+    least 32 and of 4, hulls of whole 4-row groups, and never a shape the
+    resident design takes."""
+    M, qn = shape
+    resident = k1.kernel_tile(M, qn, False)
+    taken = []
+    for hull in range(0, qn * M + 8, 4):
+        design, bm, pr, smem = k1.kernel_tile(M, qn, False, hull=hull)
+        if resident[0] == "resident":
+            assert (design, bm, pr, smem) == resident
+            continue
+        if design != "hull":
+            assert (design, bm, pr, smem) == resident
+            continue
+        taken.append(hull)
+        stride = hull if hull % 16 else hull + 4
+        assert (bm, pr) == (96, hull) and 0 < hull <= qn * M
+        assert smem == 4 * (32 * hull + 2 * 96 * stride) <= 232448
+        for kw in (dict(precise=True), dict(dtype=torch.float64)):
+            assert k1.kernel_tile(M, qn, False, hull=hull, **kw)[0] == \
+                "template"
+        assert k1.kernel_tile(M, qn, True, hull=hull)[0] != "hull"
+        assert k1.kernel_tile(M, qn, False, hull=hull + 2)[0] == "template"
+    if resident[0] == "template" and M % 4 == 0:
+        assert taken == list(range(4, min(qn * M, 256) + 1, 4))
+    else:
+        assert not taken
+
+
+@pytest.mark.parametrize("shape,launch", [
+    ((147, 4, False), ("resident", 128, 588, 230944)),
+    ((147, 2, True), ("resident", 64, 294, 152800))])
+def test_resident_shapes_keep_their_launch_at_any_hull(shape, launch):
+    """The M = 147 shapes keep the resident design's launch exactly, with
+    or without hulls kept."""
+    M, qn, interp = shape
+    for hull in (0, 4, 228, 252, 412, qn * M):
+        assert k1.kernel_tile(M, qn, interp, hull=hull) == launch
+
+
+def _plain_hulls(P, cols=32):
+    """Each group of ``cols`` phases' [first, last + 1) nonzero row of P,
+    (0, 0) where it has none, by torch."""
+    nz = torch.as_tensor(P) != 0
+    out = []
+    for n0 in range(0, nz.shape[1], cols):
+        rows = nz[:, n0:n0 + cols].any(dim=1).nonzero().flatten()
+        out.append((int(rows[0]), int(rows[-1]) + 1) if len(rows) else (0, 0))
+    return out
+
+
+@pytest.mark.parametrize("ctor", [
+    (2, 156, 320, 96000, 44100, 0, IB),        # preset -2, M = 320
+    (2, 380, 380, 44100, 48000, 0, IB),        # preset -3, M = 147
+    (1, 48, 48, 44100, 48000, 0, SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS)],
+    ids=["preset-2", "preset-3", "config-1"])
+def test_column_hulls_equal_the_plain_hulls(ctor):
+    """The per-group hulls (k1.column_hulls, of 32-phase groups and of
+    their 16-phase halves) equal the plain hulls of P for every anchor j0
+    of the reduced engines, and of each bank of config 1's interpolated
+    matrices at 40 first positions; hull_rows is the widest rounded out to
+    4-row groups; the hulls a launch finds on P (found once, kept beside
+    P) are those, and are found again once P changes in place."""
+    from art_tpu_torch import DeviceStreamResampler
+    eng = DeviceStreamResampler(*ctor, device="cpu")
+    if eng.interp:
+        mats = [eng._interp_matrix(p / 40)[0] for p in range(40)]
+        banks = [b for P in mats for b in (P[:, :eng.L], P[:, eng.L:])]
+    else:
+        mats = banks = [eng._matrix(j) for j in range(eng.L)]
+    for P in banks:
+        hulls = k1.column_hulls(P)
+        plain = _plain_hulls(P)
+        assert [tuple(h) for h in hulls.tolist()] == plain
+        halves = k1.column_hulls(P, cols=16)
+        assert [tuple(h) for h in halves.tolist()] == _plain_hulls(P, 16)
+        rows = max(((hi + 3) & ~3) - (lo & ~3) for lo, hi in plain if hi)
+        assert k1.hull_rows(hulls) == rows
+        if not eng.interp:
+            kept, kept_rows = k1._hulls_of(P)
+            assert kept_rows == rows
+            assert kept[:len(halves)].tolist() == halves.tolist()
+            assert not kept[len(halves):].any()
+    if not eng.interp:
+        P = mats[0]
+        P[-1, 0] = 1.0              # in place: the version counter moves
+        assert k1._hulls_of(P)[1] == k1.hull_rows(k1.column_hulls(P)) \
+            == eng.qn * eng.M
+
+
+def test_column_hulls_of_zero_groups_and_edges():
+    """A zero group is (0, 0) and no part of hull_rows; hulls on the first
+    and last row and across the slice edge."""
+    P = torch.zeros((640, 70))
+    P[0, 3] = 1.0                   # group 0: row 0 only
+    P[639, 40] = -2.0               # group 1: the last row only
+    P[317:323, 66] = 0.5            # group 2 (6 phases), across row 320
+    assert k1.column_hulls(P).tolist() == [[0, 1], [639, 640], [317, 323]]
+    assert k1.hull_rows(k1.column_hulls(P)) == 8
+    assert k1.column_hulls(P, cols=16).tolist() == [
+        [0, 1], [0, 0], [639, 640], [0, 0], [317, 323]]
+    P[:, 32:64] = 0
+    assert k1.column_hulls(P).tolist()[1] == [0, 0]
+    assert k1.hull_rows(np.zeros((3, 2), np.int32)) == 0
+
+
+@pytest.mark.parametrize("lead", [0, 1, 2, 3])
+def test_group_buf_framing_keeps_every_window(lead):
+    """The engine's group buffer framed as k1.window_frame asks for K1's
+    hull design (streams._group_buf with (lead, tail) zeros around the
+    stream, the width then a multiple of 4): the stream unchanged at
+    +lead, zeros around it, the advanced history that of the unframed
+    buffer, and every window the plain version reads the same at start +
+    lead."""
+    from art_tpu_torch.parallel import streams
+    rng = np.random.default_rng(lead)
+    G, n, H, start = 3, 640, 250, 5 + lead
+    hist = torch.from_numpy(rng.normal(0, 1, (2, H)).astype(np.float32))
+    xs = torch.from_numpy(rng.normal(0, 1, (2, G * n)).astype(np.float32))
+    plain, hist0 = streams._group_buf(hist, xs, G, n, H)
+    tail = -(lead + H + G * n) % 4 if lead else 0
+    buf, hist1 = streams._group_buf(hist, xs, G, n, H, (lead, tail))
+    assert torch.equal(hist0, hist1)
+    assert torch.equal(buf[:, lead:lead + plain.shape[1]], plain)
+    assert not buf[:, :lead].any() and not buf[:, lead + plain.shape[1]:].any()
+    assert buf.shape[1] % 4 == 0 if lead else buf.shape[1] == H + G * n
+    for g in range(G):
+        for xlen in (n, n + 400):
+            assert torch.equal(
+                k1.window_at(buf, start + lead + g * n, xlen),
+                k1.window_at(plain, start + g * n, xlen))
+
+
+def test_hull_lead_frames_only_for_the_hull_design():
+    """window_frame asks for zeros only for a CUDA P whose launches take
+    the hull design: never on the CPU (the plain version), where
+    launch_tile still reads the launch a card would make (the hull design
+    at the batch shape, the resident design on the main path)."""
+    from art_tpu_torch import DeviceStreamResampler
+    eng = DeviceStreamResampler(2, 156, 320, 96000, 44100, 0, IB,
+                                device="cpu")
+    P = eng._matrix(0)
+    assert k1.launch_tile(P, M=eng.M, qn=eng.qn) == ("hull", 96, 228,
+                                                     204288)
+    main = DeviceStreamResampler(2, 380, 380, 44100, 48000, 0, IB,
+                                 device="cpu")
+    assert k1.launch_tile(main._matrix(0), M=main.M, qn=main.qn)[0] == \
+        "resident"
+    for start in range(8):
+        assert k1.window_frame(P, start, 1001 + start, M=eng.M,
+                               qn=eng.qn) == (0, 0)
 
 
 @pytest.mark.parametrize("G,units,slots", [(5, 7134, 132), (5, 1, 132),
