@@ -42,7 +42,9 @@ bound.
 ``launches`` counts the kernel launches (one a section); ``host_calls``
 the calls into the kernel's C entry point (one a cascade); ``plain_calls``
 the sections the plain version solved through an entry point (on the
-CPU).
+CPU).  Under a profiler ``DeviceBiquadCascade.process`` records one
+``art.engine.biquad`` span a call and the kernel's wrapper one
+``art.launch.biquad`` span a cascade (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.spans import LAUNCH, span
+from ..utils.spans import BIQUAD, LAUNCH, span, spanned
 from . import _build
 
 launches = {"biquad": 0}
@@ -664,6 +666,7 @@ class DeviceBiquadCascade:
         bq2.yh = yh2.astype(bq2.yh.dtype)
         self._state = None
 
+    @spanned(BIQUAD)
     def process(self, dev_out, K: int):
         """Filter dev_out [ch, cap] (first K columns valid) through both
         sections (the combined one); returns the filtered [ch, cap] tensor

@@ -21,6 +21,9 @@ The names, one span each:
 - ``DECIMATE``: a decimator's public call (``DeviceDecimator.process_chunk``
   / ``process_chunk_async``, ``Decimator(backend="torch")``'s ``process`` /
   ``process_interleaved``): its state conversions, checks and launch;
+- ``BIQUAD``: a device biquad cascade's public call
+  (``DeviceBiquadCascade.process``): its checks, state handling and
+  launches;
 - ``PLAN``: the host plan of such a call (counts, positions, matrix
   lookups), never nested in another plan span;
 - ``UPLOAD``: one host-to-device copy on such a call, with the wait for
@@ -39,6 +42,7 @@ import torch
 
 CALL = "art.engine.call"
 DECIMATE = "art.engine.decimate"
+BIQUAD = "art.engine.biquad"
 PLAN = "art.engine.plan"
 UPLOAD = "art.engine.upload"
 LAUNCH = "art.launch."

@@ -171,7 +171,14 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    cascade into the float64 resampler, bench.py:297-335) for windows of 8
    chunks, M output frames/s, 1 launch a process() and K1's float64
    instance once a chunk; pipeline_chunk with the -p post filter at the
-   preset -3 shapes against the plain chain (2 launches); art -3 -r96k -p
+   preset -3 shapes against the plain chain (2 launches); the
+   c4b_chain_f64 cell's path at its shapes (the two-section cascade over
+   a [6, 8 x 4,194,240] float64 group from a carried state in one call
+   against the plain sections chained, within 1e-12 of scale, xh'
+   bitwise, 2 launches; then process_flat_out of config 4's float64
+   engine on the filtered group against fixed_step_reference chunk by
+   chunk, within 1e-12 of scale, the new history bitwise, 1 K1 float64
+   launch); art -3 -r96k -p
    -o16 -n0 with --backend=cuda beside numpy (codes within the floor, one
    cascade, 2 launches, per steady block); then the times (biquad_times,
    the A/B's harness): a section and the cascade at config 4b's chunk, a
@@ -197,7 +204,13 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    a call; art -3 -r48k, artest -3 -e -i and artest -1 -i with
    --backend=torch beside phase 12's numpy legs, on phase 12's criteria;
    the streams' rates, and K5's float64 instance timed against its plain
-   version with its bound.
+   version with its bound;
+16. the plain FP64 rate: a DFMA loop (8 independent chains a thread, 8
+   CTAs of 256 threads an SM), built by nvcc from this file into
+   build/chip_smoke_fp64/, timed with CUDA events, beside the rate the
+   benchmark's float64 rooflines take (132 SMs x 64 FP64 FMAs a clock x 2
+   x 1.98 GHz = 33.5 TFLOP/s; bench_torch/roofline/k1_f64.py), within
+   0.9 to 1.05 of it, and the SM clock nvidia-smi reads after it.
 
 Prints a {"kernels": [...]} line with each kernel's launches, error, times
 and bound (the shaped decimate kernel's bound by latency; ``ms`` a call's
@@ -232,6 +245,7 @@ be equal.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import io
 import json
@@ -2807,6 +2821,90 @@ def phase_biquad_paths(dev, seconds=60, block=1 << 17, n_c4=C4_CHUNK,
              "pipeline_chunk with the post filter: launches")
 
 
+# bench_torch/cells/c4b_chain_f64.json: 8 chunks of 4,194,304 frames rounded
+# to whole input periods of M = 160 (4,194,240), one group a call
+CHAIN_CHUNK, CHAIN_GROUP = 1 << 22, 8
+
+
+def phase_chain_f64(dev, n_target=CHAIN_CHUNK, G=CHAIN_GROUP):
+    """The c4b_chain_f64 cell's path at its shapes, the counts set to 0
+    before each step and read after it: config 4's engine (float64, half a
+    filter advanced) and the -p cascade (two sections) from a zero state
+    take a first chunk of n frames; then the cascade filters one [6, G x n]
+    float64 group buffer in one process call (one launch a section),
+    against the plain sections chained on the same input from the same
+    state (outputs within 1e-12 of scale, the first section's xh' bitwise,
+    the other states within 1e-12); then process_flat_out takes the
+    filtered buffer (one K1 float64 launch over the group's G x nb
+    blocks), against fixed_step_reference chunk by chunk at the engine's
+    plan (within 1e-12 of scale, no tail past the chunks' K, the new
+    history bitwise).  Returns the biquad launches."""
+    eng = DeviceStreamResampler(*CONFIG4, dtype=np.float64, device=dev)
+    eng.advance_position(190)
+    n = roundtrip.m_multiple(n_target, eng.M)
+    pair = _bq_pair(BQ_C4, 6)
+    cas = bk.DeviceBiquadCascade(*pair, device=dev)
+    cas.push_from(*pair)
+    eng.process(cas.process(_noise_dev(dev, (6, n), 91, 0.25,
+                                       torch.float64), n), n)
+    x = _noise_dev(dev, (6, G * n), 92, 0.25, torch.float64)
+    state = cas._state.clone()
+    _reset_launches()
+    y = cas.process(x, G * n)
+    _sync(dev)
+    bl, bc = bk.launches["biquad"], bk.host_calls["biquad"]
+    BIQUAD_PATH_LAUNCHES["biquad"] += bl
+    ref, st = x.T, []
+    for i, (a, b) in enumerate(_bq_sections(BQ_C4, False)):
+        t = bk.iir_tables(b, B=bk.KERNEL_BLOCK, device=dev)
+        ref, xh_, yh_ = bk.assoc_core_masked_reference(
+            ref, a, b, state[2 * i], state[2 * i + 1], G * n, t)
+        st += [xh_, yh_]
+    err, within = _bq_within(y, ref.T)
+    del ref
+    new = cas._state
+    xh_ok = _bitwise(new[0], st[0])
+    st_err = max(float((new[i] - st[i]).abs().max()) for i in range(4))
+    print(f"  c4b_chain_f64 cascade, 6 x {G * n} float64 frames in one call "
+          f"from a carried state: max|kernel - plain| {err:.3e} (within "
+          f"1e-12 of scale {within}), xh1' bitwise {xh_ok}, |state' - plain| "
+          f"{st_err:.3e}; launches {bl}, host calls {bc}")
+    _require(within and xh_ok and st_err <= 1e-12,
+             "c4b_chain_f64's cascade vs its plain sections")
+    _require(dev.type != "cuda" or (bl == 2 and bc == 1),
+             "c4b_chain_f64's cascade: launches != 2 or host calls != 1")
+    K, start, P, fracv, _, _ = eng._chunk_plan(n)
+    kw = _kw(eng, K)
+    hist = eng.hist.clone()
+    _reset_launches()
+    out, Ks = eng.process_flat_out(y, n)
+    _sync(dev)
+    kl, k64 = k1.launches, k1.instance_launches["f64"]
+    acc, refs = torch.zeros((), dtype=torch.float64, device=dev), []
+    for g in range(G):
+        hist, o, _ = k1.fixed_step_reference(hist, y[:, g * n:(g + 1) * n],
+                                             P, start, K, acc, fracv=fracv,
+                                             **kw)
+        _require(not o[:, K:].any(), "fixed_step_reference's tail")
+        refs.append(o[:, :K])
+    ref = torch.cat(refs, dim=1)
+    del refs
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    ok = (list(Ks) == [K] * G and tuple(out.shape) == (6, G * K)
+          and kw["nb"] * eng.L == K and err <= 1e-12 * scale
+          and torch.equal(eng.hist, hist))
+    print(f"  c4b_chain_f64 group, process_flat_out of {G} x 6 x {n} float64 "
+          f"frames ({G} x {kw['nb']} blocks, K {K} a chunk, no tail): "
+          f"max|K1 - f64 plain| {err:.3e} of scale {scale:.3e}, new history "
+          f"bitwise {torch.equal(eng.hist, hist)}: {ok}; launches K1 {kl} "
+          f"(float64 {k64})")
+    _require(ok, "c4b_chain_f64's group vs fixed_step_reference")
+    _require(dev.type != "cuda" or (kl == 1 and k64 == 1),
+             "c4b_chain_f64's group: K1 launches != 1 float64")
+    return bl
+
+
 def _cli_post_filter(dev, tag, seconds=60):
     """art -3 -r96k -p -o16 -n0 with --backend=cuda beside --backend=numpy
     on the 60 s file: the post filter on the card between K1 and the
@@ -3486,6 +3584,119 @@ def phase_backend_timing(dev, tag, n=ASRC_N, reps=10):
     return med.get("apply kernel f64"), med["plain apply f64"], bound
 
 
+# ------------------------------------------------- phase 16: the FP64 rate
+# the plain FP64 rate the benchmark's float64 rooflines take (no kernel of
+# the port issues an mma): 132 SMs x 64 FP64 FMAs a clock x 2 x 1.98 GHz; a
+# copy of bench_torch/roofline/k1_f64.py's PEAK_F64_PLAIN, which the probe
+# holds the card to (within FP64_RATE_BAND of it)
+PEAK_F64_PLAIN = 132 * 64 * 2 * 1.98e9
+FP64_RATE_BAND = (0.9, 1.05)
+FP64_PROBE = r"""
+#include <cuda_runtime.h>
+
+namespace {
+constexpr int kChains = 8;     // independent DFMA chains a thread
+
+__global__ void dfma_probe_kernel(double* out, long long iters, double a,
+                                  double b) {
+    double v[kChains];
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) v[c] = threadIdx.x * 1e-3 + c;
+#pragma unroll 4
+    for (long long i = 0; i < iters; ++i) {
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) v[c] = fma(v[c], a, b);
+    }
+    double s = 0.0;
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) s += v[c];
+    out[static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x] = s;
+}
+}  // namespace
+
+extern "C" int art_dfma_probe(void* out, long long iters, int blocks,
+                              int threads, double a, double b, void* stream) {
+    dfma_probe_kernel<<<blocks, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<double*>(out), iters, a, b);
+    return static_cast<int>(cudaGetLastError());
+}
+"""
+FP64_CHAINS = 8
+
+
+def _fp64_probe_library():
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_fp64"
+    out.mkdir(parents=True, exist_ok=True)
+    src, so = out / "fp64_probe.cu", out / "libfp64_probe.so"
+    src.write_text(FP64_PROBE)
+    r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(so), str(src)], capture_output=True, text=True)
+    _require(r.returncode == 0, f"nvcc failed on the FP64 probe:\n"
+             f"{r.stdout}{r.stderr}")
+    for line in (r.stdout + r.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {line.strip()}")
+    lib = ctypes.CDLL(str(so))
+    lib.art_dfma_probe.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_double, ctypes.c_double,
+                                   ctypes.c_void_p]
+    lib.art_dfma_probe.restype = ctypes.c_int
+    return lib
+
+
+def phase_fp64_rate(dev, tag, iters=1 << 18, reps=5):
+    """The FP64 rate a DFMA loop reaches on the card: every thread runs
+    FP64_CHAINS independent fma chains ``iters`` steps, 8 CTAs of 256
+    threads an SM; operations 2 x chains x iters x threads over the
+    launch's CUDA-events time, the median of ``reps`` after a warm-up.
+    The rate has to lie within FP64_RATE_BAND of PEAK_F64_PLAIN.  Returns
+    TFLOP/s, None off the card."""
+    if dev.type != "cuda":
+        print("  the FP64 probe runs only on the card: not measured")
+        return None
+    lib = _fp64_probe_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads = 8 * sms, 256
+    out = torch.empty(blocks * threads, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        rc = lib.art_dfma_probe(out.data_ptr(), iters, blocks, threads,
+                                1.0 - 2.0 ** -20, 2.0 ** -30, stream)
+        _require(rc == 0, f"the FP64 probe's launch failed: cudaError {rc}")
+
+    launch()
+    torch.cuda.synchronize(dev)
+    ms = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        launch()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    _require(bool(torch.isfinite(out).all()), "the FP64 probe's sums")
+    flops = 2.0 * FP64_CHAINS * iters * blocks * threads
+    t = sorted(ms)[len(ms) // 2]
+    rate = flops / (t * 1e-3)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"  DFMA loop: {rate / 1e12:.3f} TFLOP/s ({t:.3f} ms a launch of "
+          f"{flops / 1e12:.3f} TFLOP, {blocks} CTAs x {threads} threads x "
+          f"{FP64_CHAINS} chains; runs {', '.join(f'{m:.3f}' for m in ms)} "
+          f"ms), {rate / PEAK_F64_PLAIN:.1%} of the rooflines' "
+          f"{PEAK_F64_PLAIN / 1e12:.2f} TFLOP/s; SM clock after it, max "
+          f"(MHz): {clocks.strip()} {tag}")
+    lo, hi = FP64_RATE_BAND
+    _require(lo <= rate / PEAK_F64_PLAIN <= hi,
+             f"the DFMA loop's rate is {rate / PEAK_F64_PLAIN:.1%} of the "
+             f"float64 rooflines' PEAK_F64_PLAIN, outside {lo:.0%}-{hi:.0%}")
+    return rate / 1e12
+
+
 # ------------------------------------------------- the decimate stage's A/B
 def decimate_ab(parent):
     """The decimate stage against an older tree unpacked in ``parent``
@@ -3806,9 +4017,11 @@ def main(argv) -> int:
     dec_timed = phase_decimate_timing(dev, tag)
     print("phase 14: the biquad cascade: the kernel vs plain PyTorch, "
           "DeviceBiquadCascade vs the native host over 60 s, BASELINE "
-          "config 4b's chain, pipeline_chunk with -p, art -r96k -p, times")
+          "config 4b's chain, pipeline_chunk with -p, the c4b_chain_f64 "
+          "cell's group, art -r96k -p, times")
     worst["biquad"] = phase_biquad_kernels(dev)
     phase_biquad_paths(dev)
+    phase_chain_f64(dev)
     _cli_post_filter(dev, tag)
     print(f"  the biquad kernel's launches on the main paths: "
           f"{BIQUAD_PATH_LAUNCHES}")
@@ -3874,6 +4087,8 @@ def main(argv) -> int:
         "biquad", src + "biquad.cu", "art_tpu/ops/biquad_kernel.py:206",
         BIQUAD_PATH_LAUNCHES["biquad"], worst["biquad"], ms, plain_ms, bound,
         device_ms=device_ms))
+    print("phase 16: the plain FP64 rate (a DFMA loop)")
+    phase_fp64_rate(dev, tag)
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,16 +6,21 @@ holding one ``art.engine.plan`` span and an ``art.engine.upload`` span for
 each host-to-device copy, all inside a span the test opens around the
 call (so they sit on the profiler's one clock); plan spans never nest;
 with no profiler a span is one shared null context; the benchmark's
-readers (``bench_torch/spans.py``, ``metrics/decimate_host_ms.bulk.py``)
-spell the names the program emits; each public decimator call
+readers (``bench_torch/spans.py``, ``metrics/decimate_host_ms.bulk.py``,
+``metrics/biquad_host_ms.bulk.py``) spell the names the program emits,
+and the biquad reader sums its spans' union less the CUDA runtime calls
+inside over a synthetic trace; each public decimator call
 (``DeviceDecimator.process_chunk`` / ``process_chunk_async``,
-``Decimator(backend="torch")``) gives one ``art.engine.decimate`` span.
+``Decimator(backend="torch")``) gives one ``art.engine.decimate`` span,
+and each ``DeviceBiquadCascade.process`` one ``art.engine.biquad`` span.
 
 Marked ``cuda`` (skip without a card): a launch of the ASRC step kernel
 gives one ``art.launch.asrc_step`` span and one count in ``launches``, and
 the kernel's device event starts after its launch span starts; a
 ``DeviceDecimator`` call on the card holds its one launch span inside its
-``art.engine.decimate`` span.
+``art.engine.decimate`` span, and a ``DeviceBiquadCascade`` call its one
+``art.launch.biquad`` span (two launches) inside its
+``art.engine.biquad`` span.
 
     python -m pytest tests/test_torch_trace.py -q
     python -m pytest --noconftest -q -m cuda tests/test_torch_trace.py
@@ -31,8 +36,10 @@ from art_tpu_torch import (BLACKMAN_HARRIS, INCLUDE_LOWPASS,
                            SUBSAMPLE_INTERPOLATE, BatchedASRC,
                            DeviceStreamResampler)
 from art_tpu_torch.core.flags import DITHER_HIGHPASS, SHAPING_ATH_CURVE
+from art_tpu_torch.engines.biquad import Biquad, biquad_lowpass
 from art_tpu_torch.engines.decimator import Decimator, DeviceDecimator
 from art_tpu_torch.ops import asrc_step as kasrc
+from art_tpu_torch.ops import biquad_kernel as bk
 from art_tpu_torch.ops import decimate_device as dd
 from art_tpu_torch.utils import spans
 
@@ -221,15 +228,69 @@ def test_torch_decimator_call_gives_one_span():
     assert not _named(evs, spans.DECIMATE)
 
 
-def test_decimate_reader_spells_the_program_span():
+def _reader(name):
+    """The benchmark's reader of metric ``name``
+    (``bench_torch/metrics/<name>.py``)."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parent.parent / "bench_torch" / \
-        "metrics" / "decimate_host_ms.bulk.py"
-    spec = importlib.util.spec_from_file_location("decimate_host_ms", path)
+        "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"),
+                                                  path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    assert mod.DECIMATE == spans.DECIMATE
+    return mod
+
+
+def test_decimate_reader_spells_the_program_span():
+    assert _reader("decimate_host_ms.bulk").DECIMATE == spans.DECIMATE
+
+
+def _biquad_cascade(device, ch=6):
+    """The art -p pre-filter at 48k -> 44.1k, two sections from zero
+    state, on ``device``."""
+    coeffs = biquad_lowpass(0.45 * 44100 / 48000)
+    secs = [Biquad.init(coeffs, 1.0, channels=ch, dtype=np.float64)
+            for _ in range(2)]
+    casc = bk.DeviceBiquadCascade(*secs, device=device)
+    casc.push_from(*secs)
+    return casc
+
+
+def test_biquad_cascade_call_gives_one_span():
+    casc = _biquad_cascade("cpu")
+    x = torch.zeros((6, 300), dtype=torch.float64)
+    solved, launched = bk.plain_calls["biquad"], bk.launches["biquad"]
+    _, evs = _profiled(lambda: casc.process(x, 300))
+    (outer,) = _named(evs, OUTER)
+    (call,) = _named(evs, spans.BIQUAD)
+    assert _inside(call, outer)
+    assert bk.plain_calls["biquad"] == solved + 2
+    assert bk.launches["biquad"] == launched
+
+
+def test_biquad_reader_reads_the_program_span():
+    import functools
+    from types import SimpleNamespace
+
+    from bench_torch.trace import Trace
+    mod = _reader("biquad_host_ms.bulk")
+    assert mod.BIQUAD == spans.BIQUAD
+    # two calls over [0, 1000) ns; three biquad spans, two of them
+    # overlapping, with 50 + 20 ns of CUDA runtime calls inside them
+    ops = [(100, 300, spans.BIQUAD), (250, 400, spans.BIQUAD),
+           (600, 700, spans.BIQUAD), (150, 200, "cudaLaunchKernel"),
+           (640, 660, "cudaLaunchKernel"), (800, 900, spans.DECIMATE)]
+    trace = SimpleNamespace(
+        window=(0, 1000), calls=np.array([[0, 500], [500, 1000]]),
+        ops=sorted(ops), busy=np.zeros((0, 2), np.int64),
+        runtime=np.array([[150, 200], [640, 660]], np.int64))
+    trace.covered = functools.partial(Trace.covered, trace)
+    ms = mod.read(SimpleNamespace(trace=trace))
+    assert ms == pytest.approx((300 + 100 - 70) / 2 * 1e-6)
+    assert mod.read(SimpleNamespace(trace=None)) is None
+    trace.ops = [o for o in trace.ops if o[2] != spans.BIQUAD]
+    assert mod.read(SimpleNamespace(trace=trace)) is None
 
 
 # ------------------------------------------------------------- on a card
@@ -308,3 +369,20 @@ def test_device_decimator_launch_sits_in_its_decimate_span():
     (launch,) = _named(evs, spans.LAUNCH + "decimate_shaped")
     assert _inside(launch, span)
     assert dd.launches["decimate_shaped"] == launched + 1
+
+
+@pytest.mark.cuda
+def test_biquad_cascade_launch_sits_in_its_biquad_span():
+    dev = _card()
+    casc = _biquad_cascade(dev)
+    x = torch.randn((6, 20000), dtype=torch.float64, device=dev) * 0.25
+    casc.process(x, 20000)
+    torch.cuda.synchronize()
+    launched = bk.launches["biquad"]
+    _, evs = _profiled(lambda: casc.process(x, 20000))
+    torch.cuda.synchronize()
+    (outer,) = _named(evs, OUTER)
+    (call,) = _named(evs, spans.BIQUAD)
+    (launch,) = _named(evs, spans.LAUNCH + "biquad")
+    assert _inside(call, outer) and _inside(launch, call)
+    assert bk.launches["biquad"] == launched + 2
