@@ -68,8 +68,9 @@
 // form, are nonzero only inside [klo, khi): ~409 of 588 rows at the main
 // path, ~78 of 294 at BASELINE config 1, 196-224 of 640 at the batch
 // cell's preset -2 96k->44.1k) and bring those rows and its window into
-// shared memory.  Three designs, the host choosing by the shape and the
-// hull's width (fixed_step_geometry.h::fixed_step_launch; no option):
+// shared memory.  Four designs, the host choosing by the data's type, the
+// shape and the hull (fixed_step_geometry.h::fixed_step_launch; no
+// option):
 //
 // Design: resident (fixed_step_kernel_resident; float32 data summed in
 // float32, M >= 32, where the CTA's whole P and two window buffers fit).
@@ -159,9 +160,57 @@
 //   batch cell: 256 threads, P 29,184 B + 2 x 96 x 228 floats = 204,288 B,
 //   one CTA an SM.
 //
-// Design: template (fixed_step_kernel<T, Acc, kInterp, kTM>; the float64
-// accumulators, M < 32, and shapes whose P and ring do not fit, such as
-// large M).  A CTA owns kBM output blocks x 32 phases of one channel:
+// Design: persistent float64 (fixed_step_kernel<double, double,
+// Persistent>; float64 data summed in float64, reduced, M >= 32, P's hulls
+// known, where a 128-block tile's window and two P pieces of at least 32
+// rows fit: config 4's M = 160 and art64's M = 147).  The template's
+// float64 CTA did its steps in series, one CTA an SM (its window alone
+// takes ~168 KB): stage its window, scan P through L2 for its hull, then
+// for each piece of the hull's rows wait for the copy, sync, DFMA, sync.
+// Here:
+//   - persistent CTAs, one an SM (the grid is the card's resident CTAs,
+//     never more than the units): the units are (channel, 128-block row
+//     tile, column group), column group fastest, each CTA a contiguous
+//     run of them, so a tile's window is staged once (131 rows x 160
+//     doubles at config 4) and serves every column group, where the
+//     template staged it once a column group;
+//   - the hulls come from the host (ops/fixed_step.py::_hulls_of, as for
+//     the hull design): no CTA scans P.  A column group's hull rows,
+//     rounded out to 4-row groups in padded rows (row q*M + m at q*Mp + m,
+//     Mp = M rounded up to a multiple of 4; pad rows and the window's pad
+//     columns are zero), are packed by the host once a matrix
+//     (_packed_of: [column group, row, 32 phases]), so each piece of PR
+//     rows is one contiguous bulk copy (the TMA, cp.async.bulk);
+//   - a producer warp issues those copies into two piece buffers, handing
+//     each over through mbarriers (full: the bytes landed; empty: every
+//     compute warp is done with it), across column groups and tiles, so
+//     P's copies run under the DFMAs and no CTA-wide barrier separates
+//     pieces.  Only a new tile's window waits: its rows come by cp.async,
+//     element by element, a warp a row;
+//   - window rows at a stride S = Mp + 2 (162 at M = 160): a row's pairs
+//     are 16-byte aligned and the four rows a warp reads at one column
+//     fall in four bank quads.  A compute thread computes 4 blocks (32
+//     apart) x 4 phases, pairs of terms at a time: each pair 4 window
+//     double2s (blocks x terms m, m + 1) and 4 P double2s (two rows x two
+//     phase pairs 16 apart) for 32 DFMAs, the next pair's loads issued
+//     from a second register set before this pair's DFMAs, a loop step a
+//     4-row group with no branch between a load and its DFMAs.  (8 x 4 on
+//     128 compute threads, one warp a scheduler, measured level on an
+//     H100 at a c4b_chain_f64 group; a DFMA probe reads
+//     4 x 4 at two warps a scheduler and 8 x 4 at one at 57% and 56% of
+//     the plain FP64 rate once the shared loads feed them, 83% and 77%
+//     from registers alone);
+//   - each output is one DFMA chain from +0 over k ascending, as in the
+//     template; the extra rows (pad rows, and rows outside an output's
+//     own hull but inside its group's) are zero in its column, so the
+//     bytes are the template's.
+//   config 4: 256 compute threads and a producer warp, 131 x 162 + 2 x
+//   120 x 32 doubles and 4 mbarriers = 231248 B, one CTA an SM.
+//
+// Design: template (fixed_step_kernel<T, Acc, kInterp, kTM>; the float32
+// data with float64 accumulators, interpolated float64, M < 32, and shapes
+// whose P and ring do not fit, such as large M, or whose hull is not
+// known).  A CTA owns kBM output blocks x 32 phases of one channel:
 //   - it first reads its columns of P once through L2 and finds its hull
 //     from P's values, so staging and FMAs then cover the hull only;
 //   - where it fits, the CTA's window segment [i0*M, (i0+kBM)*M + KQ) is
@@ -196,7 +245,8 @@
 // up to 115712 B each; the hull rows those of the engine's
 // matrices there, the hull design taking none of the other shapes: 420
 // rows at M = 160, 520 at M = 640, 924 at M = 2560, and the interpolated
-// and float64-summed shapes are not its):
+// and float64-summed shapes are not its; the float64 data with its hulls
+// known, as the launches find them):
 //   float32, M = 147, qn = 4 (the main path)   resident, BM = 128            230944 B
 //   float32, M = 147, qn = 2, interpolated     resident, BM = 64             152800 B
 //   float32, M = 160, qn = 4 (48k->44.1k)      template kBM = 128, PR = M, 1 buffer  104912 B
@@ -209,7 +259,12 @@
 //   float32, M = 2560, qn = 2, reduced         template, column pieces, kBM = 128, PR = 352 225856 B
 //   float32, M = 2560, qn = 2, interpolated    template, column pieces, kBM = 128, PR = 288 221760 B
 //   float32 with float64 sums, M = 147, qn = 4 template kBM = 128, PR = M, 2 buffers 114736 B
-//   float64, M = 160, qn = 4 (config 4)        template kBM = 128, PR = M, 1 buffer  209760 B
+//   float64, M = 160, qn = 4 (config 4)        persistent float64, BM = 128, 2 x 120 P rows 231248 B
+//     (with no hull known the template, kBM = 128, PR = M, 1 buffer,
+//     209760 B)
+//   float64, M = 147, qn = 4 (art64 44.1k->48k) persistent float64, BM = 128, 2 x 144 P rows 230960 B
+//   float64, M = 320, qn = 2, reduced          template kBM =  32, PR = M, 1 buffer  166752 B
+//     (the persistent design's 128-block window would take 334880 B)
 // Offsets into buf and out are 64-bit: c*W and c*nb*L outgrow 2^31 for
 // grouped flat buffers.
 
@@ -1028,6 +1083,281 @@ fixed_step_kernel_hull(const float* __restrict__ buf, long long W,
     }
 }
 
+// =================================================== the persistent float64 design
+// The design's tag: its kernel is fixed_step_kernel<double, double,
+// Persistent>, an overload of the template's name.
+struct Persistent {};
+
+// One pair of terms (m, m + 1) of a thread's tile: its blocks' window
+// pairs and P's two rows of its 4 phases (two double2s a row, 16 phases
+// apart, as the template reads them).
+struct PairTerms {
+    double2 a[kP64TM];
+    double2 p[2][2];
+};
+
+// Phase j of a thread's 4 in row kk of a pair (colof<double>'s order).
+__device__ __forceinline__ double pelem(const PairTerms& t, int kk, int j) {
+    const double2& v = t.p[kk][j >> 1];
+    return j & 1 ? v.y : v.x;
+}
+
+// The padded rows [*a, *b) of column group cg's hull (p64_rows on its
+// halves' hulls, hulls[2 cg] and hulls[2 cg + 1]).
+__device__ __forceinline__ void p64_group_rows(const int* __restrict__ hulls,
+                                               int cg, int M, int* a,
+                                               int* b) {
+    p64_rows(M, __ldg(hulls + 4 * cg), __ldg(hulls + 4 * cg + 1),
+             __ldg(hulls + 4 * cg + 2), __ldg(hulls + 4 * cg + 3), a, b);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// This thread's arrival on mbarrier bar, which then waits for ``bytes``
+// of bulk copies besides.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global src to shared dst (both
+// 16-byte aligned) by the TMA, completing on mbarrier bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src),
+        "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of mbarrier bar's phase of parity ``parity``.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+    unsigned ok = 0;
+    while (!ok)
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n" : "=r"(ok) : "r"(smem_u32(bar)),
+            "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+    asm volatile(
+        "{\n .reg .b64 state;\n"
+        " mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+            smem_u32(bar)) : "memory");
+}
+
+// See the header ("Design: persistent float64").  CTA blockIdx.x takes
+// units [u0, u1) of the ``units`` = channels x ``tiles`` x column groups,
+// unit u being column group u % G of row tile u / G (tile t of channel c
+// at c * tiles + t).  Its kP64Threads compute threads stage a tile's
+// window when the tile changes and run the DFMAs.  Its producer warp
+// streams the pieces of the units' padded hull rows through two buffers
+// of ``PR`` rows, piece after piece across units and tiles: column group
+// cg's padded rows [a, b) (p64_rows) are rows 0 .. b - a of ``packed``'s
+// [cg], R rows of 32 doubles a group.  Buffer i is handed over through
+// mbarriers full[i] (the TMA's bytes landed) and empty[i] (every compute
+// warp is done with it).  Compute thread (tx, ty) computes blocks ty + r * kP64RowThreads,
+// r < kP64TM, at phases n0 + colof<double>(tx, j), j < 4.
+template <typename T, typename Acc, typename Design>
+__global__ void __launch_bounds__(kP64Threads + 32, 1)
+fixed_step_kernel(const double* __restrict__ buf, long long W,
+                  long long start, long long K,
+                  const double* __restrict__ packed, int R, int M, int L,
+                  int qn, long long nb, const int* __restrict__ hulls,
+                  int PR, long long tiles, long long units,
+                  double* __restrict__ out) {
+    static_assert(std::is_same<T, double>::value &&
+                      std::is_same<Acc, double>::value &&
+                      std::is_same<Design, Persistent>::value,
+                  "the persistent design is float64's alone");
+    constexpr int kTM = kP64TM;
+    constexpr int RS = kP64RowThreads;      // a thread's blocks RS apart
+    constexpr int kWarps64 = kP64Threads / 32;
+    extern __shared__ float4 smem4[];
+    const int Mp = p64_mp(M);
+    const int S = p64_stride(M);
+    const int rows = kP64BM + qn - 1;
+    double* win = reinterpret_cast<double*>(smem4);     // row r at r * S
+    double* pieces = win + rows * S;    // two of PR rows x kBN
+    auto* full = reinterpret_cast<unsigned long long*>(pieces + 2 * PR * kBN);
+    unsigned long long* empty = full + 2;
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const int G = (L + kBN - 1) / kBN;
+    int first;
+    long long u0, u1;
+    resident_range(blockIdx.x, gridDim.x, units, &first, &u0, &u1);
+
+    if (tid == kP64Threads) {
+        for (int i = 0; i < 2; ++i) {
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                             smem_u32(full + i)) : "memory");
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                             smem_u32(empty + i)), "n"(kWarps64) : "memory");
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // the window's columns [M, S) stay zero: a pad column is read against
+    // P's zero pad rows
+    for (int e = tid; e < rows * (S - M); e += kP64Threads + 32)
+        win[e / (S - M) * S + M + e % (S - M)] = 0.0;
+    __syncthreads();
+
+    // unit u's padded rows [a, b): its pieces start at a, a + PR, ...
+    auto rows_of = [&](long long u, int* a, int* b) {
+        p64_group_rows(hulls, static_cast<int>(u % G), M, a, b);
+    };
+
+    if (warp == kWarps64) {
+        // the producer: one lane issues each piece's TMA copy once every
+        // compute warp is done with its buffer
+        if (lane == 0) {
+            int bi = 0;
+            // each buffer's empty parity to wait for, flipped: a fresh
+            // mbarrier counts the phase before its first as complete
+            unsigned ph = 0;
+            for (long long u = u0; u < u1; ++u) {
+                int a, b;
+                rows_of(u, &a, &b);
+                const long long g = static_cast<long long>(u % G) * R;
+                for (int k0 = a; k0 < b; k0 += PR) {
+                    mbar_wait(empty + bi, ((ph >> bi) & 1) ^ 1);
+                    ph ^= 1u << bi;
+                    const unsigned bytes = static_cast<unsigned>(
+                        min(b - k0, PR) * kBN * sizeof(double));
+                    mbar_expect(full + bi, bytes);
+                    bulk_copy(pieces + bi * PR * kBN,
+                              packed + (g + k0 - a) * kBN, bytes, full + bi);
+                    bi ^= 1;
+                }
+            }
+        }
+        return;
+    }
+
+    const int tx = tid % kColThreads;
+    const int ty = tid / kColThreads;
+
+    // tile's window: row r holds the M samples from buf[c, start + (i0 +
+    // r)*M] (zero past W), a warp a row by element; every compute thread
+    // waits for it
+    auto stage_window = [&](long long tile) {
+        const long long c = tile / tiles;
+        const long long g0 = start + (tile - c * tiles) * kP64BM * M;
+        const double* src = buf + c * W + g0;
+        const bool whole = g0 + static_cast<long long>(rows) * M <= W;
+        for (int r = warp; r < rows; r += kWarps64)
+            for (int m = lane; m < M; m += 32) {
+                const long long o = static_cast<long long>(r) * M + m;
+                if (whole || g0 + o < W) cp_async(win + r * S + m, src + o);
+                else win[r * S + m] = 0.0;
+            }
+        cp_async_commit();
+        cp_async_wait<0>();
+        bar_sync(1, kP64Threads);
+    };
+
+    double acc[kTM][kTN] = {};
+
+    // the DFMAs of padded rows [k0, k1) of a piece held at pb: each
+    // output's one chain over k ascending, pairs of terms at a time, the
+    // next pair's loads issued from the other register set before this
+    // pair's DFMAs (past a run's last pair they reload it); a loop step
+    // is a 4-row group, so no branch lies between a load and its DFMAs
+    auto dfmas = [&](const double* pb, int k0, int k1) {
+        for (int k = k0; k < k1;) {
+            const int q = k / Mp;
+            const int m0 = k - q * Mp;
+            const int m1 = min(Mp, m0 + (k1 - k));
+            const double* wr = win + (ty + q) * S;
+            const double* pp = pb + (k - k0) * kBN + tx * 2;  // row m0
+            auto load = [&](PairTerms& t, int m) {
+#pragma unroll
+                for (int r = 0; r < kTM; ++r)
+                    t.a[r] = *reinterpret_cast<const double2*>(
+                        wr + r * RS * S + m);
+#pragma unroll
+                for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        t.p[kk][h] = *reinterpret_cast<const double2*>(
+                            pp + (m - m0 + kk) * kBN + h * 2 * kColThreads);
+            };
+            auto fma2 = [&](const PairTerms& t) {
+#pragma unroll
+                for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+                    for (int r = 0; r < kTM; ++r) {
+                        const double av = kk ? t.a[r].y : t.a[r].x;
+#pragma unroll
+                        for (int j = 0; j < kTN; ++j)
+                            acc[r][j] = fma(av, pelem(t, kk, j), acc[r][j]);
+                    }
+            };
+            PairTerms ta, tb;
+            load(ta, m0);
+            for (int m = m0; m < m1; m += 4) {
+                load(tb, m + 2);
+                fma2(ta);
+                load(ta, min(m + 4, m1 - 2));
+                fma2(tb);
+            }
+            k += m1 - m0;
+        }
+    };
+
+    int bi = 0;
+    unsigned ph = 0;            // each buffer's full parity to wait
+    long long staged_tile = -1;
+    for (long long u = u0; u < u1; ++u) {
+        const long long tile = u / G;
+        const int cg = static_cast<int>(u % G);
+        if (tile != staged_tile) {
+            // every compute warp is past its last read of the window
+            bar_sync(1, kP64Threads);
+            stage_window(tile);
+            staged_tile = tile;
+        }
+        int a, b;
+        rows_of(u, &a, &b);
+        for (int k0 = a; k0 < b; k0 += PR) {
+            mbar_wait(full + bi, (ph >> bi) & 1);   // the piece in place
+            ph ^= 1u << bi;
+            dfmas(pieces + bi * PR * kBN, k0, min(b, k0 + PR));
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + bi);  // the buffer is free
+            bi ^= 1;
+        }
+
+        const long long c = tile / tiles;
+        const long long i0 = (tile - c * tiles) * kP64BM;
+        double* outc = out + c * nb * L;
+#pragma unroll
+        for (int r = 0; r < kTM; ++r) {
+            const long long i = i0 + ty + r * RS;
+#pragma unroll
+            for (int j = 0; j < kTN; ++j) {
+                const int l = cg * kBN + colof<double>(tx, j);
+                if (i < nb && l < L) {
+                    const long long o = i * L + l;
+                    outc[o] = o < K ? acc[r][j] : 0.0;
+                }
+                acc[r][j] = 0.0;
+            }
+        }
+    }
+}
+
 // The SMs of the current device, cached per device.
 int sm_count() {
     static int cached[64] = {0};
@@ -1039,36 +1369,55 @@ int sm_count() {
     return cached[dev];
 }
 
+// CTAs an SM of one kernel, a function of the device and the shared
+// memory, kept for the last pair a thread asked about (one a kernel).
+struct Occupancy {
+    int dev = -1, per_sm = 0;
+    size_t smem = 0;
+};
+
+// The CTAs of ``kernel`` at ``threads`` threads and ``smem`` shared bytes
+// the card holds at once, into *slots; its maximum dynamic shared memory
+// set to smem first.
+template <typename F>
+cudaError_t resident_slots(F* kernel, int threads, size_t smem,
+                           Occupancy& cache, long long* slots) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int now = 0;
+    err = cudaGetDevice(&now);
+    if (err != cudaSuccess) return err;
+    if (now != cache.dev || smem != cache.smem) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &cache.per_sm, kernel, threads, smem);
+        if (err != cudaSuccess) return err;
+        cache.dev = now;
+        cache.smem = smem;
+    }
+    const int sms = sm_count();
+    if (cache.per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
+    *slots = static_cast<long long>(sms) * cache.per_sm;
+    return cudaSuccess;
+}
+
 template <bool kInterp>
 cudaError_t launch_resident(const float* buf, long long ch, long long W,
                             long long start, long long K, const float* P,
                             int L2, const float* fracv, int M, int L, int qn,
                             long long nb, float* out, size_t smem,
                             cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fixed_step_kernel_resident<kInterp>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    thread_local Occupancy cache;
+    long long slots = 0;
+    const cudaError_t err = resident_slots(
+        fixed_step_kernel_resident<kInterp>, kResThreads, smem, cache,
+        &slots);
     if (err != cudaSuccess) return err;
-    // CTAs an SM: a function of the device and the shared memory, kept
-    // for the last pair this thread asked about
-    thread_local int dev = -1, per_sm = 0;
-    thread_local size_t for_smem = 0;
-    int now = 0;
-    err = cudaGetDevice(&now);
-    if (err != cudaSuccess) return err;
-    if (now != dev || smem != for_smem) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, fixed_step_kernel_resident<kInterp>, kResThreads, smem);
-        if (err != cudaSuccess) return err;
-        dev = now;
-        for_smem = smem;
-    }
-    const int sms = sm_count();
-    if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
     constexpr int BM = res_bm(kInterp);
     const long long tiles = (nb + BM - 1) / BM;
     const ResidentGrid g = resident_grid((L + kBN - 1) / kBN, ch * tiles,
-                                         static_cast<long long>(sms) * per_sm);
+                                         slots);
     fixed_step_kernel_resident<kInterp>
         <<<static_cast<unsigned>(g.ctas), kResThreads, smem, stream>>>(
         buf, W, start, K, P, L2, fracv, M, L, qn, nb, tiles, ch * tiles,
@@ -1090,28 +1439,14 @@ cudaError_t launch_hull(const float* buf, long long ch, long long W,
                         int L, int qn, long long nb, const int* hulls,
                         int rows, float* out, size_t smem,
                         cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fixed_step_kernel_hull<kWide>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    thread_local Occupancy cache;
+    long long slots = 0;
+    const cudaError_t err = resident_slots(fixed_step_kernel_hull<kWide>,
+                                           kResThreads, smem, cache, &slots);
     if (err != cudaSuccess) return err;
-    thread_local int dev = -1, per_sm = 0;
-    thread_local size_t for_smem = 0;
-    int now = 0;
-    err = cudaGetDevice(&now);
-    if (err != cudaSuccess) return err;
-    if (now != dev || smem != for_smem) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, fixed_step_kernel_hull<kWide>, kResThreads, smem);
-        if (err != cudaSuccess) return err;
-        dev = now;
-        for_smem = smem;
-    }
-    const int sms = sm_count();
-    if (per_sm < 1 || sms < 1) return cudaErrorInvalidValue;
     const long long blocks = ch * nb;
     const long long tiles = (blocks + kHullBM - 1) / kHullBM;
-    const ResidentGrid g = resident_grid((L + kBN - 1) / kBN, tiles,
-                                         static_cast<long long>(sms) * per_sm);
+    const ResidentGrid g = resident_grid((L + kBN - 1) / kBN, tiles, slots);
     fixed_step_kernel_hull<kWide>
         <<<static_cast<unsigned>(g.ctas), kResThreads, smem, stream>>>(
             buf, W, start, K, P, M, L, qn, nb, hulls, rows, blocks, tiles,
@@ -1119,18 +1454,46 @@ cudaError_t launch_hull(const float* buf, long long ch, long long W,
     return cudaGetLastError();
 }
 
-// =================================================== the three designs
+// One launch of the persistent float64 design: a CTA a slot of the card,
+// never more than the units, each a contiguous run of them (the resident
+// grid of one group over every unit).
+cudaError_t launch_persistent64(const double* buf, long long ch,
+                                long long W, long long start, long long K,
+                                const double* packed, int R, int M, int L,
+                                int qn, long long nb, const int* hulls,
+                                int pr, double* out, size_t smem,
+                                cudaStream_t stream) {
+    void (*kernel)(const double*, long long, long long, long long,
+                   const double*, int, int, int, int, long long, const int*,
+                   int, long long, long long, double*) =
+        fixed_step_kernel<double, double, Persistent>;
+    thread_local Occupancy cache;
+    long long slots = 0;
+    const cudaError_t err =
+        resident_slots(kernel, kP64Threads + 32, smem, cache, &slots);
+    if (err != cudaSuccess) return err;
+    const long long tiles = (nb + kP64BM - 1) / kP64BM;
+    const long long units = ch * tiles * ((L + kBN - 1) / kBN);
+    const ResidentGrid g = resident_grid(1, units, slots);
+    kernel<<<static_cast<unsigned>(g.ctas), kP64Threads + 32, smem, stream>>>(
+        buf, W, start, K, packed, R, M, L, qn, nb, hulls, pr, tiles, units,
+        out);
+    return cudaGetLastError();
+}
+
+// =================================================== the four designs
 // One launch of the design and tile fixed_step_launch picks for the hull
-// of ``hull_rows`` rows (0, or hulls null: not known); *design says which
-// design ran.
+// of ``hull_rows`` rows (0, or hulls null, or for float64 packed null: not
+// known); *design says which design ran.
 template <typename T, typename Acc, bool kInterp>
 cudaError_t launch(const T* buf, long long ch, long long W, long long start,
                    long long K, const T* P, int L2, const T* fracv, int M,
                    int L, int qn, long long nb, T* out, int kind,
-                   const int* hulls, int hull_rows, int* design,
-                   cudaStream_t stream) {
+                   const int* hulls, int hull_rows, const double* packed,
+                   int packed_rows, int* design, cudaStream_t stream) {
     Launch lc;
-    if (!fixed_step_launch(M, qn, kInterp, kind, hulls ? hull_rows : 0, &lc))
+    const bool known = hulls && (kind != kF64 || packed);
+    if (!fixed_step_launch(M, qn, kInterp, kind, known ? hull_rows : 0, &lc))
         return cudaErrorInvalidValue;
     *design = lc.design;
     if constexpr (std::is_same<T, float>::value &&
@@ -1149,6 +1512,13 @@ cudaError_t launch(const T* buf, long long ch, long long W, long long start,
                                           nb, hulls, hull_rows, out, lc.smem,
                                           stream);
         }
+    }
+    if constexpr (std::is_same<T, double>::value &&
+                  std::is_same<Acc, double>::value && !kInterp) {
+        if (lc.design == kPersistent64)
+            return launch_persistent64(buf, ch, W, start, K, packed,
+                                       packed_rows, M, L, qn, nb, hulls,
+                                       lc.pr, out, lc.smem, stream);
     }
     int tm = 0, pr = 0, nbuf = 0, wpiece = 0;
     size_t smem = 0;
@@ -1173,16 +1543,19 @@ cudaError_t launch_any(const void* buf, long long ch, long long W,
                        long long start, long long K, const void* P, int L2,
                        const void* fracv, int M, int L, int qn, long long nb,
                        void* out, int kind, const int* hulls, int hull_rows,
-                       int* design, cudaStream_t s) {
+                       const double* packed, int packed_rows, int* design,
+                       cudaStream_t s) {
     const T* b = static_cast<const T*>(buf);
     const T* p = static_cast<const T*>(P);
     const T* f = static_cast<const T*>(fracv);
     T* o = static_cast<T*>(out);
     if (fracv)
         return launch<T, Acc, true>(b, ch, W, start, K, p, L2, f, M, L, qn,
-                                    nb, o, kind, hulls, hull_rows, design, s);
+                                    nb, o, kind, hulls, hull_rows, packed,
+                                    packed_rows, design, s);
     return launch<T, Acc, false>(b, ch, W, start, K, p, L2, f, M, L, qn, nb,
-                                 o, kind, hulls, hull_rows, design, s);
+                                 o, kind, hulls, hull_rows, packed,
+                                 packed_rows, design, s);
 }
 
 }  // namespace
@@ -1194,35 +1567,46 @@ cudaError_t launch_any(const void* buf, long long ch, long long W,
 // rows [klo, khi) of P outside which every one of its columns is zero
 // (klo = khi = 0 for none); hull_rows the widest column group's hull (its
 // halves' union) rounded out to 4-row groups, (khi + 3 & ~3) - (klo & ~3).
+// packed, null or float64 [G, packed_rows, 32] on the device (16-byte
+// aligned; float64 data only, where hulls are given): for each column
+// group g, its padded rows [a, b) (p64_rows of its halves' hulls) of P's
+// 32 columns, row j the padded row a + j (zero for pad rows and columns
+// past L), packed_rows >= every b - a.
 // Sets *design to the design the launch took: 0 the template, 1 the
-// resident design, 2 the hull design.  Returns the launch's cudaError_t (0
-// on success); arguments the kernel does not take return
-// cudaErrorInvalidValue.
+// resident design, 2 the hull design, 3 the persistent float64 design.
+// Returns the launch's cudaError_t (0 on success); arguments the kernel
+// does not take return cudaErrorInvalidValue.
 extern "C" int art_fixed_step(const void* buf, long long ch, long long W,
                               long long start, long long K, const void* P,
                               int KQ, int L2, const void* fracv, int M,
                               int L, int qn, long long nb, void* out,
                               int kind, const void* hulls, int hull_rows,
+                              const void* packed, int packed_rows,
                               int* design, void* stream) {
     if (M <= 0 || L <= 0 || qn <= 0 || nb <= 0 || ch <= 0 || start < 0 ||
         K < 0 || K > nb * L || KQ != qn * M ||
-        L2 != (fracv ? 2 * L : L) || hull_rows < 0 || !design)
+        L2 != (fracv ? 2 * L : L) || hull_rows < 0 || packed_rows < 0 ||
+        reinterpret_cast<size_t>(packed) % 16 || !design)
         return cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int* h = static_cast<const int*>(hulls);
+    const double* pk = static_cast<const double*>(packed);
     switch (kind) {
         case kF32:
             return launch_any<float, float>(buf, ch, W, start, K, P, L2,
                                             fracv, M, L, qn, nb, out, kind,
-                                            h, hull_rows, design, s);
+                                            h, hull_rows, pk, packed_rows,
+                                            design, s);
         case kF32Acc64:
             return launch_any<float, double>(buf, ch, W, start, K, P, L2,
                                              fracv, M, L, qn, nb, out, kind,
-                                             h, hull_rows, design, s);
+                                             h, hull_rows, pk, packed_rows,
+                                             design, s);
         case kF64:
             return launch_any<double, double>(buf, ch, W, start, K, P, L2,
                                               fracv, M, L, qn, nb, out, kind,
-                                              h, hull_rows, design, s);
+                                              h, hull_rows, pk, packed_rows,
+                                              design, s);
         default:
             return cudaErrorInvalidValue;
     }

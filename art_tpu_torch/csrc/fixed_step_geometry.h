@@ -1,4 +1,4 @@
-// K1's host geometry: which of its three designs a launch takes, and each
+// K1's host geometry: which of its four designs a launch takes, and each
 // design's tile, shared memory and grid.  One source for fixed_step.cu
 // (nvcc: the kernels, their launches) and for fixed_step_geometry.cpp (the
 // host's C++ compiler: the same functions behind a C interface that needs
@@ -143,6 +143,104 @@ inline size_t hull_smem(int M, int qn, bool interp, int kind, int rows) {
     return smem <= kMaxSmem ? smem : 0;
 }
 
+// =================================================== the persistent float64 design
+// Float64 data summed in float64: one CTA an SM walks (channel, row tile,
+// column group) units.  A tile's window (kP64BM blocks' rows) is staged
+// once and serves every column group; P's hull rows of each column group
+// (the host's hulls, as for the hull design, packed by the host) pass
+// through two piece buffers of p64_piece_rows rows x 32 phases, a
+// producer warp's bulk copy of the next piece running while the current
+// one's DFMAs run.  A compute thread computes kP64TM blocks x 4 phases,
+// over pairs of terms (m, m + 1): each pair it loads its blocks' window
+// double2s and P's two rows of its phases, 8 16-byte loads for 32 DFMAs;
+// rows go in 4-row groups (two pairs a loop step).
+constexpr int kP64BM = 128;                 // blocks a row tile
+constexpr int kP64TM = 4;                   // blocks a thread
+constexpr int kP64RowThreads = kP64BM / kP64TM;
+constexpr int kP64Threads = kP64RowThreads * kColThreads;  // compute, + a
+                                                           // producer warp
+constexpr int kP64MinPR = 32;               // the fewest rows a piece
+
+// A slice's rows in the window and in P's pieces: M rounded up to the
+// 4-row groups the DFMAs read (the pad rows are zero in both).
+K1_HD int p64_mp(int M) { return (M + 3) & ~3; }
+
+// A window row's stride in doubles: p64_mp(M) + 2, so that a row's pairs
+// are 16-byte aligned and the four consecutive rows a warp reads at one
+// column fall in four different 16-byte bank quads (the stride in quads
+// is odd).
+K1_HD int p64_stride(int M) { return p64_mp(M) + 2; }
+
+// Doubles of the window: the kP64BM + qn - 1 rows a tile reads.
+K1_HD long long p64_window_elems(int M, int qn) {
+    return static_cast<long long>(kP64BM + qn - 1) * p64_stride(M);
+}
+
+// The mbarriers after the pieces: each piece buffer's full and empty.
+constexpr size_t kP64Barriers = 4 * sizeof(unsigned long long);
+
+// The rows of each of the two piece buffers: the most 4-row groups that
+// fit beside the window, no more than the qn padded slices hold; 0 where
+// fewer than kP64MinPR fit.
+inline int p64_piece_rows(int M, int qn) {
+    const long long win =
+        p64_window_elems(M, qn) * sizeof(double) + kP64Barriers;
+    if (win >= static_cast<long long>(kMaxSmem)) return 0;
+    long long pr = (static_cast<long long>(kMaxSmem) - win) /
+                   (2 * kBN * static_cast<long long>(sizeof(double)));
+    const long long cap = static_cast<long long>(qn) * p64_mp(M);
+    pr = (pr < cap ? pr : cap) & ~3LL;
+    return pr >= kP64MinPR ? static_cast<int>(pr) : 0;
+}
+
+// Padded rows: row k = q*M + m of P at q*Mp + m (Mp = p64_mp(M)), so that
+// a slice's rows and a tile's window rows hold the same 4-row groups.
+// The row of P that padded row k holds, or -1 for a pad row.
+K1_HD int p64_source_row(int M, int k) {
+    const int Mp = p64_mp(M);
+    return k % Mp < M ? k / Mp * M + k % Mp : -1;
+}
+
+// The padded rows [*a, *b) of a column group's hull that the persistent
+// float64 design runs, from the hulls [lo0, hi0) and [lo1, hi1) of its two
+// 16-phase halves (empty where hi <= lo; an empty half adds nothing):
+// their union's padded rows rounded out to 4-row groups (a group never
+// crosses a slice); (0, 0) for an empty group.  The host packs P's rows so
+// (ops/fixed_step.py::_packed_of, by p64_source_row) and the kernel runs
+// them.
+K1_HD void p64_rows(int M, int lo0, int hi0, int lo1, int hi1, int* a,
+                    int* b) {
+    const bool h0 = hi0 > lo0, h1 = hi1 > lo1;
+    if (!h0 && !h1) {
+        *a = *b = 0;
+        return;
+    }
+    const int Mp = p64_mp(M);
+    const int lo = h0 ? (h1 && lo1 < lo0 ? lo1 : lo0) : lo1;
+    const int hi = h0 ? (h1 && hi1 > hi0 ? hi1 : hi0) : hi1;
+    *a = (lo / M * Mp + lo % M) & ~3;
+    *b = ((hi - 1) / M * Mp + (hi - 1) % M + 4) & ~3;
+}
+
+// The persistent float64 design takes float64 data summed in float64,
+// reduced (one bank), M of at least 32, a P whose hulls are known
+// (``hull_rows`` > 0: the rows only say that they are) and shapes whose
+// window, two pieces of at least kP64MinPR rows and the mbarriers fit a
+// block's shared memory.  Returns its shared-memory bytes, or 0 where it
+// does not take the shape.
+inline size_t persistent64_smem(int M, int qn, bool interp, int kind,
+                                int hull_rows) {
+    if (kind != kF64 || interp || M < kResMinM || hull_rows <= 0 ||
+        hull_rows > qn * M)
+        return 0;
+    const int pr = p64_piece_rows(M, qn);
+    if (!pr) return 0;
+    return (static_cast<size_t>(p64_window_elems(M, qn)) +
+            static_cast<size_t>(2) * pr * kBN) *
+               sizeof(double) +
+           kP64Barriers;
+}
+
 // =================================================== the template design
 constexpr int kThreads = 256;
 constexpr int kRowThreads = kThreads / kColThreads;  // 32
@@ -218,18 +316,20 @@ inline bool pick_tile(int M, int qn, int BNt, int esz, int* tm, int* pr,
 }
 
 // The launch a shape takes, as art_fixed_step_geometry reports it.
-enum Design { kTemplate = 0, kResident = 1, kHull = 2 };
+enum Design { kTemplate = 0, kResident = 1, kHull = 2, kPersistent64 = 3 };
 
 struct Launch {
     Design design;
     int bm;             // blocks a row tile
     int pr;             // P rows a staged piece (resident: all qn * M;
-                        // hull: the hull's rows)
+                        // hull: the hull's rows; persistent float64: a
+                        // piece buffer's)
     size_t smem;
 };
 
-// The resident design where it fits, else the hull design where the hull
-// of ``hull_rows`` rows (0: not known) fits, else the template.
+// The resident design where it fits, else the hull design or, for float64
+// data, the persistent float64 design where the hull of ``hull_rows``
+// rows (0: not known) fits, else the template.
 inline bool fixed_step_launch(int M, int qn, bool interp, int kind,
                               int hull_rows, Launch* out) {
     if (M <= 0 || qn <= 0 || kind < kF32 || kind > kF64) return false;
@@ -241,6 +341,11 @@ inline bool fixed_step_launch(int M, int qn, bool interp, int kind,
     const size_t hull = hull_smem(M, qn, interp, kind, hull_rows);
     if (hull) {
         *out = {kHull, kHullBM, hull_rows, hull};
+        return true;
+    }
+    const size_t p64 = persistent64_smem(M, qn, interp, kind, hull_rows);
+    if (p64) {
+        *out = {kPersistent64, kP64BM, p64_piece_rows(M, qn), p64};
         return true;
     }
     int tm = 0, pr = 0, nbuf = 0, wpiece = 0;

@@ -39,9 +39,10 @@ _ASRC_APPLY = [_vp, _ll, _ll, _vp, _i, _i, _i, _i, _i, _i, _vp, _vp, _vp,
                _ll, _vp, _vp]
 _SIGNATURES = {
     # buf, ch, W, start, K, P, KQ, L2, fracv, M, L, qn, nb, out, kind,
-    # hulls, hull rows, &design, stream
+    # hulls, hull rows, packed P, its rows a group, &design, stream
     "art_fixed_step": [_vp, _ll, _ll, _ll, _ll, _vp, _i, _i, _vp, _i, _i, _i,
-                       _ll, _vp, _i, _vp, _i, ctypes.POINTER(_i), _vp],
+                       _ll, _vp, _i, _vp, _i, _vp, _i, ctypes.POINTER(_i),
+                       _vp],
     # hist, H, x, n, S, bank, taps, F, P, X, outputs per block, threads,
     # offsets, ratios, Ks, shift, k_max, out, stream
     "art_asrc_step_f32": _ASRC_STEP,
@@ -84,11 +85,18 @@ _GEOMETRY_SIGNATURES = {
     # odd, pairs, out [2]: the LCG map of 2 * pairs steps
     "art_decimate_pair_power": [_i, ctypes.c_ulonglong, _vp],
     # M, qn, interp, kind, hull rows, out [4]: K1's design (0 template,
-    # 1 resident, 2 hull), blocks a tile, P rows a piece, shared bytes
+    # 1 resident, 2 hull, 3 persistent float64), blocks a tile, P rows a
+    # piece, shared bytes
     "art_fixed_step_geometry": [_i, _i, _i, _i, _i, _vp],
     # G, units, slots, cta, out [5]: the resident grid's CTAs, CTAs a
     # group, the CTA's first group and tiles [t0, t1)
     "art_fixed_step_grid": [_i, _ll, _ll, _ll, _vp],
+    # M, halves' hulls lo0, hi0, lo1, hi1, out [2]: the persistent float64
+    # design's padded rows [a, b) of the column group
+    "art_fixed_step_p64_rows": [_i, _i, _i, _i, _i, _vp],
+    # M, a, b, out [b - a]: the rows of P that padded rows [a, b) hold (-1
+    # for a pad row)
+    "art_fixed_step_p64_sources": [_i, _i, _i, _vp],
     # out [17]: the biquad kernel's span, table and record layout
     "art_biquad_constants": [_vp],
     # n, S, K, kind, out [5]: spans, active spans, CTAs, shared bytes,

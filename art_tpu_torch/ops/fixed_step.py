@@ -39,7 +39,9 @@ took, as the launch reports it: "resident" (float32 summed in float32 at
 shapes whose P and window ring fit a CTA's shared memory, the main path),
 "hull" (float32 reduced shapes where they do not, but P's hull rows and
 two buffers of each block's hull span of the window do: the hulls of P's
-column groups, found on P's first launch and kept beside it) or
+column groups, found on P's first launch and kept beside it),
+"persistent_f64" (float64 reduced shapes whose 128-block window and two
+pieces of P's hull rows fit, on those hulls: config 4's 5.1 chain) or
 "template" (the rest); ``kernel_tile`` says which a shape takes, and
 ``launch_tile`` which the launches on a given P take.
 """
@@ -58,8 +60,10 @@ from . import _build
 launches = 0
 instance_launches = {"f32": 0, "f32_acc64": 0, "f64": 0}
 polyphase_launches = 0
-path_launches = {"resident": 0, "hull": 0, "template": 0}
-_DESIGNS = ("template", "resident", "hull")     # art_fixed_step's *design
+path_launches = {"resident": 0, "hull": 0, "persistent_f64": 0,
+                 "template": 0}
+# art_fixed_step's *design
+_DESIGNS = ("template", "resident", "hull", "persistent_f64")
 
 # art_fixed_step's ``kind`` of each instance
 _KINDS = {"f32": 0, "f32_acc64": 1, "f64": 2}
@@ -157,9 +161,11 @@ def fixed_step_reference(hist, x, P, start: int, K: int, acc, *, M: int,
 
 
 # ------------------------------------------------------- P's hulls
-# P -> (P's version counter when its hulls were found, the hulls of each
+# P -> [P's version counter when its hulls were found, the hulls of each
 # 32-phase column group's two 16-phase halves [2 ceil(L / 32), 2] int32 on
-# P's device, the widest column group's hull rounded out to 4-row groups)
+# P's device, the widest column group's hull rounded out to 4-row groups,
+# (M, P's hull rows packed for the persistent float64 design, their rows a
+# group) once a launch of that design asked for them, else None]
 _kept_hulls = WeakIdKeyDictionary()
 
 
@@ -190,31 +196,88 @@ def hull_rows(hulls) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _takes_hulls(M: int, qn: int, interp: bool, inst: str) -> bool:
-    """Whether the launches of this shape and instance take the hull
-    design on some P: those whose launch needs P's hulls."""
-    return (inst == "f32" and not interp
-            and kernel_tile(M, qn, False, hull=4)[0] == "hull")
+    """Whether the launches of this shape and instance take a design
+    that needs P's hulls (the hull design, the persistent float64 one) on
+    some P."""
+    return _geometry(M, qn, interp, _KINDS[inst], 4)[0] in (
+        "hull", "persistent_f64")
 
 
-def _hulls_of(P):
-    """(P's column-group halves' hulls, hull_rows of its column groups),
-    found on P's first launch and again after P changes in place (its
-    version counter moves); one small copy to the host each time."""
+def _kept_of(P):
+    """P's entry in ``_kept_hulls``, made on P's first launch and again
+    after P changes in place (its version counter moves); one small copy
+    to the host each time."""
     kept = _kept_hulls.get(P)
     if kept is None or kept[0] != P._version:
         halves = torch.zeros((2 * -(-P.shape[1] // 32), 2),
                              dtype=torch.int32, device=P.device)
         h = column_hulls(P, cols=16)
         halves[:len(h)] = h
-        kept = (P._version, halves, hull_rows(column_hulls(P)))
+        kept = [P._version, halves, hull_rows(column_hulls(P)), None]
         _kept_hulls[P] = kept
+    return kept
+
+
+def _hulls_of(P):
+    """(P's column-group halves' hulls, hull_rows of its column groups),
+    kept beside P."""
+    kept = _kept_of(P)
     return kept[1], kept[2]
+
+
+def p64_group_rows(halves, M: int):
+    """The padded rows [a, b) the persistent float64 design runs for each
+    column group, from its two 16-phase halves' hulls (``halves`` [2G, 2],
+    as ``_hulls_of`` keeps them): the union of the halves in padded rows,
+    rounded out to 4-row groups (csrc/fixed_step_geometry.h::p64_rows, the
+    code the kernel runs).  Returns [(a, b), ...]."""
+    lib = _build.geometry_library()
+    out = (ctypes.c_int * 2)()
+    h = torch.as_tensor(halves).tolist()
+    rows = []
+    for g in range(len(h) // 2):
+        if lib.art_fixed_step_p64_rows(M, *h[2 * g], *h[2 * g + 1], out):
+            raise ValueError(f"no padded rows for M={M}")
+        rows.append((out[0], out[1]))
+    return rows
+
+
+def p64_sources(M: int, a: int, b: int):
+    """The row of P that each padded row of [a, b) holds, -1 for a pad
+    row (csrc/fixed_step_geometry.h::p64_source_row)."""
+    out = (ctypes.c_int * max(b - a, 1))()
+    if _build.geometry_library().art_fixed_step_p64_sources(M, a, b, out):
+        raise ValueError(f"no padded rows [{a}, {b}) for M={M}")
+    return list(out[:b - a])
+
+
+def _packed_of(P, M: int):
+    """(P's hull rows packed for the persistent float64 design, R): for
+    column group g, row j of ``packed[g]`` [R, 32] is padded row a_g + j
+    (``p64_group_rows``) of P over the group's 32 phases (zero for a pad
+    row and for phases past L), R the most rows of a group, so that each
+    piece the kernel stages is one contiguous copy.  Built on P's first
+    launch of the design from its kept hulls, and kept with them."""
+    kept = _kept_of(P)
+    if kept[3] is None or kept[3][0] != M:
+        rows = p64_group_rows(kept[1].cpu(), M)
+        R = max(b - a for a, b in rows)
+        L = P.shape[1]
+        packed = P.new_zeros((len(rows), max(R, 1), 32))
+        for g, (a, b) in enumerate(rows):
+            src = torch.tensor(p64_sources(M, a, b), dtype=torch.int64,
+                               device=P.device)
+            keep = src >= 0
+            c0, c1 = 32 * g, min(32 * g + 32, L)
+            packed[g, :b - a, :c1 - c0][keep] = P[src[keep], c0:c1]
+        kept[3] = (M, packed, R)
+    return kept[3][1], kept[3][2]
 
 
 def launch_tile(P, *, M: int, qn: int, fracv=None, precise: bool = False):
     """``kernel_tile`` of K1's launches on P [qn*M, L] (float32 or
     float64, L2 columns with ``fracv``): with P's hulls where the shape
-    may take the hull design."""
+    may take a design that reads them."""
     interp, inst = fracv is not None, instance(P.dtype, precise)
     rows = _hulls_of(P)[1] if _takes_hulls(M, qn, interp, inst) else 0
     return kernel_tile(M, qn, interp, dtype=P.dtype, precise=precise,
@@ -254,13 +317,20 @@ def kernel_tile(M: int, qn: int, interp: bool, *, dtype=torch.float32,
     (``hull_rows``; 0: no hull known), from ``csrc/fixed_step_geometry.h``
     (the code the launch runs, built for the host: no card needed).  The
     design is "resident" (the whole P of a CTA's columns held, all qn*M
-    rows a piece), "hull" (P's hull rows held, ``hull`` rows a piece) or
-    "template".  Every M fits: where the whole window tile does not, the
-    template brings the window in column pieces beside P's.  Raises
-    ValueError for a shape no launch takes (M or qn < 1)."""
+    rows a piece), "hull" (P's hull rows held, ``hull`` rows a piece),
+    "persistent_f64" (float64: P's hull rows streamed through two buffers
+    of that many rows each) or "template".  Every M fits: where the whole
+    window tile does not, the template brings the window in column pieces
+    beside P's.  Raises ValueError for a shape no launch takes (M or qn <
+    1)."""
+    return _geometry(M, qn, interp, _KINDS[instance(dtype, precise)], hull)
+
+
+def _geometry(M: int, qn: int, interp: bool, kind: int, hull: int):
+    """``kernel_tile`` for art_fixed_step's ``kind`` of the instance."""
     geo = (ctypes.c_longlong * 4)()
     rc = _build.geometry_library().art_fixed_step_geometry(
-        M, qn, int(interp), _KINDS[instance(dtype, precise)], hull, geo)
+        M, qn, int(interp), kind, hull, geo)
     if rc != 0:
         raise ValueError(f"K1 has no tile for M={M}, qn={qn}"
                          f"{', interpolated' if interp else ''}: M and qn "
@@ -289,8 +359,11 @@ def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
             raise ValueError(f"bad plan: start={start} W={W} K={K} nb={nb} "
                              f"L={L}")
         lib = _build.library()
-        hulls, rows = (_hulls_of(P) if _takes_hulls(M, qn, fracv is not None,
-                                                    inst) else (None, 0))
+        hulls, rows, packed, R = None, 0, None, 0
+        if _takes_hulls(M, qn, fracv is not None, inst):
+            hulls, rows = _hulls_of(P)
+            if inst == "f64" and hulls is not None:
+                packed, R = _packed_of(P, M)
         out = torch.empty((ch, nb * L), dtype=buf.dtype, device=dev)
         design = ctypes.c_int()
         with torch.cuda.device(dev):
@@ -300,6 +373,7 @@ def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
                 qn * M, L2, fracv.data_ptr() if fracv is not None else None,
                 M, L, qn, int(nb), out.data_ptr(), _KINDS[inst],
                 hulls.data_ptr() if hulls is not None else None, rows,
+                packed.data_ptr() if packed is not None else None, R,
                 ctypes.byref(design), stream)
         if rc != 0:
             raise RuntimeError(f"art_fixed_step launch failed: cudaError "

@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``art_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py               # every phase; needs one card
-    python3 chip_smoke.py --checksum    # only K1's output hashes (4 lines)
+    python3 chip_smoke.py --checksum    # only K1's output hashes (5 lines)
     python3 chip_smoke.py --profile-biquad  # the biquad kernel's device times
     python3 chip_smoke.py --decimate-ab build/parent  # decimate A/B, in turns
     python3 chip_smoke.py --biquad-ab build/parent    # biquad A/B, in turns
@@ -21,10 +21,11 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
 1. device: the card's name, count, and nvidia-smi's name and power limit;
 2. build: every kernel of art_tpu_torch/csrc/ from the checkout (one nvcc
    per source, in parallel), with ptxas's register and spill lines; no
-   kernel instance (K1's twenty-two: the template's eighteen, float32,
+   kernel instance (K1's twenty-three: the template's eighteen, float32,
    float32 with float64 accumulators and float64, reduced and
    interpolated, three tiles, the resident design's two, reduced and
-   interpolated, and the hull design's two, 16- and 4-byte copies; the
+   interpolated, the hull design's two, 16- and 4-byte copies, and the
+   persistent float64 design's one; the
    ASRC step's two and the apply's two; the decimate stage's flat and shaped
    kernels and the shaped chain's probe in float32 and float64; the biquad
    section's span kernel in float32 and float64) may spill, and the six
@@ -46,8 +47,9 @@ sin(0.1 s + 0.031 t)) -- in phases; any failure raises and exits non-zero:
    group of 2 chunks on 256 channels on the card against a CPU engine
    (one hull launch, Ks equal, within 1e-5); then the sha256 of K1's
    bytes on the preset -3 chunk, on config 1's interpolated chunk, on K6's main-path
-   call and on the batch-mastering chunk at 256 channels (``--checksum``
-   prints them alone, also from an older checkout);
+   call, on the batch-mastering chunk at 256 channels and on a
+   c4b_chain_f64 group's float64 data (``--checksum`` prints them alone,
+   also from an older checkout);
 4. K6 (polyphase_apply) against its float64 plain version at the main
    path's shapes (<= 1e-5) with its hull, then its entry point called 4
    times: 4 launches;
@@ -229,9 +231,11 @@ the change's within the class of the parent's.
 (git archive), in four processes in turns (parent, change, change,
 parent): the step and the kernel alone on the preset -3 2^22-frame chunk,
 the kernel on a 16,384-frame call, on a p3_flat_bulk group (8 x 8,388,555
-frames), on config 1's interpolated chunk and on a p2_cd16_1024trk call
-(2,048 x 65,600 frames, preset -2 96k->44.1k), and K6's main-path call
-(k1_times); the four K1 hashes of every turn must be equal.
+frames), on config 1's interpolated chunk, on a p2_cd16_1024trk call
+(2,048 x 65,600 frames, preset -2 96k->44.1k), on a c4b_chain_f64 group
+(6 x 33,553,920 float64 frames) and on config 4b's 2^19-frame float64
+chunk, and K6's main-path call (k1_times); the five K1 hashes of every
+turn must be equal.
 
 ``--decimate-ab build/parent`` times the decimate stage against an older
 tree unpacked there (git archive), in four processes in turns (parent,
@@ -291,6 +295,8 @@ INTERP = (1, 48, 48, 44100, 48000, 0, SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS)
 # BASELINE config 4's resampler (bench.py:303-307): 5.1 channels of float64
 # data, 48k->44.1k, 380 taps, reduced to L=147, M=160, qn=4
 CONFIG4 = (6, 380, 380, 48000, 44100, 0, FLAGS)
+# a c4b_chain_f64 group: 8 chunks of 4,194,240 frames (M = 160)
+C4B_GROUP = 8 * 4194240
 # the headline engine (bench.py:383, 416-417)
 HEAD = (2, 380, 380, 44100, 48000, 0, FLAGS)
 # BASELINE config 5 as bench.py measures it (bench.py:353-365)
@@ -366,10 +372,11 @@ def phase_build():
         if line.startswith("==") or "ptxas" in line or "spill" in line:
             print(f"  {line.strip()}")
     if _build.build_log:        # empty when an earlier process built it
-        # 22 fixed_step_kernel instances (the template's 18: float,
+        # 23 fixed_step_kernel instances (the template's 18: float,
         # float-with-double accumulators and double, reduced and
         # interpolated, 3 tiles; the resident design's 2; the hull
-        # design's 2), 4 ASRC ones (step and apply, float32 and float64),
+        # design's 2; the persistent float64 design's 1), 4 ASRC ones
+        # (step and apply, float32 and float64),
         # 10 decimate ones
         # (the flat kernel and the shaped chain's probe, float and double;
         # the shaped kernel's 1 and 2 quads, float and double), 2
@@ -377,7 +384,7 @@ def phase_build():
         inst = {k: v for k, v in _spills(_build.build_log).items()
                 if "_kernel" in k}
         print(f"  kernel instances (spill store, load bytes): {inst}")
-        _require(len(inst) == 36 and not any(sum(v) for v in inst.values()),
+        _require(len(inst) == 37 and not any(sum(v) for v in inst.values()),
                  "a kernel instance spills (or is missing)")
     _require_no_fma("decimate", 8)
 
@@ -456,6 +463,10 @@ def _tile_text(tile):
     if design == "hull":
         return (f"hull: {bm}-block tiles over every channel's blocks, P's "
                 f"hull held ({pr} rows), {smem} B shared")
+    if design == "persistent_f64":
+        return (f"persistent float64: {bm}-block tiles kept across the "
+                f"column groups, P's hull in two pieces of {pr} rows, "
+                f"{smem} B shared")
     return f"template: tile {bm} blocks x P pieces of {pr} rows, {smem} B shared"
 
 
@@ -879,13 +890,28 @@ def k1_checksum_p2(dev, ch=256):
         buf, P, start, K, M=kw["M"], L=kw["L"], nb=kw["nb"], qn=kw["qn"]))
 
 
+def k1_checksum_f64(dev):
+    """sha256 of K1's output bytes on BASELINE config 4's float64 data in
+    one launch over a c4b_chain_f64 group (6 channels, 8 x 4,194,240
+    frames and the history, std-0.25 noise): the persistent float64
+    design since it was written, the template before."""
+    eng, n, K, start, P, _, kw = _steady_chunk(CONFIG4, dev, C4B_GROUP,
+                                               dtype=np.float64)
+    buf = _noise_dev(dev, (6, eng.num_samples + n), 4545, 0.25,
+                     torch.float64)
+    return _sha256(k1.fixed_step_kernel(
+        buf, P, start, K, M=kw["M"], L=kw["L"], nb=kw["nb"], qn=kw["qn"]))
+
+
 def k1_checksums(dev):
-    """The four K1 hashes, one line each, the preset -3 line first."""
+    """The five K1 hashes, one line each, the preset -3 line first."""
     print(f"K1 preset -3 44.1k->48k chunk sha256 {k1_checksum(dev)}")
     print(f"K1 config 1 interpolated chunk sha256 {k1_checksum_interp(dev)}")
     print(f"K6 main-path call sha256 {k1_checksum_poly(dev)}")
     print(f"K1 preset -2 96k->44.1k 256-channel chunk sha256 "
           f"{k1_checksum_p2(dev)}")
+    print(f"K1 config 4 float64 c4b_chain_f64 group sha256 "
+          f"{k1_checksum_f64(dev)}")
 
 
 def _noise_dev(dev, shape, seed, scale=0.5, dtype=torch.float32):
@@ -1306,8 +1332,8 @@ def phase_tier_kernels(dev, n_target=1 << 22):
                        .to(dev) for shape in ((ch, eng.num_samples),
                                               (ch, n)))
             acc = torch.zeros((), dtype=hist.dtype, device=dev)
-            tile = k1.kernel_tile(kw["M"], kw["qn"], fracv is not None,
-                                  dtype=hist.dtype, precise=precise)
+            tile = k1.launch_tile(P, M=kw["M"], qn=kw["qn"], fracv=fracv,
+                                  precise=precise)
             h, out, _ = k1.fixed_step(hist, x, P, start, K, acc, fracv=fracv,
                                       precise=precise, **kw)
             hp, ref, _ = k1.fixed_step_reference(
@@ -2836,9 +2862,10 @@ def phase_chain_f64(dev, n_target=CHAIN_CHUNK, G=CHAIN_GROUP):
     state (outputs within 1e-12 of scale, the first section's xh' bitwise,
     the other states within 1e-12); then process_flat_out takes the
     filtered buffer (one K1 float64 launch over the group's G x nb
-    blocks), against fixed_step_reference chunk by chunk at the engine's
-    plan (within 1e-12 of scale, no tail past the chunks' K, the new
-    history bitwise).  Returns the biquad launches."""
+    blocks, the persistent float64 design), against fixed_step_reference
+    chunk by chunk at the engine's plan (within 1e-12 of scale, no tail
+    past the chunks' K, the new history bitwise).  Returns the biquad
+    launches."""
     eng = DeviceStreamResampler(*CONFIG4, dtype=np.float64, device=dev)
     eng.advance_position(190)
     n = roundtrip.m_multiple(n_target, eng.M)
@@ -2880,6 +2907,7 @@ def phase_chain_f64(dev, n_target=CHAIN_CHUNK, G=CHAIN_GROUP):
     out, Ks = eng.process_flat_out(y, n)
     _sync(dev)
     kl, k64 = k1.launches, k1.instance_launches["f64"]
+    kp = k1.path_launches["persistent_f64"]
     acc, refs = torch.zeros((), dtype=torch.float64, device=dev), []
     for g in range(G):
         hist, o, _ = k1.fixed_step_reference(hist, y[:, g * n:(g + 1) * n],
@@ -2898,10 +2926,10 @@ def phase_chain_f64(dev, n_target=CHAIN_CHUNK, G=CHAIN_GROUP):
           f"frames ({G} x {kw['nb']} blocks, K {K} a chunk, no tail): "
           f"max|K1 - f64 plain| {err:.3e} of scale {scale:.3e}, new history "
           f"bitwise {torch.equal(eng.hist, hist)}: {ok}; launches K1 {kl} "
-          f"(float64 {k64})")
+          f"(float64 {k64}, the persistent float64 design {kp})")
     _require(ok, "c4b_chain_f64's group vs fixed_step_reference")
-    _require(dev.type != "cuda" or (kl == 1 and k64 == 1),
-             "c4b_chain_f64's group: K1 launches != 1 float64")
+    _require(dev.type != "cuda" or (kl == 1 and k64 == 1 and kp == 1),
+             "c4b_chain_f64's group: K1 launches != 1 float64 persistent")
     return bl
 
 
@@ -3738,8 +3766,10 @@ def k1_times(dev, reps=20, frames=(4194351, 16317, 8 * 8388555),
     (8 x 8,388,555 frames, one launch), on config 1's interpolated chunk,
     on a p2_cd16_1024trk call (2,048 channels x 65,600 frames of the
     batch-mastering engine, std 0.25, framed as the engine frames it, and
-    unframed, its window start not a multiple of 4), and K6's main-path
-    call; then the host's time a call of the 16,384-frame call's kernel
+    unframed, its window start not a multiple of 4), on a c4b_chain_f64
+    group (config 4's float64 data, 6 x 33,553,920 frames, one launch) and
+    on config 4b's 2^19-frame float64 chunk, and K6's main-path call; then
+    the host's time a call of the 16,384-frame call's kernel
     (perf_counter over ``host_reps`` calls with no wait, the median of
     five windows: the launch's Python and ctypes work, which paces a call
     that small).  Uses only entry points the port has had since K6 was
@@ -3790,6 +3820,15 @@ def k1_times(dev, reps=20, frames=(4194351, 16317, 8 * 8388555),
             lambda b=b, s=s: k1.fixed_step_kernel(
                 b, P2m, s, K2, M=kw2["M"], L=kw2["L"], nb=kw2["nb"],
                 qn=kw2["qn"]))
+    for label, n_t in (("c4b_chain_f64 group", C4B_GROUP),
+                       ("config 4b 2^19-frame float64 chunk", 1 << 19)):
+        eng, n, K4, start4, P4, _, kw4 = _steady_chunk(
+            CONFIG4, dev, n_t, dtype=np.float64)
+        buf4 = _noise_dev(dev, (6, eng.num_samples + n), 4646, 0.25,
+                          torch.float64)
+        calls[f"K1 kernel, {label}"] = (
+            lambda b=buf4, P=P4, s=start4, K=K4, kw=kw4: k1.fixed_step_kernel(
+                b, P, s, K, M=kw["M"], L=kw["L"], nb=kw["nb"], qn=kw["qn"]))
     times = {}
     for label, fn in calls.items():
         fn()
@@ -3811,7 +3850,7 @@ def k1_times(dev, reps=20, frames=(4194351, 16317, 8 * 8388555),
 def k1_ab(parent):
     """K1 against an older tree unpacked in ``parent`` (git archive into
     build/parent/): this script is copied there as chip_smoke_new.py, and
-    k1_times with the four K1 hashes runs in four processes, one a turn,
+    k1_times with the five K1 hashes runs in four processes, one a turn,
     in the order parent, change, change, parent (each process imports its
     own tree's package and builds its own library); the hashes of every
     turn must be equal."""
@@ -3835,7 +3874,7 @@ def k1_ab(parent):
         print(f"  {case} (ms): {', '.join(runs)}")
     hashes = [t["hashes"] for _, t in turns]
     same = all(h == hashes[0] for h in hashes)
-    print(f"  the four K1 hashes equal in all four turns: {same}")
+    print(f"  the five K1 hashes equal in all four turns: {same}")
     _require(same, "K1's bytes differ from the parent's")
 
 
@@ -3922,7 +3961,8 @@ def main(argv) -> int:
                           "hashes": [k1_checksum(dev),
                                      k1_checksum_interp(dev),
                                      k1_checksum_poly(dev),
-                                     k1_checksum_p2(dev)]}))
+                                     k1_checksum_p2(dev),
+                                     k1_checksum_f64(dev)]}))
         return 0
     if argv[1:2] == ["--k1-ab"] and len(argv) == 3:
         print(phase_device()[2])

@@ -920,6 +920,96 @@ def test_batch_engine_takes_the_hull_design():
                                    qn=main.qn) == (0, 0)
 
 
+# The persistent float64 design (csrc/fixed_step.cu, "Design: persistent
+# float64"): (ctor, frames, channels, K short of nb * L by, the buffer:
+# "step" hist + x through fixed_step, "buf" one [ch, W] buffer,
+# "unaligned" such a buffer 8 bytes off 16).  "chain" is c4b_chain_f64's
+# group (6 x 8 x 4,194,240 frames, one launch); "chunk" config 4b's
+# 2^19-frame chunk; "art64" 44.1k->48k (M = 147).
+C4 = (6, 380, 380, 48000, 44100, 0, IB)
+P64_CASES = {
+    "chain": (C4, 8 * 4194240, 6, 0, "buf"),
+    "chunk-step": (C4, 1 << 19, 6, 0, "step"),
+    "chunk-unaligned": (C4, 1 << 19, 6, 0, "unaligned"),
+    "short-K-mid-block": (C4, 300 * 160, 3, 77, "buf"),
+    "art64": ((6, 380, 380, 44100, 48000, 0, IB), 1 << 20, 6, 0, "buf"),
+}
+
+
+def _p64_case(case, dev):
+    """(buf, P, start, K, kw, step) for P64_CASES[case]: the engine's
+    steady plan (a CPU engine), std-0.25 float64 noise on the card; step
+    (hist, x) where the case runs through fixed_step."""
+    ctor, n_t, ch, cut, kind = P64_CASES[case]
+    eng = DeviceStreamResampler(*ctor, dtype=np.float64, device="cpu")
+    eng.advance_position(190)
+    n = n_t - n_t % eng.M
+    eng._plan(n)
+    K, start, j0, _, _ = eng._plan_compute(n)
+    nb = -(-K // eng.L)
+    K -= cut
+    P = eng._matrix(j0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    H = eng.num_samples
+    noise = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                       dtype=torch.float64).mul_(0.25)
+    kw = dict(M=eng.M, L=eng.L, nb=nb, qn=eng.qn)
+    if kind == "step":
+        return None, P, start, K, kw, (noise(ch, H), noise(ch, n))
+    W = H + n
+    if kind == "unaligned":
+        buf = noise(ch * W + 1)[1:].view(ch, W)
+        assert buf.data_ptr() % 16 == 8
+    else:
+        buf = noise(ch, W)
+    return buf, P, start, K, kw, None
+
+
+@pytest.mark.parametrize("case", list(P64_CASES))
+def test_persistent_f64_design_matches_plain_and_template(case,
+                                                          monkeypatch):
+    """The persistent float64 design, one launch, against the float64
+    plain version (within 1e-12 of the outputs' scale, a zero tail past K;
+    through fixed_step, fixed_step_reference's history and power sum) and,
+    bitwise, against the template on the same P with no hull known; the
+    launch counted under "persistent_f64"."""
+    dev = _card()
+    buf, P, start, K, kw, step = _p64_case(case, dev)
+    assert k1.launch_tile(P, M=kw["M"], qn=kw["qn"])[0] == "persistent_f64"
+    before = dict(k1.path_launches)
+
+    def run():
+        if step is None:
+            return k1.fixed_step_kernel(buf, P, start, K, **kw)
+        acc = torch.zeros((), dtype=torch.float64, device=dev)
+        h, o, a = k1.fixed_step(*step, P, start, K, acc,
+                                hist_len=step[0].shape[1], **kw)
+        hr, orf, ar = k1.fixed_step_reference(*step, P, start, K, acc,
+                                              hist_len=step[0].shape[1],
+                                              **kw)
+        assert torch.equal(h, hr)
+        assert float(a) == pytest.approx(float(ar), rel=1e-11)
+        return o
+
+    out = run()
+    torch.cuda.synchronize()
+    assert k1.path_launches == {**before, "persistent_f64":
+                                before["persistent_f64"] + 1}
+    M, qn, nb = kw["M"], kw["qn"], kw["nb"]
+    src = buf if step is None else torch.cat(step, dim=1)
+    ref = k1.window_dots(k1.window_at(src, start, (nb - 1) * M + qn * M),
+                         P, K, **kw)
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    assert not out[:, K:].any()
+    del ref
+    monkeypatch.setattr(k1, "_hulls_of", lambda P: (None, 0))
+    tmpl = run()
+    torch.cuda.synchronize()
+    assert k1.path_launches["template"] == before["template"] + 1
+    assert torch.equal(out, tmpl)
+
+
 # ----------------------------------------------------- the decimate kernels
 # bitwise: the packed bytes, clip counts and states are exact contracts
 DEC_FLAT = [  # (dither type, bits, bytes, dtype, planar, layout, K cut)

@@ -175,7 +175,8 @@ def test_polyphase_apply_shapes():
 # without one, the template).  The resident design holds
 # its CTA's whole P (qn * M rows) and a window buffer for each of its two
 # warp groups; the hull design P's hull rows and, in each of two buffers,
-# each block's hull span of its window.
+# each block's hull span of its window; the persistent float64 design a
+# 128-block window at an even stride and two pieces of P's hull rows.
 LAUNCHES = [
     ((147, 4, False, torch.float32, False, 412),
      ("resident", 128, 588, 230944)),
@@ -195,7 +196,17 @@ LAUNCHES = [
     ((147, 4, False, torch.float32, True, 412),
      ("template", 128, 147, 114736)),
     ((160, 4, False, torch.float64, False, 420),
+     ("persistent_f64", 128, 120, 231248)),
+    ((160, 4, False, torch.float64, False, 0),
      ("template", 128, 160, 209760)),
+    ((147, 4, False, torch.float64, False, 412),
+     ("persistent_f64", 128, 144, 230960)),
+    ((147, 4, True, torch.float64, False, 0),
+     ("template", 128, 147, 229408)),
+    ((320, 2, False, torch.float64, False, 228),
+     ("template", 32, 320, 166752)),
+    ((160, 4, False, torch.float32, True, 420),
+     ("template", 128, 160, 104912)),
 ]
 
 
@@ -247,9 +258,13 @@ def test_hull_geometry_fits_two_buffers(shape):
         stride = hull if hull % 16 else hull + 4
         assert (bm, pr) == (96, hull) and 0 < hull <= qn * M
         assert smem == 4 * (32 * hull + 2 * 96 * stride) <= 232448
-        for kw in (dict(precise=True), dict(dtype=torch.float64)):
-            assert k1.kernel_tile(M, qn, False, hull=hull, **kw)[0] == \
-                "template"
+        assert k1.kernel_tile(M, qn, False, hull=hull,
+                              precise=True)[0] == "template"
+        # float64 takes its own design or the template, at any hull
+        f64 = k1.kernel_tile(M, qn, False, hull=hull, dtype=torch.float64)
+        assert f64[0] in ("persistent_f64", "template")
+        assert f64 == k1.kernel_tile(M, qn, False, hull=4,
+                                     dtype=torch.float64)
         assert k1.kernel_tile(M, qn, True, hull=hull)[0] != "hull"
         assert k1.kernel_tile(M, qn, False, hull=hull + 2)[0] == "template"
     if resident[0] == "template" and M % 4 == 0:
@@ -267,6 +282,175 @@ def test_resident_shapes_keep_their_launch_at_any_hull(shape, launch):
     M, qn, interp = shape
     for hull in (0, 4, 228, 252, 412, qn * M):
         assert k1.kernel_tile(M, qn, interp, hull=hull) == launch
+
+
+@pytest.mark.parametrize("shape", [(160, 4), (147, 4), (200, 2), (32, 8),
+                                   (36, 20), (204, 4), (205, 4), (320, 2),
+                                   (256, 3), (31, 8), (147, 5)])
+def test_persistent_f64_geometry_fits_its_buffers(shape):
+    """The persistent float64 design, on a P whose hulls are known (any
+    hull of 1 to qn*M rows), takes float64 reduced shapes of M >= 32 whose
+    128-block window (the 128 + qn - 1 rows a tile reads, at a stride of M
+    rounded up to a multiple of 4, +2), two pieces of at least 32 rows of
+    32 doubles and four mbarriers fit 232,448 B: each piece the most 4-row groups that
+    fit, no more than qn padded slices.  With no hull known,
+    interpolated, float32 or summed in float64 from float32, the shape
+    keeps its other launch."""
+    M, qn = shape
+    mp = -(-M // 4) * 4
+    stride = mp + 2
+    win = (128 + qn - 1) * stride * 8
+    pr = min((232448 - win - 32) // (2 * 32 * 8), qn * mp) & ~3
+    fits = M >= 32 and win < 232448 and pr >= 32
+    template = k1.kernel_tile(M, qn, False, dtype=torch.float64)
+    assert template[0] == "template"
+    for hull in (1, 4, 228, qn * M):
+        got = k1.kernel_tile(M, qn, False, dtype=torch.float64, hull=hull)
+        if not fits:
+            assert got == template
+            continue
+        assert stride % 4 == 2 and pr % 4 == 0 and 32 <= pr <= qn * mp
+        smem = win + 2 * pr * 32 * 8 + 32
+        assert got == ("persistent_f64", 128, pr, smem)
+        assert smem <= 232448
+    assert k1.kernel_tile(M, qn, False, dtype=torch.float64,
+                          hull=qn * M + 1) == template
+    assert k1.kernel_tile(M, qn, True, dtype=torch.float64,
+                          hull=4)[0] == "template"
+    for kw in (dict(), dict(precise=True)):
+        assert k1.kernel_tile(M, qn, False, hull=4, **kw)[0] != \
+            "persistent_f64"
+
+
+# The launches K1 makes on the engines' own matrices (k1.launch_tile: with
+# P's hulls where the shape may take a design that reads them): config 4's
+# float64 5.1 chain (48k->44.1k, M = 160) the persistent float64 design;
+# the main path (float32, M = 147) the resident design, the batch cell's
+# preset -2 (M = 320) the hull design on its 228 hull rows, float32 at M
+# = 160 the template; float32 summed in float64, interpolated float64 and
+# float64 at M = 320 (its window outgrows the design) the template.
+ENGINE_LAUNCHES = {
+    "config4-f64": ((6, 380, 380, 48000, 44100, 0, IB), np.float64, False,
+                    ("persistent_f64", 128, 120, 231248)),
+    "main-path-f32": ((2, 380, 380, 44100, 48000, 0, IB), np.float32, False,
+                      ("resident", 128, 588, 230944)),
+    "preset-2-f32": ((2, 156, 320, 96000, 44100, 0, IB), np.float32, False,
+                     ("hull", 96, 228, 204288)),
+    "48k-44k1-f32": ((2, 380, 380, 48000, 44100, 0, IB), np.float32, False,
+                     ("template", 128, 160, 104912)),
+    "main-path-precise": ((2, 380, 380, 44100, 48000, 0, IB), np.float32,
+                          True, ("template", 128, 147, 114736)),
+    "config1-interp-f64": ((1, 48, 48, 44100, 48000, 0,
+                            SUBSAMPLE_INTERPOLATE | BLACKMAN_HARRIS),
+                           np.float64, False, ("template", 128, 147, 227040)),
+    "preset-2-f64": ((2, 156, 320, 96000, 44100, 0, IB), np.float64, False,
+                     ("template", 32, 320, 166752)),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_LAUNCHES))
+def test_launch_tile_on_the_engines_matrices(case):
+    from art_tpu_torch import DeviceStreamResampler
+    ctor, dtype, precise, launch = ENGINE_LAUNCHES[case]
+    eng = DeviceStreamResampler(*ctor, dtype=dtype, precise=precise,
+                                device="cpu")
+    if eng.interp:
+        P, fracv = eng._interp_matrix(0.25)[:2]
+    else:
+        P, fracv = eng._matrix(0), None
+    assert P.dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+    assert k1.launch_tile(P, M=eng.M, qn=eng.qn, fracv=fracv,
+                          precise=precise) == launch
+    assert launch[3] <= 232448
+
+
+def _padded(k, M, Mp):
+    return k // M * Mp + k % M
+
+
+def _synthetic_p(M, qn, L, rows):
+    """A float64 P [qn*M, L] of zeros but for (row, phase, value) ``rows``."""
+    P = torch.zeros((qn * M, L), dtype=torch.float64)
+    for k, l, v in rows:
+        P[k, l] = v
+    return P
+
+
+# P's of the persistent float64 design: the engines' own (config 4's 5.1
+# chain, art64's 44.1k->48k) and synthetic ones (M = 41, 3 slices, 70
+# phases: a group on the first row, an empty group, one on the last row;
+# M = 40, no pad rows; M = 37, each group a single row mid-slice; M = 33,
+# a group spanning every slice)
+PACKED_CASES = {
+    "config4": None,
+    "art64": None,
+    "synthetic": (41, 3, 70, [(0, 3, 1.0), (122, 66, -2.0)]),
+    "no-pad-rows": (40, 4, 64, [(5, 1, 0.5), (70, 20, 1.5), (159, 40, -1.0)]),
+    "single-rows": (37, 2, 96, [(17, 0, 1.0), (40, 33, 2.0), (73, 95, 3.0)]),
+    "every-slice": (33, 4, 32, [(2, 7, 1.0), (131, 30, -1.0)]),
+}
+
+
+@pytest.mark.parametrize("case", list(PACKED_CASES))
+def test_packed_rows_hold_each_groups_padded_hull(case):
+    """The persistent float64 design's packed P (k1._packed_of): column
+    group g's padded rows [a, b) (k1.p64_group_rows) are 4-row groups of
+    padded rows (row k = q*M + m at q*Mp + m, Mp = M rounded up to a
+    multiple of 4; k1.p64_sources maps them back) that hold the group's
+    hull (its halves' union), (0, 0) for a zero group; row j of packed[g]
+    is padded row a + j of P over the group's 32 phases, zero on pad
+    rows, past b and past L; R the widest group; kept beside P with its
+    hulls and packed again once P changes in place."""
+    from art_tpu_torch import DeviceStreamResampler
+    if PACKED_CASES[case] is not None:
+        M, qn, L, nonzero = PACKED_CASES[case]
+        P = _synthetic_p(M, qn, L, nonzero)
+    else:
+        src, dst = (48000, 44100) if case == "config4" else (44100, 48000)
+        eng = DeviceStreamResampler(6, 380, 380, src, dst, 0, IB,
+                                    dtype=np.float64, device="cpu")
+        M, qn, L, P = eng.M, eng.qn, eng.L, eng._matrix(0)
+    Mp = -(-M // 4) * 4
+    halves = k1._hulls_of(P)[0]
+    rows = k1.p64_group_rows(halves, M)
+    packed, R = k1._packed_of(P, M)
+    assert len(rows) == -(-L // 32)
+    assert R == max(b - a for a, b in rows)
+    assert packed.shape == (len(rows), R, 32) and packed.is_contiguous()
+    for g, ((a, b), hull) in enumerate(zip(rows, k1.column_hulls(P).tolist())):
+        if hull[1] <= hull[0]:
+            assert (a, b) == (0, 0) and not packed[g].any()
+            continue
+        assert a % 4 == 0 and b % 4 == 0
+        assert a <= _padded(hull[0], M, Mp)
+        assert b > _padded(hull[1] - 1, M, Mp)
+        want = torch.zeros((R, 32), dtype=P.dtype)
+        c1 = min(32 * g + 32, L) - 32 * g
+        sources = k1.p64_sources(M, a, b)
+        for j, k in enumerate(range(a, b)):
+            q, m = divmod(k, Mp)
+            assert sources[j] == (q * M + m if m < M else -1)
+            if m < M:
+                want[j, :c1] = P[q * M + m, 32 * g:32 * g + c1]
+        assert torch.equal(packed[g], want)
+    assert k1._packed_of(P, M)[0] is packed
+    P[hull[0], 32 * g] += 1.0           # in place: packed again
+    again = k1._packed_of(P, M)[0]
+    assert again is not packed and not torch.equal(again, packed)
+
+
+@pytest.mark.parametrize("M,qn", [(160, 4), (147, 4), (41, 3), (33, 4)])
+def test_padded_rows_hold_every_row_of_p_once(M, qn):
+    """The padded rows of qn slices (k1.p64_sources over [0, qn*Mp)) hold
+    P's rows 0 .. qn*M - 1 once each, in order, each slice followed by its
+    Mp - M pad rows (-1)."""
+    Mp = -(-M // 4) * 4
+    sources = k1.p64_sources(M, 0, qn * Mp)
+    want = []
+    for q in range(qn):
+        want += list(range(q * M, q * M + M)) + [-1] * (Mp - M)
+    assert sources == want
+    assert k1.p64_sources(M, Mp - 4, Mp + 4) == want[Mp - 4:Mp + 4]
 
 
 def _plain_hulls(P, cols=32):
@@ -384,7 +568,8 @@ def test_hull_lead_frames_only_for_the_hull_design():
 
 @pytest.mark.parametrize("G,units,slots", [(5, 7134, 132), (5, 1, 132),
                                            (5, 2, 132), (3, 10, 7),
-                                           (80, 3, 132), (200, 4, 132)])
+                                           (80, 3, 132), (200, 4, 132),
+                                           (1, 49170, 132), (1, 7, 132)])
 def test_resident_grid_covers_every_tile_once(G, units, slots):
     """The resident grid: never more CTAs than the card holds or than
     there are tiles; every (column group, tile) taken by exactly one CTA;
