@@ -6,7 +6,8 @@ plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  The library lands in ``build/art_tpu_torch/`` at the root
 of the checkout, named by a hash of the sources, headers and flags, so
 editing a source rebuilds it and an unchanged tree reuses it.  Nothing is
-built at import: the first launch builds.  ``csrc/*_geometry.cpp`` (the
+built at import: the first launch builds, inside a ``library`` build
+(``utils/spans.build``).  ``csrc/*_geometry.cpp`` (the
 K1, decimate and biquad kernels' host geometry, from the headers
 ``fixed_step.cu``, ``decimate.cu`` and ``biquad.cu`` include) are built
 apart, by the host's C++ compiler, so they need no card.
@@ -20,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ..utils.spans import build
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -182,6 +185,12 @@ def geometry_library() -> ctypes.CDLL:
     global _geometry_lib
     if _geometry_lib is not None:
         return _geometry_lib
+    with build("library"):
+        _geometry_lib = _build_geometry()
+    return _geometry_lib
+
+
+def _build_geometry() -> ctypes.CDLL:
     srcs = sorted(CSRC.glob("*_geometry.cpp"))
     so = BUILD_DIR / (f"libart_geometry_"
                       f"{_digest(CXX_FLAGS, [*srcs, *_headers()])}.so")
@@ -197,8 +206,7 @@ def geometry_library() -> ctypes.CDLL:
                                f"{', '.join(p.name for p in srcs)}:\n"
                                f"{r.stdout}{r.stderr}")
         os.replace(tmp, so)     # atomic, as for the kernels' library
-    _geometry_lib = _bind(ctypes.CDLL(str(so)), _GEOMETRY_SIGNATURES)
-    return _geometry_lib
+    return _bind(ctypes.CDLL(str(so)), _GEOMETRY_SIGNATURES)
 
 
 def library() -> ctypes.CDLL:
@@ -206,13 +214,14 @@ def library() -> ctypes.CDLL:
     global _lib, build_log, library_path
     if _lib is not None:
         return _lib
-    sources = sorted(CSRC.glob("*.cu"))
-    so = BUILD_DIR / (f"libart_kernels_"
-                      f"{_digest(NVCC_FLAGS, sources + _headers())}.so")
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        build_log = _compile(sources, so)
-    lib = _bind(ctypes.CDLL(str(so)), _SIGNATURES)
+    with build("library"):
+        sources = sorted(CSRC.glob("*.cu"))
+        so = BUILD_DIR / (f"libart_kernels_"
+                          f"{_digest(NVCC_FLAGS, sources + _headers())}.so")
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            build_log = _compile(sources, so)
+        lib = _bind(ctypes.CDLL(str(so)), _SIGNATURES)
     library_path = so
     _lib = lib
     return lib

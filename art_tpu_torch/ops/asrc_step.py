@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.spans import LAUNCH, span
+from ..utils.spans import LAUNCH, first_launch, span
 from . import _build
 
 launches = {"asrc_step": 0, "asrc_step_f64": 0, "asrc_apply": 0,
@@ -227,7 +227,7 @@ def asrc_step_kernel(hist, x, bank, offsets, ratios, Ks, shift: int, *,
         lib = _build.library()
         fn = lib.art_asrc_step_f64 if f64 else lib.art_asrc_step_f32
         out = torch.empty((S, k_max), dtype=hist.dtype, device=dev)
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), first_launch(name):
             rc = fn(hist.data_ptr(), H, x.data_ptr(), n, S,
                     bank.data_ptr(), num_taps, num_filters, geo.piece_taps,
                     geo.lane_span, geo.outputs_per_block, geo.threads,
@@ -295,7 +295,7 @@ def asrc_apply_kernel(buf, bank, base, fi, frac):
         lib = _build.library()
         fn = lib.art_asrc_apply_f64 if f64 else lib.art_asrc_apply_f32
         out = torch.empty((S, K), dtype=dt, device=dev)
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), first_launch(name):
             rc = fn(buf.data_ptr(), S, B, bank.data_ptr(), num_taps,
                     bank.shape[0] - 1, geo.piece_taps, geo.lane_span,
                     geo.outputs_per_block, geo.threads, base.data_ptr(),

@@ -56,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.spans import BIQUAD, LAUNCH, span, spanned
+from ..utils.spans import BIQUAD, LAUNCH, build, first_launch, span, spanned
 from . import _build
 
 launches = {"biquad": 0}
@@ -468,10 +468,12 @@ def _run(x_ns, secs, hist, K: int, out_sn: bool):
             scratch = _scratch_for(dev, stream, _scratch_words(n, S))
             epoch = _epoch[0] + 1
             _epoch[0] += ns
-            rc = lib.art_biquad_cascade(
-                ns, x_ns.data_ptr(), n, S, x_ns.stride(0), x_ns.stride(1),
-                _KINDS[x_ns.dtype], int(K), *ptrs, mid.data_ptr(), msi, msc,
-                y.data_ptr(), ysi, ysc, scratch.data_ptr(), epoch, stream)
+            with first_launch(("biquad", x_ns.dtype)):
+                rc = lib.art_biquad_cascade(
+                    ns, x_ns.data_ptr(), n, S, x_ns.stride(0),
+                    x_ns.stride(1), _KINDS[x_ns.dtype], int(K), *ptrs,
+                    mid.data_ptr(), msi, msc, y.data_ptr(), ysi, ysc,
+                    scratch.data_ptr(), epoch, stream)
         host_calls["biquad"] += 1
         if rc != 0:
             raise RuntimeError(f"art_biquad_cascade launch failed: "
@@ -636,10 +638,12 @@ class DeviceBiquadCascade:
                                              device=self.device),
                             self.device)
 
-        if combined:
-            self._sections = (section(*combine_biquads(bq1, bq2)),)
-        else:
-            self._sections = (section(bq1.a, bq1.b), section(bq2.a, bq2.b))
+        with build("bank"):
+            if combined:
+                self._sections = (section(*combine_biquads(bq1, bq2)),)
+            else:
+                self._sections = (section(bq1.a, bq1.b),
+                                  section(bq2.a, bq2.b))
         self._state = None          # [xh1, yh1, xh2, yh2] on the device
 
     def push_from(self, bq1, bq2) -> None:

@@ -41,7 +41,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.spans import LAUNCH, span
+from ..utils.spans import LAUNCH, first_launch, span
 from . import _build
 from .decimate_kernel import _INV15_32, _M32
 
@@ -367,7 +367,7 @@ def decimate_flat(samples, K: int, *, scaler: float, highclip: int,
         if n:
             gens = gens.contiguous() if dithered else None
             lib = _build.library()
-            with torch.cuda.device(dev):
+            with torch.cuda.device(dev), first_launch(("decimate_flat", dt)):
                 stream = torch.cuda.current_stream(dev).cuda_stream
                 rc = lib.art_decimate_flat(
                     samples.data_ptr(), n, S, samples.stride(0),
@@ -431,7 +431,9 @@ def decimate_shaped(samples, K: int, *, scaler: float, a, b, xh, yh,
             return out, clips, gens, feedback, xh, yh
         gens = gens.contiguous() if dithered else None
         lib = _build.library()
-        with torch.cuda.device(dev):
+        # the instance's quad count follows from S
+        with torch.cuda.device(dev), \
+                first_launch(("decimate_shaped", dt, S)):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.art_decimate_shaped(
                 samples.data_ptr(), n, S, samples.stride(0),

@@ -54,7 +54,7 @@ import functools
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ..utils.spans import LAUNCH, span
+from ..utils.spans import LAUNCH, build, first_launch, span
 from . import _build
 
 launches = 0
@@ -209,11 +209,12 @@ def _kept_of(P):
     to the host each time."""
     kept = _kept_hulls.get(P)
     if kept is None or kept[0] != P._version:
-        halves = torch.zeros((2 * -(-P.shape[1] // 32), 2),
-                             dtype=torch.int32, device=P.device)
-        h = column_hulls(P, cols=16)
-        halves[:len(h)] = h
-        kept = [P._version, halves, hull_rows(column_hulls(P)), None]
+        with build("hulls"):
+            halves = torch.zeros((2 * -(-P.shape[1] // 32), 2),
+                                 dtype=torch.int32, device=P.device)
+            h = column_hulls(P, cols=16)
+            halves[:len(h)] = h
+            kept = [P._version, halves, hull_rows(column_hulls(P)), None]
         _kept_hulls[P] = kept
     return kept
 
@@ -260,17 +261,18 @@ def _packed_of(P, M: int):
     launch of the design from its kept hulls, and kept with them."""
     kept = _kept_of(P)
     if kept[3] is None or kept[3][0] != M:
-        rows = p64_group_rows(kept[1].cpu(), M)
-        R = max(b - a for a, b in rows)
-        L = P.shape[1]
-        packed = P.new_zeros((len(rows), max(R, 1), 32))
-        for g, (a, b) in enumerate(rows):
-            src = torch.tensor(p64_sources(M, a, b), dtype=torch.int64,
-                               device=P.device)
-            keep = src >= 0
-            c0, c1 = 32 * g, min(32 * g + 32, L)
-            packed[g, :b - a, :c1 - c0][keep] = P[src[keep], c0:c1]
-        kept[3] = (M, packed, R)
+        with build("hulls"):
+            rows = p64_group_rows(kept[1].cpu(), M)
+            R = max(b - a for a, b in rows)
+            L = P.shape[1]
+            packed = P.new_zeros((len(rows), max(R, 1), 32))
+            for g, (a, b) in enumerate(rows):
+                src = torch.tensor(p64_sources(M, a, b), dtype=torch.int64,
+                                   device=P.device)
+                keep = src >= 0
+                c0, c1 = 32 * g, min(32 * g + 32, L)
+                packed[g, :b - a, :c1 - c0][keep] = P[src[keep], c0:c1]
+            kept[3] = (M, packed, R)
     return kept[3][1], kept[3][2]
 
 
@@ -366,7 +368,8 @@ def _launch(buf, P, start: int, K: int, *, M: int, L: int, nb: int,
                 packed, R = _packed_of(P, M)
         out = torch.empty((ch, nb * L), dtype=buf.dtype, device=dev)
         design = ctypes.c_int()
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), \
+                first_launch(("fixed_step", inst, fracv is None, M, qn)):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.art_fixed_step(
                 buf.data_ptr(), ch, W, int(start), int(K), P.data_ptr(),

@@ -42,7 +42,7 @@ from ..core.flags import (BLACKMAN_HARRIS, EXTRAPOLATE_ENDPOINTS,
                           validate_taps_filters)
 from ..engines.resampler import ResampleResult
 from ..ops.asrc_step import apply_prologue, asrc_apply, asrc_step
-from ..utils.spans import CALL, PLAN, span, spanned, upload
+from ..utils.spans import CALL, PLAN, build, span, spanned, upload
 
 KERNELS = ("auto", "hankel", "dense", "pallas", "xla")
 
@@ -96,10 +96,11 @@ class BatchedASRC:
         # lowpass folds into the sinc argument exactly like the fixed
         # engines (reference init_filter, resampler.c:1111); 1.0 = none
         self.lowpass_ratio = float(lowpass_ratio)
-        self.bank = make_filter_bank(num_taps, num_filters,
-                                     self.lowpass_ratio, blackman_harris,
-                                     self.dtype.type)
-        self._bank_dev = torch.from_numpy(self.bank).to(self.device)
+        with build("bank"):
+            self.bank = make_filter_bank(num_taps, num_filters,
+                                         self.lowpass_ratio, blackman_harris,
+                                         self.dtype.type)
+            self._bank_dev = torch.from_numpy(self.bank).to(self.device)
         if kernel in ("auto", "dense", "hankel"):
             if dense_kb & (dense_kb - 1) or dense_kb < 128:
                 raise ValueError("dense_kb must be a power of two >= 128")

@@ -59,7 +59,7 @@ from ..engines.resampler import ResampleResult, Resampler
 from ..ops import decimate_device as dd
 from ..ops import fixed_step as k1
 from ..ops.polyphase import PolyphaseMatrix
-from ..utils.spans import CALL, PLAN, span, spanned, upload
+from ..utils.spans import CALL, PLAN, build, span, spanned, upload
 
 
 def _group_buf(hist, xs_flat, G: int, n: int, hist_len: int,
@@ -240,10 +240,11 @@ class DeviceStreamResampler:
         # resampler.c:120-125)
         lowpass_ratio, self.flags = resolve_lowpass(plan.lowpass_ratio,
                                                     plan.flags)
-        self.bank = make_filter_bank(num_taps, self.num_filters,
-                                     lowpass_ratio,
-                                     bool(flags & BLACKMAN_HARRIS),
-                                     self.dtype.type)
+        with build("bank"):
+            self.bank = make_filter_bank(num_taps, self.num_filters,
+                                         lowpass_ratio,
+                                         bool(flags & BLACKMAN_HARRIS),
+                                         self.dtype.type)
         if self.interp:
             self.L, self.M = Lp, Mp
         else:
@@ -299,11 +300,12 @@ class DeviceStreamResampler:
         it) and uploaded once."""
         m = self._mats.get(j0)
         if m is None:
-            pm = PolyphaseMatrix(self.bank, self.L, self.M, j0,
-                                 bool(self.flags & INCLUDE_LOWPASS))
-            P = np.zeros((self.qn * self.M, self.L), dtype=self.dtype)
-            P[:pm.S, :] = pm.P.T
-            m = to_device(P, self.device)
+            with build("matrix"):
+                pm = PolyphaseMatrix(self.bank, self.L, self.M, j0,
+                                     bool(self.flags & INCLUDE_LOWPASS))
+                P = np.zeros((self.qn * self.M, self.L), dtype=self.dtype)
+                P[:pm.S, :] = pm.P.T
+                m = to_device(P, self.device)
             self._mats[j0] = m
         return m
 
@@ -442,14 +444,15 @@ class DeviceStreamResampler:
         key = (d.tobytes(), fi.tobytes(), frac.tobytes())
         m = self._interp_cache.get(key)
         if m is None:
-            if self._bank_dev is None:
-                self._bank_dev = to_device(self.bank, self.device)
-            P2 = _build_interp_matrix(
-                self._bank_dev, to_device(d, self.device),
-                to_device(fi, self.device), self.qn * self.M, self.L,
-                self.num_taps)
-            m = (P2, to_device(frac.astype(self.dtype), self.device), d, fi,
-                 frac)
+            with build("matrix"):
+                if self._bank_dev is None:
+                    self._bank_dev = to_device(self.bank, self.device)
+                P2 = _build_interp_matrix(
+                    self._bank_dev, to_device(d, self.device),
+                    to_device(fi, self.device), self.qn * self.M, self.L,
+                    self.num_taps)
+                m = (P2, to_device(frac.astype(self.dtype), self.device), d,
+                     fi, frac)
             if len(self._interp_cache) > 64:
                 # evict ONE oldest entry (dict preserves insertion order):
                 # clearing everything made a 65-pattern working set rebuild
